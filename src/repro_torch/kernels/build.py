@@ -1,0 +1,68 @@
+"""Build the port's CUDA sources with nvcc and bind them with ctypes.
+
+Each `csrc/<name>.cu` has a plain C interface and becomes
+`build/kernels/lib<name>-<hash>.so` at the repository root, compiled for
+Hopper only (`sm_90a`).  The hash covers the source and the flags, so an
+edited source is rebuilt and a stale library is never loaded.  Nothing is
+compiled at import time: the first use of a kernel builds it, or
+`build_all()` builds every source at once, one nvcc each, in parallel.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from concurrent.futures import ThreadPoolExecutor
+from pathlib import Path
+
+CSRC = Path(__file__).resolve().parent / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+SOURCES = ("sign_pack",)
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc") or "/usr/local/cuda/bin/nvcc"
+    if not Path(found).exists():
+        raise RuntimeError("nvcc not found: the CUDA kernels build only on a "
+                           "machine with the CUDA toolkit")
+    return found
+
+
+def _compile(name: str) -> Path:
+    """Path of the built library of `csrc/<name>.cu`, compiled first if
+    missing (into a temporary file renamed atomically, so a reader never
+    sees half a library)."""
+    src = CSRC / f"{name}.cu"
+    h = hashlib.sha256(src.read_bytes()
+                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
+    target = BUILD_DIR / f"lib{name}-{h}.so"
+    if not target.exists():
+        BUILD_DIR.mkdir(parents=True, exist_ok=True)
+        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}"
+                                 f".tmp")
+        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                           capture_output=True, text=True)
+        if r.returncode != 0:
+            tmp.unlink(missing_ok=True)
+            raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}"
+                               f"{r.stderr}")
+        os.replace(tmp, target)
+    return target
+
+
+def build_all() -> None:
+    """Compile every source not yet built, one nvcc each, all at once."""
+    with ThreadPoolExecutor(len(SOURCES)) as pool:
+        list(pool.map(_compile, SOURCES))
+
+
+@functools.cache
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library of `csrc/<name>.cu`, built first if needed."""
+    return ctypes.CDLL(str(_compile(name)))

@@ -1,0 +1,162 @@
+"""Wrappers of the sign-wire CUDA kernels (`csrc/sign_pack.cu`).
+
+For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
+current stream, or raises: there is no fallback.  Only for CPU tensors does
+it run the plain version in `ref.py`.  Each kernel launch adds one to
+`launches[<name>]`, and nothing else does, so a run can show that its main
+path went through the kernels.
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from . import build, ref
+
+SUPPORTED_GROUP_SIZES = (32, 64, 128, 256, 512, 1024)   # see SIGN_DISPATCH
+
+launches: Dict[str, int] = {"ef_sign_fused": 0, "sign_decode_reduce": 0}
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("sign_pack")
+    lib.ef_sign_fused_launch.argtypes = [_VP] * 8 + [_LL, _I, _VP]
+    lib.ef_sign_fused_launch.restype = _I
+    lib.sign_decode_reduce_launch.argtypes = [_VP] * 4 + [_I, _LL, _I, _VP]
+    lib.sign_decode_reduce_launch.restype = _I
+    return lib
+
+
+def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: need {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def _check_group(n: int, group_size: int, device: torch.device) -> None:
+    if group_size % 32 or n % group_size or n <= 0:
+        raise ValueError(f"need group_size % 32 == 0 and n a positive "
+                         f"multiple of group_size (n={n}, g={group_size})")
+    if device.type == "cuda" and group_size not in SUPPORTED_GROUP_SIZES:
+        raise ValueError(f"no CUDA kernel for group_size={group_size}; "
+                         f"have {SUPPORTED_GROUP_SIZES}")
+
+
+def _scalar(v, device) -> torch.Tensor:
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.numel() != 1:
+        raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def _raise_if(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"(cudaGetLastError)")
+
+
+def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
+                  group_size: int, want_c: bool = False,
+                  out: Optional[Tuple[torch.Tensor, torch.Tensor,
+                                      torch.Tensor]] = None):
+    """Fused local COCO-EF step on the sign wire, one pass over g and e:
+    acc = gamma*g + e; words/scales = sign_pack(acc); c = sign(acc)*scale;
+    e_new = mask_self > 0 ? acc - c : e.
+
+    g, e: (n,) f32; gamma, mask_self: scalars (floats or one-element
+    tensors).  The CUDA kernel reads both from device memory: a tensor on
+    the device costs nothing, a float or a CPU tensor one copy to the
+    device per launch, which blocks the host (the train step therefore
+    makes gamma a device scalar once per step).
+    `out` = (words (n/32,) u32, scales (n/g,) f32, e_new (n,) f32) to write
+    into; e_new may be `e` itself (the update is safe in place).  Returns
+    (words, scales, c or None, e_new)."""
+    n = g.numel()
+    dev = g.device
+    _check_group(n, group_size, dev)
+    _check(g, "g", torch.float32, (n,), dev)
+    _check(e, "e", torch.float32, (n,), dev)
+    if out is None:
+        out = (torch.empty(n // 32, dtype=torch.uint32, device=dev),
+               torch.empty(n // group_size, dtype=torch.float32, device=dev),
+               torch.empty(n, dtype=torch.float32, device=dev))
+    words, scales, e_new = out
+    _check(words, "words", torch.uint32, (n // 32,), dev)
+    _check(scales, "scales", torch.float32, (n // group_size,), dev)
+    _check(e_new, "e_new", torch.float32, (n,), dev)
+    gamma_t, mask_t = _scalar(gamma, dev), _scalar(mask_self, dev)
+
+    if dev.type == "cpu":
+        w, s, c, en = ref.ef_sign_fused_ref(g, e, gamma_t, mask_t,
+                                            group_size)
+        words.copy_(w)
+        scales.copy_(s)
+        e_new.copy_(en)
+        return words, scales, (c if want_c else None), e_new
+    if dev.type != "cuda":
+        raise ValueError(f"ef_sign_fused: unsupported device {dev}")
+
+    c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().ef_sign_fused_launch(
+        g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
+        words.data_ptr(), scales.data_ptr(),
+        c.data_ptr() if c is not None else None, e_new.data_ptr(),
+        n, group_size, stream)
+    _raise_if(err, "ef_sign_fused")
+    launches["ef_sign_fused"] += 1
+    return words, scales, c, e_new
+
+
+def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,
+                       mask: torch.Tensor, group_size: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Server-side decode + masked sum over senders, in sender order:
+    words (N, n/32) u32, scales (N, n/g) f32, mask (N,) f32 -> (n,) f32,
+    written into `out` when given."""
+    dev = words.device
+    if words.dim() != 2:
+        raise ValueError(f"words: need (N, n/32), got {tuple(words.shape)}")
+    N, nw = words.shape
+    n = nw * 32
+    _check_group(n, group_size, dev)
+    _check(words, "words", torch.uint32, (N, nw), dev)
+    _check(scales, "scales", torch.float32, (N, n // group_size), dev)
+    _check(mask, "mask", torch.float32, (N,), dev)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+    _check(out, "out", torch.float32, (n,), dev)
+
+    if dev.type == "cpu":
+        return out.copy_(ref.sign_decode_reduce_ref(words, scales, mask,
+                                                    group_size))
+    if dev.type != "cuda":
+        raise ValueError(f"sign_decode_reduce: unsupported device {dev}")
+    if out.data_ptr() % 16:
+        raise ValueError("out: the kernel stores float4, need 16-byte "
+                         "alignment")
+    stream = torch.cuda.current_stream(dev).cuda_stream
+    err = _lib().sign_decode_reduce_launch(
+        words.data_ptr(), scales.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), N, n, group_size, stream)
+    _raise_if(err, "sign_decode_reduce")
+    launches["sign_decode_reduce"] += 1
+    return out

@@ -1,0 +1,173 @@
+"""The COCO-EF training step with every coding rank on one device (port of
+`repro.launch.train` for the one-card slice).
+
+  Stage 1  each coding rank's coded gradient g_i is one weighted backward
+           pass (the encode weights are folded into the per-example
+           weights), written into the model's one flat gradient buffer.
+  Stage 2  rank by rank, the fused local step (ef_sign_fused) packs
+           gamma*g_i + e_i into rank i's sign payload and updates e_i in
+           place; then one sender-order decode (sign_decode_reduce) writes
+           ghat into the gradient buffer, and the server update
+           theta <- theta - ghat runs in place.
+
+The coding ranks share the card, so the JAX collective's all_to_all /
+decode / all_gather is one decode here (`core.collectives`).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.configs.common import ArchSpec, ShapeCfg
+from repro_torch.core import coding
+from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
+from repro_torch.data import pipeline
+from repro_torch.nn.models import Model
+from repro_torch.optim.optimizers import (OptimizerConfig, apply_update,
+                                          init_opt_state, lr_schedule)
+from repro_torch.sim.stragglers import IIDBernoulli
+
+__all__ = ["TrainRun", "TrainSetup", "build_train_setup"]
+
+
+@dataclasses.dataclass(frozen=True)
+class TrainRun:
+    """The knobs of the slice's run: constant learning rate (the paper's
+    setting), the server optimizer, and the seed of the parameters, the
+    batches and the straggler masks.  The sign wire and cocoef mode are
+    fixed; the wire group comes from the spec's CodingPlan."""
+
+    base_lr: float = 1e-3
+    optimizer: OptimizerConfig = OptimizerConfig()
+    seed: int = 0
+
+
+Batch = Tuple[torch.Tensor, torch.Tensor]    # tokens (N, b, S+1), weights
+
+
+@dataclasses.dataclass
+class TrainSetup:
+    """Everything one run needs: the model over flat buffers, the coding
+    plan, the payload buffers and the optimizer state, on one device."""
+
+    run: TrainRun
+    model: Model
+    n_code: int
+    b_loc: int
+    per_subset: int
+    seq_len: int
+    allocation: coding.Allocation
+    W: np.ndarray                    # (N, M) f32 encode weights
+    cocoef_cfg: CocoEFConfig
+    straggler_process: Optional[IIDBernoulli]
+    payload: Tuple[torch.Tensor, torch.Tensor]
+    opt_state: Tuple[torch.Tensor, ...]
+
+    @property
+    def device(self) -> torch.device:
+        return self.model.theta.device
+
+    @property
+    def flat_pad(self) -> int:
+        return self.model.layout.padded
+
+    def init_state(self) -> torch.Tensor:
+        """Random parameters from `run.seed`; returns the zero (N, n) error
+        vectors."""
+        self.model.init_(self.run.seed)
+        return torch.zeros((self.n_code, self.flat_pad), dtype=torch.float32,
+                           device=self.device)
+
+    def make_batch(self, step: int) -> Batch:
+        toks, wts = pipeline.coded_train_batch(
+            self.run.seed, step, self.allocation, self.W, self.per_subset,
+            self.seq_len, self.model.cfg.vocab_size)
+        return toks.to(self.device), wts.to(self.device)
+
+    def mask(self, step: int) -> torch.Tensor:
+        if self.straggler_process is None:
+            return torch.ones(self.n_code, dtype=torch.float32)
+        return self.straggler_process.mask(self.run.seed, step)
+
+    def train_step(self, params: Model, e: torch.Tensor, batch: Batch,
+                   step: int, masks: Optional[torch.Tensor] = None,
+                   kernel_spans: Optional[List] = None
+                   ) -> Dict[str, torch.Tensor]:
+        """One COCO-EF step; updates params.theta, e and the optimizer
+        state in place.  masks: (N,) participation for this step (default:
+        the setup's straggler process at `step`).  kernel_spans: see
+        `cocoef_update`.  Returns {"loss": mean rank loss, "losses": (N,),
+        "mask": (N,)}."""
+        tokens, weights = batch
+        mask = (self.mask(step) if masks is None else
+                torch.as_tensor(masks, dtype=torch.float32))
+        mask = mask.to(self.device).contiguous()
+        losses = []
+
+        def grad_of(i: int) -> torch.Tensor:
+            params.grad.zero_()
+            loss, _ = params.loss(tokens[i], weights[i])
+            loss.backward()
+            losses.append(loss.detach())
+            return params.grad
+
+        self.coded_update(params, grad_of, e, mask, step, kernel_spans)
+        ls = torch.stack(losses)
+        return {"loss": ls.mean(), "losses": ls, "mask": mask}
+
+    def coded_update(self, params: Model, grad_of, e: torch.Tensor,
+                     mask: torch.Tensor, step: int,
+                     kernel_spans: Optional[List] = None) -> torch.Tensor:
+        """Stage 2 and the server update of one step: `cocoef_update` over
+        the ranks' gradients grad_of(i), with ghat written into
+        params.grad, then theta <- theta - ghat in place.  mask: (N,) f32 on
+        the setup's device.  Returns ghat (a view of params.grad)."""
+        gamma = lr_schedule("constant", self.run.base_lr)(step)
+        # one copy to the device per step, made before stage 1 is queued,
+        # instead of one per rank that would block the host between ranks
+        gamma_dev = gamma.to(self.device)
+        ghat = cocoef_update(grad_of, e, mask, gamma_dev, self.cocoef_cfg,
+                             self.payload, out=params.grad,
+                             kernel_spans=kernel_spans)
+        apply_update(self.run.optimizer, params.theta, ghat, self.opt_state,
+                     step, gamma)
+        return ghat
+
+
+def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
+                      run: TrainRun = TrainRun(), smoke: bool = False,
+                      n_code: int = 4, device="cuda") -> TrainSetup:
+    """The slice's counterpart of JAX's `build_train_setup` on a
+    (data=n_code, model=1) mesh: cyclic allocation with M = n_code subsets
+    and d = spec.coding.redundancy, rate-aware encode weights (eq. 3 for
+    the iid process), flat size padded to n_code * group_size."""
+    cfg = spec.smoke if smoke else spec.config
+    if spec.coding.compressor != "sign":
+        raise NotImplementedError("the port carries the sign wire only")
+    if n_code < 2:
+        raise ValueError("the coded step needs at least 2 coding ranks")
+    p = spec.coding.straggler_p
+    proc = IIDBernoulli(n_code, p) if p > 0 else None
+    M = n_code
+    d = min(spec.coding.redundancy, n_code)
+    alloc = coding.cyclic_allocation(n_code, M, d)
+    W = (coding.encode_weights(alloc, rates=proc.rates()) if proc
+         else coding.encode_weights(alloc, p=0.0))
+    per_subset = max(1, shape.global_batch // M)
+    ccfg = CocoEFConfig(group_size=spec.coding.group_size)
+
+    model = Model(cfg, chunk_ranks=n_code, group_size=ccfg.pad_multiple,
+                  device=device)
+    dev = model.theta.device
+    n = model.layout.padded
+    payload = (torch.zeros((n_code, n // 32), dtype=torch.uint32, device=dev),
+               torch.zeros((n_code, n // ccfg.group_size),
+                           dtype=torch.float32, device=dev))
+    return TrainSetup(
+        run=run, model=model, n_code=n_code, b_loc=per_subset * d,
+        per_subset=per_subset, seq_len=shape.seq_len, allocation=alloc, W=W,
+        cocoef_cfg=ccfg, straggler_process=proc, payload=payload,
+        opt_state=init_opt_state(run.optimizer, n, dev))

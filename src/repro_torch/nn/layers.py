@@ -1,0 +1,128 @@
+"""Dense layers in the JAX package's layouts (port of the dense parts of
+`repro.nn.layers`).
+
+Layouts match JAX: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d),
+w_gate/w_up (d, ff), w_down (ff, d), products written x @ W.  Parameters
+are f32 and cast to the compute dtype at use; compute runs in cfg.dtype.
+Attention is plain einsum + softmax, as JAX's XLA path is (a flash kernel
+is a later port).
+
+Scalars that JAX multiplies as weakly typed Python floats are rounded to
+the compute dtype first (`_cs`), as JAX does; torch would otherwise keep
+them in f32 inside the op and round the product differently.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+
+BIG_WINDOW = 1 << 30  # "no window" sentinel
+NEG_INF = -1e30
+
+
+def compute_dtype(cfg: ModelConfig) -> torch.dtype:
+    return getattr(torch, cfg.dtype)
+
+
+def _cs(v: float, dtype: torch.dtype) -> torch.Tensor:
+    """A Python float as a 0-dim CPU tensor of `dtype` (a weak scalar)."""
+    return torch.tensor(v, dtype=dtype)
+
+
+def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+               ) -> torch.Tensor:
+    """RMSNorm in f32: x * rsqrt(mean(x^2) + eps) * scale (not 1+scale)."""
+    xf = x.float()
+    ms = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+
+
+def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
+         ) -> torch.Tensor:
+    """x: (..., seq, heads, head_dim); positions broadcastable to (..., seq).
+    Rotation in f32 (bf16 x f32 promotes), result in x's dtype."""
+    hd = x.shape[-1]
+    half = hd // 2
+    expo = torch.arange(0, half, dtype=torch.float32, device=x.device) / half
+    freqs = 1.0 / (theta ** expo)
+    ang = positions[..., None].float() * freqs
+    cos = torch.cos(ang)[..., None, :]
+    sin = torch.sin(ang)[..., None, :]
+    x1, x2 = x[..., :half], x[..., half:]
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+def _qkv(p, x, cfg: ModelConfig, positions):
+    ct = x.dtype
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
+    k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
+    v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+    q = rope(q, positions, cfg.rope_theta) * _cs(cfg.head_dim ** -0.5, ct)
+    k = rope(k, positions, cfg.rope_theta)
+    return q, k, v
+
+
+def _softcap(scores: torch.Tensor, cap: float) -> torch.Tensor:
+    if cap <= 0:
+        return scores
+    c = _cs(cap, scores.dtype)
+    return c * torch.tanh(scores / c)
+
+
+def _attn_core(q, k, v, cfg: ModelConfig, q_pos, k_pos, w_eff: int):
+    """Scores + softmax (f32) + values for q against the full k/v."""
+    B, Sq = q.shape[:2]
+    ct = q.dtype
+    groups = cfg.num_heads // cfg.num_kv_heads
+    keep = (k_pos[None, :] <= q_pos[:, None]) & \
+           (k_pos[None, :] > q_pos[:, None] - w_eff)              # (Sq, St)
+    qh = q.reshape(B, Sq, cfg.num_kv_heads, groups, cfg.head_dim)
+    scores = torch.einsum("bsngk,btnk->bsngt", qh, k)
+    scores = _softcap(scores, cfg.attn_softcap)
+    scores = torch.where(keep[None, :, None, None, :], scores, NEG_INF)
+    wts = torch.softmax(scores.float(), dim=-1).to(ct)
+    out = torch.einsum("bsngt,btnk->bsngk", wts, v)
+    return out.reshape(B, Sq, cfg.num_heads, cfg.head_dim)
+
+
+def attn_train(p, x, cfg: ModelConfig, window: int = 0) -> torch.Tensor:
+    """Full causal self-attention; window 0 = global."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _qkv(p, x, cfg, pos[None])
+    w_eff = window if window > 0 else BIG_WINDOW
+    out = _attn_core(q, k, v, cfg, pos, pos, w_eff)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """GeGLU (gemma2's MLP; the other kinds are still to port).  jax.nn.gelu
+    defaults to the tanh approximation, hence approximate="tanh"."""
+    if cfg.mlp != "geglu":
+        raise NotImplementedError(f"mlp={cfg.mlp!r} is not ported yet")
+    ct = x.dtype
+    h = F.gelu(x @ p["w_gate"].to(ct), approximate="tanh") * \
+        (x @ p["w_up"].to(ct))
+    return h @ p["w_down"].to(ct)
+
+
+def embed(tok: torch.Tensor, inputs: torch.Tensor, cfg: ModelConfig
+          ) -> torch.Tensor:
+    """Token embedding: the table cast to the compute dtype, then gathered
+    (the JAX order, so its gradient also sums in the compute dtype).
+    Gemma scales by sqrt(d_model) in the compute dtype."""
+    ct = compute_dtype(cfg)
+    x = tok.to(ct)[inputs]
+    if cfg.name.startswith("gemma"):
+        x = x * _cs(cfg.d_model ** 0.5, ct)
+    return x
+
+
+def logits_from(tok: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
+                ) -> torch.Tensor:
+    """Tied head: x @ tok^T, then the final softcap in the compute dtype."""
+    logits = x @ tok.to(x.dtype).T
+    return _softcap(logits, cfg.final_softcap)

@@ -1,0 +1,65 @@
+"""Public model facade (port of `repro.nn.models.Model`, dense family)."""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+
+from repro_torch import resolve_device
+from repro_torch.core.cocoef import FlatLayout, flat_layout
+from . import transformer as T
+from .config import ModelConfig
+
+__all__ = ["Model"]
+
+
+class Model:
+    """A model whose parameters and gradients live in two padded flat f32
+    buffers on `device` (`theta`, `grad`), laid out as JAX flattens its
+    param tree and padded to a multiple of chunk_ranks * group_size."""
+
+    def __init__(self, cfg: ModelConfig, chunk_ranks: int = 1,
+                 group_size: int = 512, device="cuda"):
+        dev = resolve_device(device)
+        self.cfg = cfg
+        self.layout: FlatLayout = flat_layout(T.param_shapes(cfg),
+                                              chunk_ranks, group_size)
+        theta = torch.zeros(self.layout.padded, dtype=torch.float32,
+                            device=dev)
+        grad = torch.zeros_like(theta)
+        self.net = T.Transformer(cfg, self.layout, theta, grad)
+
+    @property
+    def theta(self) -> torch.Tensor:
+        return self.net.theta
+
+    @property
+    def grad(self) -> torch.Tensor:
+        return self.net.grad
+
+    def params(self) -> Dict[str, torch.Tensor]:
+        """name -> view of theta in the JAX shape (the state dict)."""
+        return self.net.stacked
+
+    def grads(self) -> Dict[str, torch.Tensor]:
+        return self.layout.views(self.net.grad)
+
+    @torch.no_grad()
+    def load_params(self, state: Dict[str, torch.Tensor]) -> None:
+        """Copy a state dict (e.g. from `convert.params_from_jax`) into
+        theta; the padding stays zero."""
+        views = self.params()
+        if set(state) != set(views):
+            raise KeyError(f"state dict keys differ: missing "
+                           f"{sorted(set(views) - set(state))}, extra "
+                           f"{sorted(set(state) - set(views))}")
+        for name, v in views.items():
+            v.copy_(state[name])
+
+    def init_(self, seed: int) -> None:
+        gen = torch.Generator(device=self.theta.device).manual_seed(seed)
+        self.net.init_(gen)
+
+    def loss(self, tokens: torch.Tensor, weights: torch.Tensor
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
+        return self.net.weighted_loss(tokens, weights)

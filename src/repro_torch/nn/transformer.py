@@ -1,0 +1,148 @@
+"""The dense decoder stack (port of the dense family of
+`repro.nn.transformer`): parameter shapes, init, forward and the coded
+weighted loss.
+
+Block parameters are stacked (L, ...) exactly as JAX lays them out
+(`blocks/attn/wq` is (L, d, H, hd), ...), and every leaf is a view into one
+padded flat f32 buffer in JAX's leaf order (`core.cocoef.flat_layout`).
+Autograd sees one leaf per layer — a view of layer l of the stacked tensor
+— whose `.grad` is the matching view of one flat gradient buffer, so the
+backward pass accumulates straight into the flat gradient with no
+concatenation and no full-size per-layer temporaries.
+"""
+from __future__ import annotations
+
+import math
+from typing import Dict, Tuple
+
+import torch
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from . import layers as L
+from .config import ModelConfig
+
+BLOCK_LEAVES = ("attn/wk", "attn/wo", "attn/wq", "attn/wv", "mlp/w_down",
+                "mlp/w_gate", "mlp/w_up", "norm1/scale", "norm2/scale")
+
+
+def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name -> shape of every parameter leaf of a dense model (the JAX
+    param tree's key paths joined by '/')."""
+    if cfg.family != "dense":
+        raise NotImplementedError(f"the port has the dense family only, "
+                                  f"not {cfg.family!r}")
+    if cfg.qkv_bias or cfg.norm != "rms" or not cfg.tie_embeddings \
+            or cfg.input_mode != "tokens" or cfg.mlp != "geglu":
+        raise NotImplementedError("the port's dense stack has RMSNorm, no "
+                                  "qkv bias, tied token embeddings, GeGLU")
+    Lyr, d, H, Hkv, hd, ff = (cfg.num_layers, cfg.d_model, cfg.num_heads,
+                              cfg.num_kv_heads, cfg.head_dim, cfg.d_ff)
+    shapes = {
+        "blocks/attn/wq": (Lyr, d, H, hd),
+        "blocks/attn/wk": (Lyr, d, Hkv, hd),
+        "blocks/attn/wv": (Lyr, d, Hkv, hd),
+        "blocks/attn/wo": (Lyr, H, hd, d),
+        "blocks/mlp/w_gate": (Lyr, d, ff),
+        "blocks/mlp/w_up": (Lyr, d, ff),
+        "blocks/mlp/w_down": (Lyr, ff, d),
+        "blocks/norm1/scale": (Lyr, d),
+        "blocks/norm2/scale": (Lyr, d),
+        "embed/tok": (cfg.vocab_size, d),
+        "final_norm/scale": (d,),
+    }
+    return shapes
+
+
+def num_params(cfg: ModelConfig) -> int:
+    return sum(math.prod(s) for s in param_shapes(cfg).values())
+
+
+def layer_windows(cfg: ModelConfig):
+    """Per-layer attention windows (gemma2 local/global alternation)."""
+    n = cfg.num_layers
+    if cfg.local_global_period and cfg.sliding_window:
+        return [cfg.sliding_window if i % cfg.local_global_period == 0
+                else L.BIG_WINDOW for i in range(n)]
+    return [cfg.sliding_window or L.BIG_WINDOW] * n
+
+
+def _fan_in(name: str, shape) -> int:
+    """Input size of a dense weight (JAX's dense_init scale)."""
+    if name.endswith("attn/wo"):
+        return shape[-3] * shape[-2]
+    return shape[-2] if name.startswith("blocks/mlp") else shape[1]
+
+
+class Transformer(nn.Module):
+    """Dense decoder stack over flat parameter/gradient buffers.
+
+    theta, grad: (layout.padded,) f32 buffers; `stacked` maps every leaf
+    name to its view of theta in the JAX shape."""
+
+    def __init__(self, cfg: ModelConfig, layout, theta: torch.Tensor,
+                 grad: torch.Tensor):
+        super().__init__()
+        self.cfg = cfg
+        self.layout = layout
+        self.theta, self.grad = theta, grad
+        self.stacked = layout.views(theta)
+        gviews = layout.views(grad)
+        self.layers = nn.ModuleList()
+        for l in range(cfg.num_layers):
+            blk = nn.ParameterDict()
+            for leaf in BLOCK_LEAVES:
+                name = "blocks/" + leaf
+                p = nn.Parameter(self.stacked[name][l])
+                p.grad = gviews[name][l]
+                blk[leaf.replace("/", "_")] = p
+            self.layers.append(blk)
+        self.tok = nn.Parameter(self.stacked["embed/tok"])
+        self.tok.grad = gviews["embed/tok"]
+        self.final_norm = nn.Parameter(self.stacked["final_norm/scale"])
+        self.final_norm.grad = gviews["final_norm/scale"]
+        self.windows = layer_windows(cfg)
+
+    @torch.no_grad()
+    def init_(self, gen: torch.Generator) -> None:
+        """Random init with JAX's distributions (not its bits): dense
+        weights N(0, 1/fan_in), the token table N(0, 1), norm scales 1."""
+        for name, v in self.stacked.items():
+            if name.endswith("/scale"):
+                v.fill_(1.0)
+                continue
+            v.normal_(generator=gen)
+            if name != "embed/tok":
+                v.mul_(1.0 / math.sqrt(max(1, _fan_in(name, v.shape))))
+
+    def _block(self, x: torch.Tensor, l: int) -> torch.Tensor:
+        b = self.layers[l]
+        attn = {k: b["attn_" + k] for k in ("wq", "wk", "wv", "wo")}
+        mlp = {k: b["mlp_" + k] for k in ("w_gate", "w_up", "w_down")}
+        h = L.attn_train(attn, L.apply_norm(b["norm1_scale"], x), self.cfg,
+                         window=self.windows[l])
+        x = x + h
+        return x + L.apply_mlp(mlp, L.apply_norm(b["norm2_scale"], x),
+                               self.cfg)
+
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """inputs (B, S) tokens -> (B, S, d) final normed hidden states.
+        Each block is rematerialised in the backward pass when cfg.remat."""
+        x = L.embed(self.tok, inputs, self.cfg)
+        for l in range(self.cfg.num_layers):
+            if self.cfg.remat and torch.is_grad_enabled():
+                x = checkpoint(self._block, x, l, use_reentrant=False)
+            else:
+                x = self._block(x, l)
+        return L.apply_norm(self.final_norm, x)
+
+    def weighted_loss(self, tokens: torch.Tensor, weights: torch.Tensor
+                      ) -> Tuple[torch.Tensor, torch.Tensor]:
+        """Coded loss sum_j w_j * mean-token-NLL(example j).
+        tokens (B, S+1), weights (B,) f32 -> (loss, per_example (B,))."""
+        x = self.forward(tokens[:, :-1])
+        logits = L.logits_from(self.tok, x, self.cfg)
+        logp = torch.log_softmax(logits.float(), dim=-1)
+        nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
+        per_example = nll.mean(dim=-1)
+        return (per_example * weights).sum(), per_example

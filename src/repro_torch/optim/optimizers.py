@@ -1,0 +1,105 @@
+"""Server-side optimizers on flat f32 vectors (port of
+`repro.optim.optimizers`).
+
+COCO-EF's aggregate ghat already contains the learning rate (eq. 4), so the
+paper's server optimizer is plain SGD: theta <- theta - ghat.  Momentum and
+Adam treat ghat/gamma as the gradient estimate.  Weight decay is decoupled
+(AdamW).  Unlike the JAX version, `apply_update` updates the parameter and
+state vectors in place, which saves a model-sized copy.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+
+_F32 = torch.float32
+
+
+@dataclasses.dataclass(frozen=True)
+class OptimizerConfig:
+    kind: str = "sgd"            # sgd | momentum | adam
+    momentum: float = 0.9
+    beta1: float = 0.9
+    beta2: float = 0.999
+    eps: float = 1e-8
+    weight_decay: float = 0.0
+
+
+def init_opt_state(cfg: OptimizerConfig, n: int, device="cpu"
+                   ) -> Tuple[torch.Tensor, ...]:
+    if cfg.kind == "sgd":
+        return ()
+    if cfg.kind == "momentum":
+        return (torch.zeros(n, dtype=_F32, device=device),)
+    if cfg.kind == "adam":
+        return (torch.zeros(n, dtype=_F32, device=device),
+                torch.zeros(n, dtype=_F32, device=device))
+    raise ValueError(cfg.kind)
+
+
+def _f32(v) -> torch.Tensor:
+    return torch.as_tensor(v, dtype=_F32)
+
+
+@torch.no_grad()
+def apply_update(cfg: OptimizerConfig, params_flat: torch.Tensor,
+                 ghat: torch.Tensor, state: Tuple[torch.Tensor, ...], step,
+                 gamma) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+    """params_flat (n,) f32 and the state vectors are updated in place;
+    returns (params_flat, state)."""
+    gamma = _f32(gamma)
+    decay = (params_flat * (cfg.weight_decay * gamma)
+             if cfg.weight_decay else None)
+    if cfg.kind == "sgd":
+        upd = ghat
+    elif cfg.kind == "momentum":
+        (m,) = state
+        m.mul_(_f32(cfg.momentum)).add_(ghat)
+        upd = m
+    elif cfg.kind == "adam":
+        m, v = state
+        g = ghat / torch.clamp(gamma, min=1e-20)
+        m.mul_(_f32(cfg.beta1)).add_(g * _f32(1 - cfg.beta1))
+        v.mul_(_f32(cfg.beta2)).add_(g * _f32(1 - cfg.beta2) * g)
+        t = _f32(step) + 1.0
+        mh = m / (1 - _f32(cfg.beta1) ** t)
+        vh = v / (1 - _f32(cfg.beta2) ** t)
+        upd = gamma * mh / (torch.sqrt(vh) + _f32(cfg.eps))
+    else:
+        raise ValueError(cfg.kind)
+    params_flat.sub_(upd)
+    if decay is not None:
+        params_flat.sub_(decay)
+    return params_flat, state
+
+
+SCHEDULES = ("constant", "rsqrt", "cosine")
+
+
+def lr_schedule(kind: str, base: float, warmup: int = 0,
+                total: Optional[int] = None):
+    """Returns gamma(step) as an f32 scalar tensor.  'constant' is the
+    paper's setting; 'rsqrt' the decaying scheme of Fig. 6; 'cosine' needs
+    `total`.  Knobs are validated here, at construction."""
+    if kind not in SCHEDULES:
+        raise ValueError(f"unknown lr schedule {kind!r}; have {SCHEDULES}")
+    if warmup < 0:
+        raise ValueError(f"warmup={warmup} must be >= 0 steps")
+    if kind == "cosine" and (total is None or total < 1):
+        raise ValueError(
+            f"cosine schedule needs total >= 1 decay steps, got {total!r}")
+
+    def f(step) -> torch.Tensor:
+        s = _f32(step)
+        g = _f32(base)
+        if kind == "rsqrt":
+            g = g / torch.sqrt(s + 1.0)
+        elif kind == "cosine":
+            frac = torch.clamp(s / total, 0.0, 1.0)
+            g = g * 0.5 * (1 + torch.cos(_f32(torch.pi) * frac))
+        if warmup > 0:
+            g = g * torch.clamp((s + 1.0) / warmup, 0.0, 1.0)
+        return g
+    return f

@@ -26,6 +26,7 @@ def pytest_configure(config):
         "markers",
         "slow: multi-minute distributed/e2e cases (deselect with "
         "-m 'not slow' for the quick tier-1 loop)")
+    config.addinivalue_line("markers", "gpu: needs a CUDA device (skips without one)")
 
 
 @pytest.fixture(autouse=True)

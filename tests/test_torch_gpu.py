@@ -1,0 +1,111 @@
+"""The port's CUDA kernels against their plain PyTorch versions, on the card.
+
+Marked `gpu`: they skip where no CUDA device is present (decided inside the
+`cuda` fixture, never at import).  This file imports no JAX, so it also
+runs on a machine without it:
+    PYTHONPATH=src python -m pytest --noconftest -m gpu tests/test_torch_gpu.py
+(--noconftest: tests/conftest.py imports JAX)."""
+import numpy as np
+import pytest
+import torch
+
+from _torch_cases import GAMMA, check_ef_outputs, ef_inputs
+from repro_torch.kernels import ref, sign_pack as sp
+
+pytestmark = pytest.mark.gpu
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA device")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _np(t):
+    return None if t is None else t.cpu().numpy()
+
+
+@pytest.mark.parametrize("group_size", sp.SUPPORTED_GROUP_SIZES)
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_ef_sign_fused_kernel_matches_plain(cuda, group_size, mask):
+    n = group_size * 8 * 37
+    g, e = ef_inputs(n, group_size, seed=group_size)
+    gt, et = torch.from_numpy(g).to(cuda), torch.from_numpy(e).to(cuda)
+    before = sp.launches["ef_sign_fused"]
+    got = sp.ef_sign_fused(gt, et, float(GAMMA), mask, group_size,
+                           want_c=True)
+    torch.cuda.synchronize()
+    assert sp.launches["ef_sign_fused"] == before + 1
+    want = ref.ef_sign_fused_ref(gt, et, float(GAMMA), mask, group_size)
+    check_ef_outputs(tuple(map(_np, want)), tuple(map(_np, got)),
+                     group_size, max_ulp=0)            # same sum order
+    # in place (e_new aliases e), as the train step runs it
+    words, scales, _, e_new = got
+    e2 = et.clone()
+    w2, s2, _, _ = sp.ef_sign_fused(gt, e2, float(GAMMA), mask, group_size,
+                                    out=(torch.empty_like(words),
+                                         torch.empty_like(scales), e2))
+    torch.cuda.synchronize()
+    assert torch.equal(w2, words) and torch.equal(s2, scales)
+    assert torch.equal(e2.view(torch.int32), e_new.view(torch.int32))
+
+
+@pytest.mark.parametrize("group_size", [32, 512])
+def test_sign_decode_reduce_kernel_matches_plain(cuda, group_size):
+    rng = np.random.default_rng(1)
+    N, n = 5, group_size * 8 * 29
+    words = torch.from_numpy(rng.integers(0, 2**32, (N, n // 32),
+                                          dtype=np.uint32)).to(cuda)
+    scales = torch.from_numpy(np.abs(rng.standard_normal(
+        (N, n // group_size))).astype(np.float32)).to(cuda)
+    scales[0, :3] = 0.0
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0, 0.0], device=cuda)
+    got = sp.sign_decode_reduce(words, scales, mask, group_size)
+    torch.cuda.synchronize()
+    want = ref.sign_decode_reduce_ref(words, scales, mask, group_size)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+def test_wrappers_raise_instead_of_falling_back(cuda):
+    g = torch.zeros(96 * 8, device=cuda)
+    with pytest.raises(ValueError):                 # no kernel for g=96
+        sp.ef_sign_fused(g, g.clone(), 1.0, 1.0, 96)
+    with pytest.raises(TypeError):
+        sp.ef_sign_fused(g.double(), g.double(), 1.0, 1.0, 32)
+    with pytest.raises(ValueError):
+        sp.ef_sign_fused(g, g.cpu(), 1.0, 1.0, 32)
+
+
+def test_train_step_cuda_matches_cpu(cuda):
+    """The train step on the card against the CPU (`launch/device_parity.py`):
+    full step within the stated tolerances, stage 2 on injected gradients
+    bit for bit."""
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda")
+
+
+def test_kernels_on_rank_rows_match_plain(cuda):
+    """The train step's layout: rank i's error is row i of an (N, n) buffer
+    updated in place, its payload rows i of (N, n/32) and (N, n/g)."""
+    G, N, n = 512, 4, 512 * 8 * 11
+    g, e = ef_inputs(n, G, seed=3)
+    gt = torch.from_numpy(g).to(cuda)
+    e_all = torch.from_numpy(np.tile(e, (N, 1))).to(cuda)
+    words = torch.zeros((N, n // 32), dtype=torch.uint32, device=cuda)
+    scales = torch.zeros((N, n // G), device=cuda)
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=cuda)
+    for i in range(N):
+        sp.ef_sign_fused(gt, e_all[i], float(GAMMA), mask[i], G,
+                         out=(words[i], scales[i], e_all[i]))
+    got = sp.sign_decode_reduce(words, scales, mask, G)
+    torch.cuda.synchronize()
+    et = torch.from_numpy(e).to(cuda)
+    for i in range(N):
+        w, s_, _, en = ref.ef_sign_fused_ref(gt, et, float(GAMMA), mask[i], G)
+        assert torch.equal(words[i], w) and torch.equal(scales[i], s_)
+        assert torch.equal(e_all[i].view(torch.int32), en.view(torch.int32))
+    want = ref.sign_decode_reduce_ref(words, scales, mask, G)
+    assert torch.equal(got.view(torch.int32), want.view(torch.int32))

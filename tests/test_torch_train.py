@@ -1,0 +1,252 @@
+"""The slice end to end: the port's COCO-EF train step against JAX's real
+main path (`build_train_setup` + `train_step` on a (data=4, model=1) mesh of
+4 host devices, in a subprocess), gemma2-2b smoke config in float32, sign
+wire g = 32, N = 4 coding ranks, d = 2, iid stragglers p = 0.1.
+
+JAX dumps its init params, batches, encode weights, host-side masks, each
+rank's stage-1 gradient, and the loss, theta and e after each of 3 steps.
+Its flat size (164,480) is not a multiple of the 256-element Pallas tile, so
+JAX takes its jnp path, which tests/test_backend_parity.py shows is
+bit-identical to the Pallas one.
+"""
+import dataclasses
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from repro.core import coding as jcoding
+from repro.kernels import ref as jref
+from repro.optim import optimizers as joptim
+from repro_torch.configs import REGISTRY, ShapeCfg
+from repro_torch.core import coding
+from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
+from repro_torch.launch.train import TrainRun, build_train_setup
+from repro_torch.optim import optimizers as optim
+
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+STEPS, N, G, LR = 3, 4, 32, 5e-3
+
+JAX_RUN = textwrap.dedent(f"""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses, warnings
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.compat import make_mesh
+    from repro.configs import REGISTRY
+    from repro.configs.common import ShapeCfg
+    from repro.core.cocoef import flatten_local
+    from repro.launch.train import (TrainRun, build_train_setup,
+                                    make_batch_for_step, setup_encode_weights)
+    warnings.simplefilter("ignore")
+    spec = REGISTRY["gemma2-2b"]
+    spec = dataclasses.replace(
+        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
+        coding=dataclasses.replace(spec.coding, group_size={G}))
+    mesh = make_mesh((4, 1), ("data", "model"))
+    shape = ShapeCfg("train", 32, 8)
+    setup = build_train_setup(spec, mesh, shape,
+                              TrainRun(base_lr={LR}, backend="pallas"),
+                              smoke=True)
+    key = jax.random.PRNGKey(0)
+    params, e, opt = setup.init_state(key)
+    flat = lambda leaves: np.asarray(flatten_local(leaves, 4, {G})[0])
+    out = {{"flat_pad": setup.flat_pad,
+            "W": np.asarray(setup_encode_weights(setup))}}
+    for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        out["p0/" + "/".join(k.key for k in p)] = np.asarray(v)
+    out["theta0"] = flat(jax.tree.leaves(params))
+    model = setup.model
+    grads = jax.jit(lambda p, b: jax.vmap(
+        lambda bb: jax.grad(lambda q: model.loss(q, bb)[0])(p))(b))
+    step = jax.jit(setup.train_step)
+    for t in range(3):
+        batch = make_batch_for_step(setup, spec, shape, key, t, smoke=True)
+        g = grads(params, batch)
+        out[f"g{{t}}"] = np.stack([flat([l[i] for l in jax.tree.leaves(g)])
+                                  for i in range(4)])
+        out[f"tokens{{t}}"] = np.asarray(batch["inputs"])
+        out[f"weights{{t}}"] = np.asarray(batch["weights"])
+        out[f"mask{{t}}"] = np.asarray(setup.straggler_process.mask(key, t))
+        params, e, opt, m = step(params, e, opt, batch, jnp.int32(t), key)
+        out[f"loss{{t}}"] = np.asarray(m["loss"])
+        out[f"theta{{t+1}}"] = flat(jax.tree.leaves(params))
+        out[f"e{{t+1}}"] = np.asarray(e).reshape(4, -1)
+    np.savez(sys.argv[1], **out)
+""")
+
+
+@pytest.fixture(scope="module")
+def ref_run(tmp_path_factory):
+    path = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", JAX_RUN, str(path)], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return dict(np.load(path))
+
+
+def _port_setup():
+    spec = REGISTRY["gemma2-2b"]
+    spec = dataclasses.replace(
+        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
+        coding=dataclasses.replace(spec.coding, group_size=G))
+    return build_train_setup(spec, ShapeCfg("train", 32, 8),
+                             TrainRun(base_lr=LR), smoke=True, n_code=N,
+                             device="cpu")
+
+
+def _state_dict(ref):
+    return {k[3:]: torch.from_numpy(v) for k, v in ref.items()
+            if k.startswith("p0/")}
+
+
+def test_setup_matches_jax(ref_run):
+    s = _port_setup()
+    assert s.flat_pad == int(ref_run["flat_pad"]) == 164_480
+    np.testing.assert_array_equal(s.W, ref_run["W"])       # bit-identical
+    s.model.load_params(_state_dict(ref_run))
+    np.testing.assert_array_equal(s.model.theta.numpy(), ref_run["theta0"])
+    assert s.b_loc == ref_run["tokens0"].shape[1]
+    assert ref_run["mask1"].tolist() == [0.0, 0.0, 1.0, 1.0]  # stragglers
+
+
+def test_stage2_with_jax_gradients(ref_run):
+    """(a) JAX's stage-1 gradients and JAX's state at the start of each
+    step go into the port's stage 2.  Against JAX's sign-wire references on
+    the same inputs: words identical, scales within 6 ulp (the group sum
+    order, ROADMAP C3); ghat and e' within N * 6 ulp of the largest group
+    scale, theta within that plus one rounding of theta - ghat, and ghat
+    bitwise where every scale agrees.  Against JAX's mesh step, whose
+    stage-1 gradients come from another jit of the same function, theta
+    and e' within the sign-flip bound 2*N*(max scale)."""
+    cfg = CocoEFConfig(group_size=G)
+    n = int(ref_run["flat_pad"])
+    for t in range(STEPS):
+        theta = torch.from_numpy(ref_run[f"theta{t}"].copy())
+        e = (torch.zeros((N, n)) if t == 0 else
+             torch.from_numpy(ref_run[f"e{t}"].copy()))
+        e_jax_in = e.numpy().copy()
+        g = ref_run[f"g{t}"]
+        mask = ref_run[f"mask{t}"]
+        payload = (torch.zeros((N, n // 32), dtype=torch.uint32),
+                   torch.zeros((N, n // G)))
+        ghat = cocoef_update(lambda i: torch.from_numpy(g[i].copy()), e,
+                             torch.from_numpy(mask), LR, cfg, payload)
+        theta_new = theta - ghat
+        outs = [jref.ef_sign_fused_ref(jnp.asarray(g[i]),
+                                       jnp.asarray(e_jax_in[i]),
+                                       jnp.float32(LR), jnp.float32(mask[i]),
+                                       G) for i in range(N)]
+        jw = np.stack([np.asarray(o[0]) for o in outs])
+        js = np.stack([np.asarray(o[1]) for o in outs])
+        je = np.stack([np.asarray(o[3]) for o in outs])
+        jghat = np.asarray(jref.sign_decode_reduce_scan(
+            jnp.asarray(jw), jnp.asarray(js), jnp.asarray(mask), G))
+        np.testing.assert_array_equal(payload[0].numpy(), jw)
+        ds = np.abs(payload[1].numpy().view(np.int32).astype(np.int64)
+                    - js.view(np.int32))
+        assert ds.max() <= 6
+        tol = 6 * np.spacing(np.float32(js.max())) * N
+        assert np.abs(ghat.numpy() - jghat).max() <= tol
+        assert np.abs(e.numpy() - je).max() <= tol
+        jtheta = ref_run[f"theta{t}"] - jghat
+        assert np.all(np.abs(theta_new.numpy() - jtheta)
+                      <= tol + np.spacing(np.abs(jtheta)))
+        if ds.max() == 0:
+            np.testing.assert_array_equal(ghat.numpy(), jghat)
+        flip = 2 * N * float(js.max()) + tol
+        assert np.abs(theta_new.numpy()
+                      - ref_run[f"theta{t + 1}"]).max() <= flip
+        assert np.abs(e.numpy() - ref_run[f"e{t + 1}"]).max() <= flip
+
+
+def test_end_to_end_matches_jax(ref_run):
+    """(b) The port's whole step (its own stage 1 from the converted
+    params, JAX's batches and masks) for 3 steps: loss within rtol 1e-4 per
+    step; theta within steps * 2*N*gamma*(max group scale), the most that
+    sign bits flipped by near-zero accumulators can move a coordinate, and
+    almost every coordinate far closer."""
+    s = _port_setup()
+    s.model.load_params(_state_dict(ref_run))
+    e = torch.zeros((N, s.flat_pad))
+    max_scale = 0.0
+    for t in range(STEPS):
+        batch = (torch.from_numpy(ref_run[f"tokens{t}"]).long(),
+                 torch.from_numpy(ref_run[f"weights{t}"]))
+        m = s.train_step(s.model, e, batch, t,
+                         masks=torch.from_numpy(ref_run[f"mask{t}"]))
+        np.testing.assert_allclose(m["loss"].item(), ref_run[f"loss{t}"],
+                                   rtol=1e-4)
+        max_scale = max(max_scale, s.payload[1].max().item())
+        d = np.abs(s.model.theta.numpy() - ref_run[f"theta{t + 1}"])
+        assert d.max() <= (t + 1) * 2 * N * max_scale
+        assert np.mean(d > 1e-6) < 0.01
+
+
+def test_step_parity_cpu_against_cpu():
+    """The card-versus-CPU check of chip_smoke.py and the gpu tests, run
+    with the CPU on both sides: two separate setups give the same step bit
+    for bit, so on the card any gap beyond its stated tolerances is the
+    card's."""
+    from repro_torch.launch.device_parity import step_parity
+    out = step_parity("cpu")
+    assert out["max_abs_dtheta"] == 0.0 and out["loss_cpu"] == \
+        out["loss_device"]
+
+
+def test_encode_weights_and_allocation_match_jax():
+    for p in (0.0, 0.1, 0.3):
+        a = coding.cyclic_allocation(4, 4, 2)
+        ja = jcoding.cyclic_allocation(4, 4, 2)
+        np.testing.assert_array_equal(a.S, ja.S)
+        np.testing.assert_array_equal(
+            coding.encode_weights(a, p=p),
+            np.asarray(jcoding.encode_weights(ja, p)))
+    rates = [0.9, 0.8, 0.95, 0.7]
+    np.testing.assert_array_equal(
+        coding.encode_weights(a, rates=rates),
+        np.asarray(jcoding.encode_weights(ja, rates=rates)))
+
+
+@pytest.mark.parametrize("kind", ["sgd", "momentum", "adam"])
+def test_optimizers_match_jax(kind):
+    """In-place update against JAX's functional one, with decoupled decay;
+    within 1 ulp-level rtol 1e-6 (sqrt and pow may round differently)."""
+    rng = np.random.default_rng(0)
+    n = 1024
+    p0 = rng.standard_normal(n).astype(np.float32)
+    gh = (rng.standard_normal(n) * 1e-3).astype(np.float32)
+    jcfg = joptim.OptimizerConfig(kind=kind, weight_decay=0.01)
+    pcfg = optim.OptimizerConfig(kind=kind, weight_decay=0.01)
+    jstate = joptim.init_opt_state(jcfg, n)
+    pstate = optim.init_opt_state(pcfg, n)
+    jp, pp = jnp.asarray(p0), torch.from_numpy(p0.copy())
+    for step in range(3):
+        gamma = np.float32(1e-2)
+        jp, jstate = joptim.apply_update(jcfg, jp, jnp.asarray(gh), jstate,
+                                         jnp.int32(step), jnp.float32(gamma))
+        optim.apply_update(pcfg, pp, torch.from_numpy(gh), pstate, step,
+                           gamma)
+        np.testing.assert_allclose(pp.numpy(), np.asarray(jp), rtol=1e-6,
+                                   atol=1e-7)
+
+
+@pytest.mark.parametrize("kind,warmup,total", [("constant", 0, None),
+                                               ("rsqrt", 3, None),
+                                               ("cosine", 2, 10)])
+def test_lr_schedule_matches_jax(kind, warmup, total):
+    jf = joptim.lr_schedule(kind, 5e-3, warmup, total)
+    pf = optim.lr_schedule(kind, 5e-3, warmup, total)
+    for step in range(12):
+        np.testing.assert_allclose(pf(step).item(), float(jf(step)),
+                                   rtol=1e-6)
+    with pytest.raises(ValueError):
+        optim.lr_schedule("cosine", 1.0)
