@@ -5,24 +5,33 @@
 
 Phases (any failure exits non-zero and prints no result line):
   1. device     needs torch.cuda; prints the card's name and power limit
-  2. build      compiles every CUDA source of src/repro_torch with nvcc
+  2. build      compiles every CUDA source of src/repro_torch with nvcc,
+                one nvcc per source, all at once
   3. kernels    each kernel against its plain PyTorch version at n = 2**28
-                with adversarial groups (words and decode exact, scales
-                <= 2 ulp), then again at the slice's n (past 2**31) in the
-                train step's buffer layout, chunk by chunk, and timed there
-                with CUDA events
+                with adversarial groups and blocks (sign: words and decode
+                exact, scales <= 2 ulp; block top-K: every output bit for
+                bit, f32 and bf16 values), then again at the slice's n
+                (past 2**31) in the train step's buffer layout, chunk by
+                chunk, and timed there with CUDA events
   4. reference  the f32 smoke-size train step on the card against the CPU
-                (repro_torch/launch/device_parity.py): the full step
-                within stated tolerances, stage 2 on injected gradients
-                bit for bit
+                (repro_torch/launch/device_parity.py) on the sign wire, the
+                block top-K wire and the block top-K wire with per-rank
+                budgets: the full step within stated tolerances, stage 2 on
+                injected gradients bit for bit
   5. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
-                the card, d = 2, sign wire g = 512, 5 COCO-EF steps; the
-                kernel launch counts are reset just before and read just
-                after, and must be 4 x steps and steps
+                the card, d = 2.  Sign wire g = 512, 5 COCO-EF steps; then,
+                with that setup freed, the block top-K wire (k = 8,
+                B = 256, f32 values), 5 steps, and 2 more steps with the
+                per-rank budgets k = (8, 8, 4, 2) on the same buffers.  The
+                kernel launch counts are reset just before each path and
+                read just after: 4 x steps local steps and one decode per
+                step, through the path's kernels only
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
 """
+import dataclasses
+import gc
 import json
 import math
 import subprocess
@@ -34,9 +43,12 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 
 STEPS = 5
+BUDGET_STEPS = 2
 N_CODE = 4
 SEQ_LEN, GLOBAL_BATCH = 512, 4
 GROUP = 512
+BLOCK, K = 256, 8                 # the block top-K wire of CodingPlan
+K_BUDGETS = (8, 8, 4, 2)
 CHECK_N = 1 << 28
 CHUNK = 1 << 28           # the plain versions run in chunks this long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
@@ -272,6 +284,262 @@ def decode_at_slice(torch, ref, sp, gen, dev, n: int) -> dict:
             "bound_ms": b, "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
 
+def bits(t):
+    """Integer view of the same size (floats), so equality is bitwise."""
+    import torch
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.uint16: torch.int16}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def same(a, b) -> bool:
+    import torch
+    return a.shape == b.shape and torch.equal(bits(a), bits(b))
+
+
+def topk_adversarial_(g, e) -> None:
+    """First blocks (acc = gamma*g + e): all zeros, all -0.0, denormals,
+    K + 1 equal maxima of mixed sign over small values, exactly K
+    nonzeros, every |acc| equal."""
+    B = BLOCK
+    blk = [slice(i * B, (i + 1) * B) for i in range(6)]
+    g[blk[0]] = 0.0
+    e[blk[0]] = 0.0
+    g[blk[1]] = -0.0
+    e[blk[1]] = -0.0
+    g[blk[2]] = g[blk[2]].sign() * 1e-40
+    e[blk[2]] = g[blk[2]] * 0.3
+    g[blk[3]] *= 1e-3 / g[blk[3]].abs().max()
+    e[blk[3]] = 0.0
+    tie = g[blk[3]]
+    tie[3:3 + 3 * (K + 1):3] = 2.0
+    tie[6:6 + 6 * ((K + 1) // 2):6] = -2.0
+    g[blk[4]] = 0.0
+    e[blk[4]] = 0.0
+    g[blk[4]][5:5 + 7 * K:7] = 1.5
+    g[blk[5]] = g[blk[5]].sign()
+    e[blk[5]] = 0.0
+
+
+def compare_topk(got, want, what: str) -> None:
+    """got = the kernel's outputs (idx u16, values in the wire dtype,
+    scales[, c, e']), want = the plain version's (idx i32, values f32
+    holding wire-rounded numbers, ...).  Every output bit for bit."""
+    import torch
+    idx, val = got[0], got[1]
+    if not torch.equal(bits(idx).to(torch.int32) & 0xFFFF, want[0]):
+        fail(f"{what}: indices differ")
+    if not same(val, want[1].to(val.dtype)):
+        fail(f"{what}: values differ")
+    for name, a, b in zip(("scales", "c", "e'"), got[2:], want[2:]):
+        if a is not None and not same(a, b):
+            fail(f"{what}: {name} differ in {int((bits(a) != bits(b)).sum())}"
+                 f" entries")
+
+
+def topk_inputs(torch, gen, dev, n: int, rows: int = 1):
+    """g (n,) and e (rows, n), e[r] all equal, of widely varying block
+    scales, with the adversarial blocks at the start and at the end."""
+    g = torch.randn(n, device=dev, generator=gen)
+    e = torch.empty((rows, n), device=dev)
+    e[0].normal_(generator=gen)
+    mag = torch.exp(torch.rand(n // BLOCK, device=dev, generator=gen)
+                    * 25 - 20).repeat_interleave(BLOCK)
+    g.mul_(mag)
+    e[0].mul_(mag).mul_(0.01)
+    del mag
+    for a in (0, n - 6 * BLOCK):
+        topk_adversarial_(g[a:a + 6 * BLOCK], e[0, a:a + 6 * BLOCK])
+    for r in range(1, rows):
+        e[r].copy_(e[0])
+    return g, e
+
+
+def check_topk(torch, ref, tp, gen, dev) -> None:
+    """B3 (f32 and bf16 values, mask 1 and 0), B6 and B4 against their
+    plain versions at n = 2**28 on fresh buffers, bit for bit."""
+    gamma = 0.37
+    g, e = topk_inputs(torch, gen, dev, CHECK_N)
+    e = e[0]
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    for vd in ("float32", "bfloat16"):
+        for m in (1.0, 0.0):
+            got = tp.ef_topk_fused(g, e, gamma, m, K, BLOCK, vd, want_c=True)
+            torch.cuda.synchronize()
+            want = ref.ef_topk_fused_ref(g, e, gamma, m, K, BLOCK, vd)
+            compare_topk(got, want,
+                         f"ef_topk_fused at n={CHECK_N} ({vd}, mask={m})")
+            if m == 0.0 and not same(got[4], e):
+                fail("ef_topk_fused: a straggler's e changed")
+            ef_payload = got[:3]
+            del got, want
+        packed = [tp.topk_pack(x, K, BLOCK, vd) for x in (g, e)]
+        torch.cuda.synchronize()
+        compare_topk(packed[0], ref.topk_pack_ref(g, K, BLOCK),
+                     f"topk_pack at n={CHECK_N} ({vd})")
+        senders = [ef_payload, packed[0],
+                   tuple(t.clone() for t in ef_payload), packed[1]]
+        senders[2][1][:, K_BUDGETS[3]:] = 0        # a budgeted rank's row
+        payload = [torch.empty((len(senders),) + t.shape, dtype=t.dtype,
+                               device=dev) for t in senders[0]]
+        for i, p in enumerate(senders):     # copy_, not stack: u16 rows
+            for j in range(3):
+                payload[j][i].copy_(p[j])
+        got = tp.topk_decode_reduce(*payload, mask, BLOCK)
+        torch.cuda.synchronize()
+        want = ref.topk_decode_reduce_ref(*payload, mask, BLOCK)
+        if not same(got, want):
+            fail(f"topk_decode_reduce at n={CHECK_N} ({vd}) differs from "
+                 f"the sender-order sum")
+        del packed, senders, payload, got, want
+
+
+def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
+    """B3, B6 and B4 at the slice's n (past 2**31 elements) in the train
+    step's layout: e is a row of a 2-D buffer updated in place, payloads
+    go into rows of the (N, n/B, K) and (N, n/B) buffers.  Row 0 of `e`
+    keeps the inputs, row 1 is the one the kernel updates.  Straggler and
+    live launches of B3 (payload rows 2 and 1), B6 on g (row 3, then cut
+    to a budget of 2) and on e (row 0), then B4 over the four rows; each
+    held against its plain version chunk by chunk, bit for bit, then
+    timed."""
+    gamma = 5e-3
+    g, e = topk_inputs(torch, gen, dev, n, rows=2)
+    gamma_t = torch.tensor(gamma, device=dev)
+    nb = n // BLOCK
+    idx = torch.zeros((N_CODE, nb, K), dtype=torch.uint16, device=dev)
+    val = torch.zeros((N_CODE, nb, K), device=dev)
+    sc = torch.zeros((N_CODE, nb), device=dev)
+    masks = torch.tensor([1.0, 0.0], device=dev)
+    cb = CHUNK // BLOCK
+
+    def row(r):
+        return idx[r], val[r], sc[r]
+
+    def chunk(r, i, j):
+        return idx[r, i // BLOCK:j // BLOCK], val[r, i // BLOCK:j // BLOCK], \
+            sc[r, i // BLOCK:j // BLOCK]
+
+    for r, m in ((2, masks[1]), (1, masks[0])):
+        tp.ef_topk_fused(g, e[1], gamma_t, m, K, BLOCK, out=row(r) + (e[1],))
+        torch.cuda.synchronize()
+        what = f"ef_topk_fused at n={n} (mask={m.item()})"
+        if m.item() == 0.0 and not same(e[1], e[0]):
+            fail(f"{what}: a straggler's e changed")
+        for i in range(0, n, CHUNK):
+            j = min(i + CHUNK, n)
+            want = ref.ef_topk_fused_ref(g[i:j], e[0, i:j], gamma_t, m, K,
+                                         BLOCK)
+            compare_topk(chunk(r, i, j) + (None, e[1, i:j]), want, what)
+            del want
+    out = {}
+    ms = cuda_ms(lambda: tp.ef_topk_fused(g, e[1], gamma_t, masks[0], K,
+                                          BLOCK, out=row(1) + (e[1],)), 10)
+
+    def plain_ef():
+        for i in range(0, n, CHUNK):
+            ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
+                                  masks[0], K, BLOCK)
+    payload_b = nb * (K * (2 + 4) + 4)
+    moved = 12 * n + payload_b
+    out["ef_topk_fused"] = (ms, cuda_ms(plain_ef, 2), moved, (6 + K) * n)
+
+    tp.topk_pack(g, K, BLOCK, out=row(3))
+    tp.topk_pack(e[0], K, BLOCK, out=row(0))
+    torch.cuda.synchronize()
+    for r, x in ((3, g), (0, e[0])):
+        for i in range(0, n, CHUNK):
+            j = min(i + CHUNK, n)
+            compare_topk(chunk(r, i, j), ref.topk_pack_ref(x[i:j], K, BLOCK),
+                         f"topk_pack at n={n} (row {r})")
+    ms = cuda_ms(lambda: tp.topk_pack(g, K, BLOCK, out=row(3)), 10)
+
+    def plain_pack():
+        for i in range(0, n, CHUNK):
+            ref.topk_pack_ref(g[i:i + CHUNK], K, BLOCK)
+    out["topk_pack"] = (ms, cuda_ms(plain_pack, 2), 4 * n + payload_b, K * n)
+
+    val[3, :, K_BUDGETS[3]:] = 0                  # a budgeted rank's row
+    del e
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    ghat = torch.empty(n, device=dev)
+    tp.topk_decode_reduce(idx, val, sc, mask, BLOCK, out=ghat)
+    torch.cuda.synchronize()
+    for b0 in range(0, nb, cb):
+        b1 = min(b0 + cb, nb)
+        want = ref.topk_decode_reduce_ref(idx[:, b0:b1], val[:, b0:b1],
+                                          sc[:, b0:b1], mask, BLOCK)
+        if not same(ghat[b0 * BLOCK:b1 * BLOCK], want):
+            fail(f"topk_decode_reduce at n={n} differs from the sender-order"
+                 f" sum in blocks [{b0}, {b1})")
+        del want
+    ms = cuda_ms(lambda: tp.topk_decode_reduce(idx, val, sc, mask, BLOCK,
+                                               out=ghat), 10)
+
+    def plain_decode():
+        for b0 in range(0, nb, cb):
+            ref.topk_decode_reduce_ref(idx[:, b0:b0 + cb], val[:, b0:b0 + cb],
+                                       sc[:, b0:b0 + cb], mask, BLOCK)
+    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
+                                 4 * n + N_CODE * payload_b + 4 * N_CODE,
+                                 3 * N_CODE * nb * K)
+    res = {}
+    for name, (ms, plain_ms, moved, ops) in out.items():
+        b, by = bound(moved, ops)
+        res[name] = {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "ops": ops, "gb_per_s": moved / ms / 1e6}
+    return res
+
+
+def train_path(torch, setup, e, first: int, steps: int, label: str,
+               want: dict, launches: dict) -> dict:
+    """`steps` train steps from step `first`, with the launch counts reset
+    just before and read just after; fails unless they equal `want`."""
+    batches = [setup.make_batch(t) for t in range(first, first + steps)]
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    for t, batch in enumerate(batches, first):
+        spans = []
+        t_start = time.perf_counter()
+        m = setup.train_step(setup.model, e, batch, t, kernel_spans=spans)
+        loss = m["loss"].item()
+        torch.cuda.synchronize()
+        step_s = time.perf_counter() - t_start
+        kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
+        print(json.dumps({"path": label, "step": t, "loss": loss,
+                          "step_s": step_s, "kernel_ms": kernel_ms,
+                          "mask": m["mask"].tolist()}), flush=True)
+        if not math.isfinite(loss):
+            fail(f"{label} step {t}: loss {loss}")
+    got = dict(launches)
+    if any(got[k] != want.get(k, 0) for k in got):
+        fail(f"{label}: launch counts {got}, want {want}")
+    for name, rows in (("theta", [setup.model.theta]), ("e", list(e))):
+        if not all_finite(torch, rows):
+            fail(f"{label}: non-finite {name} after training")
+    return got
+
+
+def all_finite(torch, rows) -> bool:
+    """Every entry finite, checked CHUNK at a time: torch.isfinite makes
+    an f32 |x| and two bool tensors of the input's length, 16 GB for a
+    whole row here."""
+    return all(bool(torch.isfinite(r[i:i + CHUNK]).all())
+               for r in rows for i in range(0, r.numel(), CHUNK))
+
+
+def settle(torch, after: str) -> int:
+    """Free what earlier phases left (cycles, the allocator's cache) and
+    print the bytes still allocated on the card."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    left = torch.cuda.memory_allocated()
+    print(f"allocated after {after}: {left} B", flush=True)
+    return left
+
+
 def main() -> None:
     import torch
     if not torch.cuda.is_available():
@@ -281,7 +549,9 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import REGISTRY, ShapeCfg
     from repro_torch.core.cocoef import padded_size
-    from repro_torch.kernels import build, ref, sign_pack as sp
+    from repro_torch.kernels import build, ref, sign_pack as sp, \
+        topk_pack as tp
+    from repro_torch.kernels.common import launches
     from repro_torch.launch.device_parity import step_parity
     from repro_torch.launch.train import TrainRun, build_train_setup
     from repro_torch.nn.transformer import num_params
@@ -294,88 +564,100 @@ def main() -> None:
 
     t0 = time.perf_counter()
     build.build_all()
-    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a)",
-          flush=True)
+    print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
+          f"{', '.join(build.SOURCES)})", flush=True)
 
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = {"ef_sign_fused": check_ef(torch, ref, sp, gen, dev),
               "sign_decode_reduce": check_decode(torch, ref, sp, gen, dev)}
-    print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}",
-          flush=True)
+    check_topk(torch, ref, tp, gen, dev)
+    print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}; "
+          f"block top-K kernels bit-equal (f32 and bf16 values)", flush=True)
+    settle(torch, "the 2**28 checks")
     spec = REGISTRY["gemma2-2b"]
     n = padded_size(num_params(spec.config), N_CODE, GROUP)
     at_slice = {"ef_sign_fused": ef_at_slice(torch, ref, sp, gen, dev, n)}
-    torch.cuda.empty_cache()
+    settle(torch, "ef_sign_fused at the slice's n")
     at_slice["sign_decode_reduce"] = decode_at_slice(torch, ref, sp, gen,
                                                      dev, n)
-    torch.cuda.empty_cache()
+    settle(torch, "sign_decode_reduce at the slice's n")
+    at_slice.update(topk_at_slice(torch, ref, tp, gen, dev, n))
+    settle(torch, "the block top-K kernels at the slice's n")
     print(f"kernels vs plain and times at n={n}, train layout: "
           f"{json.dumps(at_slice)}", flush=True)
 
-    try:
-        parity = step_parity("cuda")
-    except AssertionError as err:
-        fail(f"smoke-size step on the card vs the CPU: {err}")
-    print(f"reference: {json.dumps(parity)}", flush=True)
-    torch.cuda.empty_cache()
+    for comp, kb in (("sign", None), ("block_topk", None),
+                     ("block_topk", K_BUDGETS)):
+        try:
+            parity = step_parity("cuda", compressor=comp, k_budgets=kb)
+        except AssertionError as err:
+            fail(f"smoke-size step on the card vs the CPU ({comp}, budgets "
+                 f"{kb}): {err}")
+        print(f"reference ({comp}, budgets {kb}): {json.dumps(parity)}",
+              flush=True)
 
-    torch.cuda.reset_peak_memory_stats()
-    setup = build_train_setup(spec, ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH),
-                              TrainRun(base_lr=5e-3), n_code=N_CODE,
-                              device=dev)
-    if setup.flat_pad != n:
-        fail(f"flat size {setup.flat_pad} != {n}")
-    e = setup.init_state()
-    batches = [setup.make_batch(t) for t in range(STEPS)]
-    torch.cuda.synchronize()
-    sp.reset_launches()
-    for t in range(STEPS):
-        spans = []
-        t_start = time.perf_counter()
-        m = setup.train_step(setup.model, e, batches[t], t,
-                             kernel_spans=spans)
-        loss = m["loss"].item()
-        torch.cuda.synchronize()
-        step_s = time.perf_counter() - t_start
-        kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
-        print(json.dumps({"step": t, "loss": loss, "step_s": step_s,
-                          "kernel_ms": kernel_ms,
-                          "mask": m["mask"].tolist()}), flush=True)
-        if not math.isfinite(loss):
-            fail(f"step {t}: loss {loss}")
-    launches = dict(sp.launches)
-    peak = torch.cuda.max_memory_allocated()
-    print(f"train: gemma2-2b {spec.config.num_layers} layers, flat {n}, "
-          f"peak memory "
-          f"{peak} B ({peak / 1e9:.2f} GB)", flush=True)
-    if launches["ef_sign_fused"] != N_CODE * STEPS or \
-            launches["sign_decode_reduce"] != STEPS:
-        fail(f"launch counts {launches}, want ef_sign_fused="
-             f"{N_CODE * STEPS}, sign_decode_reduce={STEPS}")
-    for name, rows in (("theta", [setup.model.theta]), ("e", list(e))):
-        if not all(bool(torch.isfinite(r).all()) for r in rows):
-            fail(f"non-finite {name} after training")
+    shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
+    counts, peaks = {}, {}
+    for label, run in (("sign", TrainRun(base_lr=5e-3)),
+                       ("block_topk", TrainRun(base_lr=5e-3,
+                                               compressor="block_topk"))):
+        if settle(torch, f"the phases before the {label} path") > 1 << 30:
+            fail("over 1 GiB still allocated before a train path: the two "
+                 "paths' setups must not share the card")
+        torch.cuda.reset_peak_memory_stats()
+        setup = build_train_setup(spec, shape, run, n_code=N_CODE, device=dev)
+        if setup.flat_pad != n:
+            fail(f"{label}: flat size {setup.flat_pad} != {n}")
+        e = setup.init_state()
+        if label == "sign":
+            want = {"ef_sign_fused": N_CODE * STEPS,
+                    "sign_decode_reduce": STEPS}
+        else:
+            want = {"ef_topk_fused": N_CODE * STEPS,
+                    "topk_decode_reduce": STEPS}
+        counts[label] = train_path(torch, setup, e, 0, STEPS, label, want,
+                                   launches)
+        if label == "block_topk":
+            # the per-rank budgets on the same model, error and payload
+            # buffers (the payload is shaped by max k = K either way)
+            brun = TrainRun(base_lr=5e-3, compressor="block_topk",
+                            k_budgets=K_BUDGETS)
+            budget = dataclasses.replace(
+                setup, run=brun,
+                cocoef_cfg=brun.coding_config(spec.coding, N_CODE))
+            counts["block_topk budgets"] = train_path(
+                torch, budget, e, STEPS, BUDGET_STEPS, "block_topk budgets",
+                {"topk_pack": N_CODE * BUDGET_STEPS,
+                 "topk_decode_reduce": BUDGET_STEPS}, launches)
+            del budget
+        peaks[label] = torch.cuda.max_memory_allocated()
+        print(f"train ({label}): gemma2-2b {spec.config.num_layers} layers, "
+              f"flat {n}, peak memory {peaks[label]} B "
+              f"({peaks[label] / 1e9:.2f} GB)", flush=True)
+        del setup, e
 
-    src = "src/repro_torch/kernels/csrc/sign_pack.cu"
     meta = {
-        "ef_sign_fused": ("src/repro/kernels/sign_pack.py:112",
-                          "kernels/sign_pack.py::ef_sign_fused"),
-        "sign_decode_reduce": ("src/repro/kernels/sign_pack.py:162",
-                               "kernels/sign_pack.py::sign_decode_reduce"),
+        "ef_sign_fused": ("sign_pack", "sign_pack.py:112", "sign"),
+        "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", "sign"),
+        "ef_topk_fused": ("topk_pack", "topk_pack.py:137", "block_topk"),
+        "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
+                               "block_topk"),
+        "topk_pack": ("topk_pack", "topk_pack.py:63", "block_topk budgets"),
     }
     kernels = []
-    for name, (replaces, tpu) in meta.items():
+    for name, (src, replaces, path) in meta.items():
+        r = at_slice[name]
         kernels.append({
-            "name": name, "route": "cuda", "source": src,
-            "replaces": replaces, "tpu_kernel": tpu,
-            "launches": launches[name],
-            "max_abs_err": max(checks[name]["max_abs_err"],
-                               at_slice[name]["max_abs_err"]),
-            "max_ulp": max(checks[name]["max_ulp"], at_slice[name]["max_ulp"]),
-            "ms": at_slice[name]["ms"], "plain_ms": at_slice[name]["plain_ms"],
-            "bound_ms": at_slice[name]["bound_ms"],
-            "bound_by": at_slice[name]["bound_by"],
-            "gb_per_s": at_slice[name]["gb_per_s"], "library_ms": None})
+            "name": name, "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{replaces}", "path": path,
+            "launches": counts[path][name],
+            "max_abs_err": max(checks.get(name, r)["max_abs_err"],
+                               r["max_abs_err"]),
+            "max_ulp": max(checks.get(name, r)["max_ulp"], r["max_ulp"]),
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "gb_per_s": r["gb_per_s"], "library_ms": None})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

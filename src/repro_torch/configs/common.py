@@ -32,7 +32,12 @@ class CodingPlan:
     redundancy: d_k — how many coding ranks hold each data subset.
     straggler_p: Bernoulli straggler probability baked into encode weights.
     group_size: sign-quantization group.
-    compressor: phase-1 wire compressor; the port carries "sign" only.
+    compressor: phase-1 wire compressor; the port carries "sign" and
+      "block_topk".
+    k_per_block / block_size: block top-K sparsification parameters
+      (compressor="block_topk").
+    topk_k: global top-K budget (compressor="topk", not ported yet).
+    wire_dtype: sparse-value dtype on the wire.
     """
 
     coding_axes: Tuple[str, ...] = ("pod", "data")
@@ -40,6 +45,10 @@ class CodingPlan:
     straggler_p: float = 0.1
     group_size: int = 512
     compressor: str = "sign"
+    k_per_block: int = 8
+    block_size: int = 256
+    topk_k: int = 64
+    wire_dtype: str = "float32"
 
 
 @dataclasses.dataclass(frozen=True)

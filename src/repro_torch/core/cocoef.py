@@ -1,5 +1,5 @@
 """COCO-EF over flat state on one device (port of `repro.core.cocoef`,
-sign wire and cocoef mode).
+cocoef mode, on the sign and the block top-K wires).
 
 All N coding ranks share the device.  Each rank's error vector is one row
 of an (N, n) tensor, the rank gradients come one at a time through a single
@@ -8,6 +8,11 @@ flat gradient buffer, and the step is Algorithm 1:
   for i in ranks:  acc_i = gamma*g_i + e_i;  payload_i = pack(acc_i);
                    e_i <- mask_i ? acc_i - C(acc_i) : e_i     (in place)
   ghat = sum_i mask_i * C(acc_i)                   (one sender-order decode)
+
+With per-rank budgets on the block top-K wire (`k_per_block` a tuple) the
+pack runs on its own and rank i's values beyond its budget are zeroed
+before C(acc_i) feeds the error, as JAX's budget branch
+(`repro/core/cocoef.py:308-318`).
 
 The flat order is part of the algorithm: sign groups straddle leaf
 boundaries, so the flat vector follows JAX's `tree.leaves` order (dict keys
@@ -19,11 +24,13 @@ from __future__ import annotations
 
 import dataclasses
 import math
-from typing import Callable, Dict, List, Optional, Sequence, Tuple
+from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
 import torch
 
-from .collectives import SignWire, coded_aggregate
+from repro_torch.kernels import ref
+
+from .collectives import Wire, build_wire, coded_aggregate
 
 __all__ = ["CocoEFConfig", "FlatLayout", "flat_layout", "padded_size",
            "cocoef_update"]
@@ -31,16 +38,35 @@ __all__ = ["CocoEFConfig", "FlatLayout", "flat_layout", "padded_size",
 
 @dataclasses.dataclass(frozen=True)
 class CocoEFConfig:
-    """Algorithm 1 on the sign wire (the port's only wire so far)."""
+    """Algorithm 1 on one wire (JAX's names and defaults).
+
+    compressor: "sign" or "block_topk" (the port's wires).
+    k_per_block / block_size: the block top-K wire's kept coordinates per
+      block (an int, or one budget per coding rank) and block length.
+    wire_dtype: the block top-K wire's value dtype."""
 
     group_size: int = 512
+    compressor: str = "sign"
+    k_per_block: Union[int, Tuple[int, ...]] = 8
+    block_size: int = 256
+    wire_dtype: str = "float32"
+
+    def __post_init__(self):
+        self.wire      # validates the compressor and the wire's knobs
 
     @property
-    def wire(self) -> SignWire:
-        return SignWire(group_size=self.group_size)
+    def wire(self) -> Wire:
+        return build_wire(self.compressor, group_size=self.group_size,
+                          k_per_block=self.k_per_block,
+                          block_size=self.block_size,
+                          value_dtype=self.wire_dtype)
 
     @property
     def pad_multiple(self) -> int:
+        """Flat-size alignment: the sign group, joined with the sparse
+        block on the block top-K wire (JAX `cocoef.py:106-113`)."""
+        if self.compressor == "block_topk":
+            return math.lcm(self.group_size, self.block_size)
         return self.group_size
 
 
@@ -111,32 +137,70 @@ class _KernelSpans:
 
 def cocoef_update(grad_of: Callable[[int], torch.Tensor], e: torch.Tensor,
                   mask: torch.Tensor, gamma, cfg: CocoEFConfig,
-                  payload: Tuple[torch.Tensor, torch.Tensor],
+                  payload: Tuple[torch.Tensor, ...],
                   out: Optional[torch.Tensor] = None,
                   kernel_spans: Optional[List] = None) -> torch.Tensor:
     """One Algorithm-1 update for the N coding ranks sharing this device.
 
     grad_of(i): rank i's flat (n,) coded gradient; it may return the same
       buffer every time (the slice reuses one gradient buffer), because
-      rank i's gradient is consumed before grad_of(i+1) is called.
+      rank i's gradient is consumed before grad_of(i+1) is called.  On the
+      per-rank budget branch the buffer is overwritten with acc_i.
     e: (N, n) f32 error vectors, updated in place.
     mask: (N,) f32 straggler indicators I_i^t.
     gamma: the learning rate (already inside ghat, eq. 4).
-    payload: (words (N, n/32) u32, scales (N, n/g) f32) buffers.
+    payload: the wire's payload buffers stacked over ranks: sign (words
+      (N, n/32) u32, scales (N, n/g) f32); block top-K (idx (N, n/B, k),
+      values (N, n/B, k), scales (N, n/B) f32).
     out: where to write ghat; may be the gradient buffer, which is free
       once the last rank's local step has run.
     kernel_spans: when a list and on CUDA, gets a (start, end) event pair
-      around every kernel launch.
+      around every rank's local step and around the decode.
     Returns ghat (n,) f32: apply as  params -= ghat."""
     wire = cfg.wire
     N, n = e.shape
     wire.check(n)
-    words, scales = payload
+    if wire.has_rank_budgets() and len(wire.k_per_block) != N:
+        raise ValueError(f"wire has {len(wire.k_per_block)} per-rank "
+                         f"budgets, the coding collective has {N} ranks")
     spans = _KernelSpans(kernel_spans, e.device)
     for i in range(N):
         g = grad_of(i)
+        rows = tuple(p[i] for p in payload)
         with spans:
-            wire.fused_local_step(g, e[i], gamma, mask[i],
-                                  out=(words[i], scales[i], e[i]))
+            if wire.has_rank_budgets():
+                _budget_local_step(wire, g, e[i], gamma, mask[i], rows, i)
+            else:
+                wire.fused_local_step(g, e[i], gamma, mask[i],
+                                      out=rows + (e[i],))
     with spans:
-        return coded_aggregate(wire, (words, scales), mask, out=out)
+        return coded_aggregate(wire, payload, mask, out=out)
+
+
+_BLOCKS_PER_CHUNK = 1 << 21     # bounds the index temporaries of the scatter
+
+
+def _budget_local_step(wire, g: torch.Tensor, e: torch.Tensor, gamma,
+                       mask_i: torch.Tensor, rows, rank: int) -> None:
+    """JAX's per-rank budget branch (`cocoef.py:308-318`) in place:
+      acc = gamma*g + e (into g);  payload = budget_i(topk_pack(acc))
+      e <- mask_i > 0 ? acc - unpack(payload) : e.
+    unpack(payload) is +0 off the kept positions and acc - (+0) == acc
+    there, so e' is formed as acc everywhere, then acc - val*scale at the
+    first k_i slots of every block: the same bits with no dense c."""
+    acc = ref.mul_add_(gamma, g, e)
+    idx, val, scales = wire.apply_rank_budget(wire.fused_pack(acc, out=rows),
+                                              rank)
+    keep = mask_i > 0
+    torch.where(keep, acc, e, out=e)
+    k_i = wire.for_rank(rank).k_max
+    B = wire.block_size
+    nb = scales.shape[0]
+    for b0 in range(0, nb, _BLOCKS_PER_CHUNK):
+        b1 = min(b0 + _BLOCKS_PER_CHUNK, nb)
+        base = torch.arange(b0, b1, dtype=torch.int64, device=g.device)
+        pos = (base[:, None] * B + idx[b0:b1, :k_i].to(torch.int64)
+               ).reshape(-1)
+        c = (val[b0:b1, :k_i].to(torch.float32)
+             * scales[b0:b1, None]).reshape(-1)
+        e[pos] = torch.where(keep, acc[pos] - c, e[pos])

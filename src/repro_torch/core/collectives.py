@@ -1,10 +1,11 @@
-"""The sign wire and the coded aggregate of COCO-EF (port of the sign-wire
-part of `repro.core.collectives`).
+"""The wires and the coded aggregate of COCO-EF (port of the sign-wire and
+block top-K parts of `repro.core.collectives`, with the name -> wire
+mapping of `repro.core.plan.build_wire`).
 
-SignWire is the wire contract: `pack`/`unpack` are the plain semantics,
-`fused_local_step` and `decode_reduce` route through the kernels
-(`repro_torch.kernels.ops`: the Hopper kernels for CUDA tensors, the plain
-versions for CPU tensors).
+SignWire and SparseWire are the wire contract: `pack`/`unpack` are the
+plain semantics, `fused_pack`, `fused_local_step` and `decode_reduce` route
+through the kernels (`repro_torch.kernels.ops`: the Hopper kernels for CUDA
+tensors, the plain versions for CPU tensors).
 
 On one device the coded collective is a single decode
 ----------------------------------------------------
@@ -13,25 +14,31 @@ and aggregates in three parts (`repro/core/collectives.py:613-657`):
 an all_to_all that sends chunk j of every sender's payload to rank j, a
 per-chunk `decode_reduce` over the senders, and an f32 all_gather of the
 chunk sums.  Decode-reduce works coordinate by coordinate: out[x] depends
-only on the senders' bit for x, their scale for x's group and the mask,
-summed in sender order.  Chunks are whole groups (n is padded to a
-multiple of nd * group_size), so every chunk's words and scales are a
-contiguous slice of the full ones, and the all_gather concatenates the
+only on the senders' payload entries for x's group or block and the mask,
+summed in sender order.  Chunks are whole groups and whole blocks (n is
+padded to a multiple of nd * pad_multiple, and pad_multiple is
+lcm(group_size, block_size) on the block top-K wire), so every chunk's
+payload is a contiguous slice of the full one (words and scales; indices,
+values and scales of whole blocks), and the all_gather concatenates the
 chunk sums in chunk order without touching their bits.  With every coding
 rank on one device the three parts together are therefore one
-`sign_decode_reduce` over the full payloads — bit for bit.  `coded_aggregate`
-is that form.  The multi-process NCCL collective is a later step.
+`decode_reduce` over the full payloads — bit for bit, on either wire.
+`coded_aggregate` is that form.  The multi-process NCCL collective is a
+later step.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple
+from typing import Optional, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ops, ref
+from repro_torch.kernels.topk_pack import index_dtype
 
-__all__ = ["SignWire", "wire_bytes_sign", "coded_aggregate"]
+__all__ = ["SignWire", "SparseWire", "WIRES", "build_wire",
+           "wire_bytes_sign", "coded_aggregate"]
 
 
 def wire_bytes_sign(n: int, group_size: int) -> int:
@@ -39,7 +46,17 @@ def wire_bytes_sign(n: int, group_size: int) -> int:
     return n // 8 + 4 * (n // group_size)
 
 
-Payload = Tuple[torch.Tensor, torch.Tensor]      # (words u32, scales f32)
+Payload = Tuple[torch.Tensor, ...]   # sign: (words, scales); sparse: (idx,
+#                                      values, scales); leading dim N when
+#                                      stacked over senders
+
+
+def _check_flat(wire, n: int, nd: int) -> None:
+    a = wire.alignment()
+    if n <= 0 or n % (nd * a):
+        raise ValueError(
+            f"{type(wire).__name__}: flat size {n} must be a positive "
+            f"multiple of chunk_count*alignment = {nd}*{a}; pad upstream")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -63,11 +80,10 @@ class SignWire:
         return self.group_size
 
     def check(self, n: int, nd: int = 1) -> None:
-        a = self.alignment()
-        if n <= 0 or n % (nd * a):
-            raise ValueError(
-                f"SignWire: flat size {n} must be a positive multiple of "
-                f"chunk_count*alignment = {nd}*{a}; pad upstream")
+        _check_flat(self, n, nd)
+
+    def has_rank_budgets(self) -> bool:
+        return False
 
     def payload_n(self, payload: Payload) -> int:
         return payload[0].shape[-1] * 32
@@ -92,11 +108,150 @@ class SignWire:
                                       self.group_size, out=out)
 
 
-def coded_aggregate(wire: SignWire, payloads: Payload, mask: torch.Tensor,
+@dataclasses.dataclass(frozen=True)
+class SparseWire:
+    """Block top-K on the wire.  Per block of `block_size` coordinates:
+      indices (nb, k) u16 (u32 when block_size > 65536): in-block positions
+              of the k largest |x|, magnitude descending, first occurrence
+              winning ties (`lax.top_k`'s order);
+      values  (nb, k) value_dtype: the kept x / scale;
+      scales  (nb,) f32: the block max |x|, 1.0 for an all-zero block.
+
+    `k_per_block` may be a per-rank tuple: the payload is shaped by k_max
+    on every rank and `apply_rank_budget` zeroes rank i's values beyond
+    its own budget; `rank_wire_bytes` charges each rank its own k."""
+
+    k_per_block: Union[int, Tuple[int, ...]] = 8
+    block_size: int = 256
+    value_dtype: str = "float32"
+
+    def __post_init__(self):
+        ks = self.k_per_block
+        if isinstance(ks, (list, tuple, np.ndarray)):
+            ks = tuple(int(k) for k in np.asarray(ks).reshape(-1))
+            if not ks:
+                raise ValueError("per-rank k_per_block must be non-empty")
+            object.__setattr__(self, "k_per_block", ks)
+        else:
+            ks = (int(ks),)
+        for k in ks:
+            if not 0 < k <= self.block_size:
+                raise ValueError(f"need 0 < k_per_block <= block_size, got "
+                                 f"{k} / {self.block_size}")
+        ref.wire_dtype(self.value_dtype)
+
+    @property
+    def k_max(self) -> int:
+        """The largest per-rank budget: the payload's k dimension."""
+        ks = self.k_per_block
+        return max(ks) if isinstance(ks, tuple) else ks
+
+    @property
+    def index_dtype(self) -> torch.dtype:
+        return index_dtype(self.block_size)
+
+    def has_rank_budgets(self) -> bool:
+        return isinstance(self.k_per_block, tuple)
+
+    def for_rank(self, rank: int) -> "SparseWire":
+        """The one-budget wire rank `rank` transmits."""
+        if not self.has_rank_budgets():
+            return self
+        return dataclasses.replace(self,
+                                   k_per_block=int(self.k_per_block[rank]))
+
+    def apply_rank_budget(self, payload: Payload, rank: int) -> Payload:
+        """Zero rank `rank`'s values beyond its budget, in place (a block's
+        top-k indices are distinct, so this is exactly the k_i payload)."""
+        if self.has_rank_budgets():
+            payload[1][..., self.k_per_block[rank]:] = 0
+        return payload
+
+    def rank_wire_bytes(self, n: int, num_ranks: int) -> np.ndarray:
+        if not self.has_rank_budgets():
+            return np.full((num_ranks,), int(self.wire_bytes(n)), np.int64)
+        if len(self.k_per_block) != num_ranks:
+            raise ValueError(f"wire has {len(self.k_per_block)} per-rank "
+                             f"budgets, asked for {num_ranks} ranks")
+        return np.asarray([self.for_rank(i).wire_bytes(n)
+                           for i in range(num_ranks)], np.int64)
+
+    def pack(self, x: torch.Tensor) -> Payload:
+        idx, val, scales = ref.topk_pack_ref(x, self.k_max, self.block_size)
+        return (idx.to(self.index_dtype),
+                val.to(ref.wire_dtype(self.value_dtype)), scales)
+
+    def unpack(self, payload: Payload) -> torch.Tensor:
+        idx, values, scales = payload
+        return ref.topk_unpack_ref(idx, values, scales, self.block_size)
+
+    def wire_bytes(self, n: int) -> int:
+        idx_b = 2 if self.block_size <= (1 << 16) else 4
+        val_b = ref.wire_dtype(self.value_dtype).itemsize
+        return (n // self.block_size) * (self.k_max * (idx_b + val_b) + 4)
+
+    def alignment(self) -> int:
+        return self.block_size
+
+    def check(self, n: int, nd: int = 1) -> None:
+        _check_flat(self, n, nd)
+
+    def payload_n(self, payload: Payload) -> int:
+        return payload[2].shape[-1] * self.block_size
+
+    def fused_pack(self, x: torch.Tensor,
+                   out: Optional[Payload] = None) -> Payload:
+        """pack(x) through the kernel (k_max slots; apply the rank budget
+        after), written into `out` = (idx, values, scales) when given."""
+        return ops.topk_pack(x, self.k_max, self.block_size,
+                             self.value_dtype, out=out)
+
+    def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
+                         mask_self, want_c: bool = False,
+                         out: Optional[Tuple[torch.Tensor, ...]] = None):
+        """acc = gamma*g + e; payload = pack(acc); c = C(acc) (values
+        rounded to the wire dtype, times scale); e_new = mask_self ?
+        acc - c : e, in one pass over g and e.  `out` = (idx, values,
+        scales, e_new) buffers; e_new may alias e.  Returns (payload,
+        c or None, e_new)."""
+        idx, val, scales, c, e_new = ops.ef_topk_fused(
+            g, e, gamma, mask_self, self.k_max, self.block_size,
+            self.value_dtype, want_c=want_c, out=out)
+        return (idx, val, scales), c, e_new
+
+    def decode_reduce(self, payloads: Payload, sender_mask: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sum_i sender_mask_i * unpack(payload_i), in sender order."""
+        idx, val, scales = payloads
+        return ops.topk_decode_reduce(idx, val, scales, sender_mask,
+                                      self.block_size, out=out)
+
+
+Wire = Union[SignWire, SparseWire]
+WIRES = ("sign", "block_topk")
+
+
+def build_wire(compressor: str, *, group_size: int = 512,
+               k_per_block: Union[int, Tuple[int, ...]] = 8,
+               block_size: int = 256,
+               value_dtype: str = "float32") -> Wire:
+    """The wire of a compressor name and its knobs (the mapping of
+    `repro.core.plan.build_wire`, for the wires the port carries)."""
+    if compressor == "sign":
+        return SignWire(group_size=group_size)
+    if compressor == "block_topk":
+        return SparseWire(k_per_block=k_per_block, block_size=block_size,
+                          value_dtype=value_dtype)
+    raise ValueError(f"unknown or unported compressor {compressor!r}; the "
+                     f"port carries {WIRES}")
+
+
+def coded_aggregate(wire: Wire, payloads: Payload, mask: torch.Tensor,
                     out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """ghat = sum_i mask_i * C(acc_i) over the N coding ranks that share
     this device: the single-device form of the two-phase collective (see
     the module docstring for why it equals the chunked form bit for bit).
-    payloads: (words (N, n/32), scales (N, n/g)); mask: (N,) f32."""
+    payloads: the wire's payload leaves stacked over senders (N, ...);
+    mask: (N,) f32."""
     wire.check(wire.payload_n(payloads))
     return wire.decode_reduce(payloads, mask, out=out)

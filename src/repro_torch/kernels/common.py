@@ -1,0 +1,51 @@
+"""What every kernel wrapper of the port shares: the launch counts, input
+checks, device scalars and the launch-error check.
+
+Each kernel launch adds one to `launches[<name>]`, and nothing else does,
+so a run can show that its main path went through the kernels."""
+from __future__ import annotations
+
+import ctypes
+from typing import Dict
+
+import torch
+
+launches: Dict[str, int] = {
+    "ef_sign_fused": 0, "sign_decode_reduce": 0,
+    "ef_topk_fused": 0, "topk_pack": 0, "topk_decode_reduce": 0}
+
+VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+
+
+def reset_launches() -> None:
+    for k in launches:
+        launches[k] = 0
+
+
+def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
+    if t.dtype != dtype:
+        raise TypeError(f"{name}: need {dtype}, got {t.dtype}")
+    if tuple(t.shape) != tuple(shape):
+        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
+                         f"{tuple(t.shape)}")
+    if t.device != device:
+        raise ValueError(f"{name}: on {t.device}, expected {device}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name}: must be contiguous")
+
+
+def scalar(v, device) -> torch.Tensor:
+    t = torch.as_tensor(v, dtype=torch.float32, device=device)
+    if t.numel() != 1:
+        raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
+    return t.contiguous()
+
+
+def raise_if(err: int, name: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
+                           f"(cudaGetLastError)")
+
+
+def stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream

@@ -1,10 +1,17 @@
 """Plain PyTorch versions of the port's kernels (mirror of
-`repro/kernels/ref.py`, sign wire only).
+`repro/kernels/ref.py`, the sign and the block top-K wires).
 
 They define the semantics: the CUDA kernels in `csrc/` must match them
 bit for bit (the group sum follows the kernel's order), and the wrappers
-in `sign_pack.py` run them for CPU tensors.  Sign words are built in int64
-and cast to uint32, because torch on the CPU has no uint32 shift.
+in `sign_pack.py` and `topk_pack.py` run them for CPU tensors.  Sign words
+are built in int64 and cast to uint32, because torch on the CPU has no
+uint32 shift.
+
+Block top-K selection is a stable descending sort of |x| per block, which
+gives `lax.top_k`'s order (magnitude descending, first occurrence winning
+ties); `torch.topk` orders ties otherwise (ROADMAP C1).  Signed zeros
+follow JAX's jnp reference, not its Pallas kernel (ROADMAP C7): a selected
+-0.0 keeps its sign in the values, in c and in e' = acc - c.
 """
 from __future__ import annotations
 
@@ -23,6 +30,12 @@ def mul_add(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """The Algorithm-1 accumulate  acc = gamma * g + e  as two separately
     rounded f32 ops (eager PyTorch never contracts them into an FMA)."""
     return _as_f32(gamma, g) * g.to(_F32) + e.to(_F32)
+
+
+def mul_add_(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
+    """`mul_add` written into g (g <- gamma * g + e, the same two
+    roundings); returns g."""
+    return g.mul_(_as_f32(gamma, g)).add_(e)
 
 
 def _pack_words(x: torch.Tensor) -> torch.Tensor:
@@ -95,4 +108,97 @@ def sign_decode_reduce_ref(words: torch.Tensor, scales: torch.Tensor,
     for i in range(words.shape[0]):
         acc = acc + mask[i].to(_F32) * sign_unpack_ref(words[i], scales[i],
                                                        group_size)
+    return acc
+
+
+WIRE_DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+
+
+def wire_dtype(name: str) -> torch.dtype:
+    """torch dtype of a wire value dtype given by its JAX name."""
+    if name not in WIRE_DTYPES:
+        raise ValueError(f"unknown wire dtype {name!r}; have "
+                         f"{tuple(WIRE_DTYPES)}")
+    return WIRE_DTYPES[name]
+
+
+def topk_select(blocks: torch.Tensor, k: int
+                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """blocks (nb, B) f32 -> (idx (nb, k) int64, signed kept values (nb, k))
+    of each block's k largest |x|, magnitude descending, first occurrence
+    winning ties: `lax.top_k` on |x|, by a stable sort (ROADMAP C1)."""
+    if not 0 < k <= blocks.shape[-1]:
+        raise ValueError(f"need 0 < k <= block width, got {k} / "
+                         f"{blocks.shape[-1]}")
+    idx = torch.sort(blocks.abs(), dim=-1, descending=True,
+                     stable=True).indices[:, :k]
+    return idx, torch.gather(blocks, 1, idx)
+
+
+def _safe_scale(sv: torch.Tensor) -> torch.Tensor:
+    """Block max |x| (= |first kept value|), 1.0 for an all-zero block."""
+    scale = sv[:, 0].abs()
+    return torch.where(scale == 0, torch.ones_like(scale), scale)
+
+
+def topk_pack_ref(x: torch.Tensor, k: int, block_size: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """x (n,) -> (idx (n/B, k) i32, values (n/B, k) f32 = kept x / scale,
+    scales (n/B,) f32 = block max |x|, 1.0 for an all-zero block)."""
+    blocks = x.to(_F32).reshape(-1, block_size)
+    idx, sv = topk_select(blocks, k)
+    safe = _safe_scale(sv)
+    return idx.to(torch.int32), sv / safe[:, None], safe
+
+
+def _scatter_blocks(idx: torch.Tensor, sv: torch.Tensor,
+                    block_size: int) -> torch.Tensor:
+    """Flat (nb*B,) f32: zeros, with sv (nb, k) at the in-block positions
+    idx (nb, k)."""
+    nb = idx.shape[0]
+    base = torch.arange(nb, dtype=torch.int64, device=idx.device)[:, None]
+    flat = (base * block_size + idx.to(torch.int64)).reshape(-1)
+    out = torch.zeros(nb * block_size, dtype=_F32, device=idx.device)
+    return out.index_put_((flat,), sv.reshape(-1))
+
+
+def ef_topk_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
+                      k: int, block_size: int,
+                      value_dtype="float32"):
+    """Fused Algorithm-1 local step on the block top-K wire:
+      acc = gamma * g + e;  (idx, sv) = top-k of |acc| per block
+      scale = block max |acc| (1.0 if 0);  val = value_dtype(sv / scale)
+      c = scatter(val * scale);  e_new = mask_self > 0 ? acc - c : e
+    Returns (idx i32, val f32 holding value_dtype-rounded numbers, scale,
+    c, e_new).  A selected -0.0 stays -0.0 in val and c (ROADMAP C7)."""
+    accb = mul_add(gamma, g, e).reshape(-1, block_size)
+    idx, sv = topk_select(accb, k)
+    safe = _safe_scale(sv)
+    val = (sv / safe[:, None]).to(wire_dtype(value_dtype)).to(_F32)
+    c = _scatter_blocks(idx, val * safe[:, None], block_size)
+    keep = _as_f32(mask_self, g) > 0
+    e_new = torch.where(keep, accb.reshape(-1) - c, e.to(_F32))
+    return idx.to(torch.int32), val, safe, c, e_new
+
+
+def topk_unpack_ref(idx: torch.Tensor, values: torch.Tensor,
+                    scales: torch.Tensor, block_size: int) -> torch.Tensor:
+    """Inverse of topk_pack_ref: the kept values * scale scattered back,
+    flat (n,) f32."""
+    sv = values.to(_F32) * scales.to(_F32)[:, None]
+    return _scatter_blocks(idx, sv, block_size)
+
+
+def topk_decode_reduce_ref(idx: torch.Tensor, values: torch.Tensor,
+                           scales: torch.Tensor, mask: torch.Tensor,
+                           block_size: int) -> torch.Tensor:
+    """sum_i mask_i * unpack(payload_i), over senders in order from +0.0,
+    each product rounded on its own (sv = val*scale, then mask*sv, then
+    the add): JAX's `topk_decode_reduce_scan`.  idx, values (N, n/B, k),
+    scales (N, n/B), mask (N,) f32 -> (n,) f32."""
+    acc = torch.zeros(idx.shape[1] * block_size, dtype=_F32,
+                      device=idx.device)
+    for i in range(idx.shape[0]):
+        acc = acc + mask[i].to(_F32) * topk_unpack_ref(idx[i], values[i],
+                                                       scales[i], block_size)
     return acc

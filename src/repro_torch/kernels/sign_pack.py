@@ -3,52 +3,31 @@
 For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
 current stream, or raises: there is no fallback.  Only for CPU tensors does
 it run the plain version in `ref.py`.  Each kernel launch adds one to
-`launches[<name>]`, and nothing else does, so a run can show that its main
-path went through the kernels.
+`launches[<name>]` (`common.py`).
 """
 from __future__ import annotations
 
 import ctypes
 import functools
-from typing import Dict, Optional, Tuple
+from typing import Optional, Tuple
 
 import torch
 
 from . import build, ref
+from .common import (LL, VP, I, check, launches,  # noqa: F401
+                     raise_if, reset_launches, scalar, stream)
 
 SUPPORTED_GROUP_SIZES = (32, 64, 128, 256, 512, 1024)   # see SIGN_DISPATCH
-
-launches: Dict[str, int] = {"ef_sign_fused": 0, "sign_decode_reduce": 0}
-
-
-def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
-
-
-_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("sign_pack")
-    lib.ef_sign_fused_launch.argtypes = [_VP] * 8 + [_LL, _I, _VP]
-    lib.ef_sign_fused_launch.restype = _I
-    lib.sign_decode_reduce_launch.argtypes = [_VP] * 4 + [_I, _LL, _I, _VP]
-    lib.sign_decode_reduce_launch.restype = _I
+    lib.ef_sign_fused_launch.argtypes = [VP] * 8 + [LL, I, VP]
+    lib.ef_sign_fused_launch.restype = I
+    lib.sign_decode_reduce_launch.argtypes = [VP] * 4 + [I, LL, I, VP]
+    lib.sign_decode_reduce_launch.restype = I
     return lib
-
-
-def _check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
-    if t.dtype != dtype:
-        raise TypeError(f"{name}: need {dtype}, got {t.dtype}")
-    if tuple(t.shape) != tuple(shape):
-        raise ValueError(f"{name}: need shape {tuple(shape)}, got "
-                         f"{tuple(t.shape)}")
-    if t.device != device:
-        raise ValueError(f"{name}: on {t.device}, expected {device}")
-    if not t.is_contiguous():
-        raise ValueError(f"{name}: must be contiguous")
 
 
 def _check_group(n: int, group_size: int, device: torch.device) -> None:
@@ -58,19 +37,6 @@ def _check_group(n: int, group_size: int, device: torch.device) -> None:
     if device.type == "cuda" and group_size not in SUPPORTED_GROUP_SIZES:
         raise ValueError(f"no CUDA kernel for group_size={group_size}; "
                          f"have {SUPPORTED_GROUP_SIZES}")
-
-
-def _scalar(v, device) -> torch.Tensor:
-    t = torch.as_tensor(v, dtype=torch.float32, device=device)
-    if t.numel() != 1:
-        raise ValueError(f"expected a scalar, got shape {tuple(t.shape)}")
-    return t.contiguous()
-
-
-def _raise_if(err: int, name: str) -> None:
-    if err != 0:
-        raise RuntimeError(f"{name}: CUDA launch failed with error {err} "
-                           f"(cudaGetLastError)")
 
 
 def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
@@ -92,17 +58,17 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     n = g.numel()
     dev = g.device
     _check_group(n, group_size, dev)
-    _check(g, "g", torch.float32, (n,), dev)
-    _check(e, "e", torch.float32, (n,), dev)
+    check(g, "g", torch.float32, (n,), dev)
+    check(e, "e", torch.float32, (n,), dev)
     if out is None:
         out = (torch.empty(n // 32, dtype=torch.uint32, device=dev),
                torch.empty(n // group_size, dtype=torch.float32, device=dev),
                torch.empty(n, dtype=torch.float32, device=dev))
     words, scales, e_new = out
-    _check(words, "words", torch.uint32, (n // 32,), dev)
-    _check(scales, "scales", torch.float32, (n // group_size,), dev)
-    _check(e_new, "e_new", torch.float32, (n,), dev)
-    gamma_t, mask_t = _scalar(gamma, dev), _scalar(mask_self, dev)
+    check(words, "words", torch.uint32, (n // 32,), dev)
+    check(scales, "scales", torch.float32, (n // group_size,), dev)
+    check(e_new, "e_new", torch.float32, (n,), dev)
+    gamma_t, mask_t = scalar(gamma, dev), scalar(mask_self, dev)
 
     if dev.type == "cpu":
         w, s, c, en = ref.ef_sign_fused_ref(g, e, gamma_t, mask_t,
@@ -115,13 +81,12 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         raise ValueError(f"ef_sign_fused: unsupported device {dev}")
 
     c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().ef_sign_fused_launch(
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         words.data_ptr(), scales.data_ptr(),
         c.data_ptr() if c is not None else None, e_new.data_ptr(),
-        n, group_size, stream)
-    _raise_if(err, "ef_sign_fused")
+        n, group_size, stream(dev))
+    raise_if(err, "ef_sign_fused")
     launches["ef_sign_fused"] += 1
     return words, scales, c, e_new
 
@@ -138,12 +103,12 @@ def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,
     N, nw = words.shape
     n = nw * 32
     _check_group(n, group_size, dev)
-    _check(words, "words", torch.uint32, (N, nw), dev)
-    _check(scales, "scales", torch.float32, (N, n // group_size), dev)
-    _check(mask, "mask", torch.float32, (N,), dev)
+    check(words, "words", torch.uint32, (N, nw), dev)
+    check(scales, "scales", torch.float32, (N, n // group_size), dev)
+    check(mask, "mask", torch.float32, (N,), dev)
     if out is None:
         out = torch.empty(n, dtype=torch.float32, device=dev)
-    _check(out, "out", torch.float32, (n,), dev)
+    check(out, "out", torch.float32, (n,), dev)
 
     if dev.type == "cpu":
         return out.copy_(ref.sign_decode_reduce_ref(words, scales, mask,
@@ -153,10 +118,9 @@ def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,
     if out.data_ptr() % 16:
         raise ValueError("out: the kernel stores float4, need 16-byte "
                          "alignment")
-    stream = torch.cuda.current_stream(dev).cuda_stream
     err = _lib().sign_decode_reduce_launch(
         words.data_ptr(), scales.data_ptr(), mask.data_ptr(),
-        out.data_ptr(), N, n, group_size, stream)
-    _raise_if(err, "sign_decode_reduce")
+        out.data_ptr(), N, n, group_size, stream(dev))
+    raise_if(err, "sign_decode_reduce")
     launches["sign_decode_reduce"] += 1
     return out

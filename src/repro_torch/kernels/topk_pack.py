@@ -1,0 +1,181 @@
+"""Wrappers of the block top-K wire CUDA kernels (`csrc/topk_pack.cu`).
+
+For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
+current stream, or raises: there is no fallback.  Only for CPU tensors does
+it run the plain version in `ref.py`, which takes any block size and k that
+JAX's reference takes.  The kernels take B in SUPPORTED_BLOCK_SIZES,
+1 <= k <= K_MAX and f32 or bf16 values; anything else raises ValueError on
+CUDA.  Payloads are in the wire's dtypes: in-block indices u16 (u32 when
+B > 65536), values in the value dtype, scales f32.  Each kernel launch adds
+one to `launches[<name>]` (`common.py`).
+"""
+from __future__ import annotations
+
+import ctypes
+import functools
+from typing import Optional, Tuple
+
+import torch
+
+from . import build, ref
+from .common import LL, VP, I, check, launches, raise_if, scalar, stream
+
+SUPPORTED_BLOCK_SIZES = (256, 512)     # see TOPK_DISPATCH
+K_MAX = 32                             # one output slot per lane
+
+
+@functools.cache
+def _lib() -> ctypes.CDLL:
+    lib = build.library("topk_pack")
+    lib.ef_topk_fused_launch.argtypes = [VP] * 9 + [LL, I, I, I, VP]
+    lib.ef_topk_fused_launch.restype = I
+    lib.topk_pack_launch.argtypes = [VP] * 4 + [LL, I, I, I, VP]
+    lib.topk_pack_launch.restype = I
+    lib.topk_decode_reduce_launch.argtypes = [VP] * 5 + [I, LL, I, I, I, VP]
+    lib.topk_decode_reduce_launch.restype = I
+    return lib
+
+
+def index_dtype(block_size: int) -> torch.dtype:
+    """The wire's in-block index dtype (as `SparseWire.index_dtype`)."""
+    return torch.uint16 if block_size <= (1 << 16) else torch.uint32
+
+
+def _check_shape(n: int, k: int, block_size: int, vdt: torch.dtype,
+                 device: torch.device) -> None:
+    if block_size <= 0 or n <= 0 or n % block_size:
+        raise ValueError(f"need n a positive multiple of block_size (n={n}, "
+                         f"B={block_size})")
+    if not 0 < k <= block_size:
+        raise ValueError(f"need 0 < k <= block_size, got {k} / {block_size}")
+    if device.type == "cuda":
+        if block_size not in SUPPORTED_BLOCK_SIZES:
+            raise ValueError(f"no CUDA kernel for block_size={block_size}; "
+                             f"have {SUPPORTED_BLOCK_SIZES}")
+        if k > K_MAX:
+            raise ValueError(f"no CUDA kernel for k={k}; have 1..{K_MAX}")
+        if vdt not in (torch.float32, torch.bfloat16):
+            raise ValueError(f"no CUDA kernel for values of {vdt}")
+    elif device.type != "cpu":
+        raise ValueError(f"unsupported device {device}")
+
+
+def _payload_out(out, nb: int, k: int, block_size: int, vdt, dev):
+    if out is None:
+        out = (torch.empty((nb, k), dtype=index_dtype(block_size), device=dev),
+               torch.empty((nb, k), dtype=vdt, device=dev),
+               torch.empty(nb, dtype=torch.float32, device=dev))
+    idx, val, scales = out[:3]
+    check(idx, "idx", index_dtype(block_size), (nb, k), dev)
+    check(val, "val", vdt, (nb, k), dev)
+    check(scales, "scales", torch.float32, (nb,), dev)
+    return out
+
+
+def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
+                  k: int, block_size: int, value_dtype: str = "float32",
+                  want_c: bool = False,
+                  out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Fused local COCO-EF step on the block top-K wire, one pass over g
+    and e: acc = gamma*g + e; per block the k largest |acc| in `lax.top_k`
+    order; scale = block max |acc| (1.0 if 0); val = value_dtype(sv/scale);
+    c = scatter(val*scale); e_new = mask_self > 0 ? acc - c : e.
+
+    g, e: (n,) f32; gamma, mask_self: scalars (device tensors cost no host
+    copy, see `sign_pack.ef_sign_fused`).  `out` = (idx (n/B, k) index
+    dtype, val (n/B, k) value dtype, scales (n/B,) f32, e_new (n,) f32) to
+    write into; e_new may be `e` itself.  Returns (idx, val, scales,
+    c or None, e_new)."""
+    n, dev = g.numel(), g.device
+    vdt = ref.wire_dtype(value_dtype)
+    _check_shape(n, k, block_size, vdt, dev)
+    check(g, "g", torch.float32, (n,), dev)
+    check(e, "e", torch.float32, (n,), dev)
+    nb = n // block_size
+    if out is None:
+        out = _payload_out(None, nb, k, block_size, vdt, dev) + (
+            torch.empty(n, dtype=torch.float32, device=dev),)
+    idx, val, scales, e_new = _payload_out(out, nb, k, block_size, vdt, dev)
+    check(e_new, "e_new", torch.float32, (n,), dev)
+    gamma_t, mask_t = scalar(gamma, dev), scalar(mask_self, dev)
+
+    if dev.type == "cpu":
+        i, v, s, c, en = ref.ef_topk_fused_ref(g, e, gamma_t, mask_t, k,
+                                               block_size, value_dtype)
+        idx.copy_(i)
+        val.copy_(v)
+        scales.copy_(s)
+        e_new.copy_(en)
+        return idx, val, scales, (c if want_c else None), e_new
+
+    c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
+    err = _lib().ef_topk_fused_launch(
+        g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
+        idx.data_ptr(), val.data_ptr(), scales.data_ptr(),
+        c.data_ptr() if c is not None else None, e_new.data_ptr(),
+        n, block_size, k, int(vdt == torch.bfloat16), stream(dev))
+    raise_if(err, "ef_topk_fused")
+    launches["ef_topk_fused"] += 1
+    return idx, val, scales, c, e_new
+
+
+def topk_pack(x: torch.Tensor, k: int, block_size: int,
+              value_dtype: str = "float32",
+              out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """Pack only: x (n,) f32 -> (idx (n/B, k), val = value_dtype(sv/scale)
+    (n/B, k), scales (n/B,) f32), written into `out` when given."""
+    n, dev = x.numel(), x.device
+    vdt = ref.wire_dtype(value_dtype)
+    _check_shape(n, k, block_size, vdt, dev)
+    check(x, "x", torch.float32, (n,), dev)
+    idx, val, scales = _payload_out(out, n // block_size, k, block_size,
+                                    vdt, dev)
+    if dev.type == "cpu":
+        i, v, s = ref.topk_pack_ref(x, k, block_size)
+        idx.copy_(i)
+        val.copy_(v)
+        scales.copy_(s)
+        return idx, val, scales
+    err = _lib().topk_pack_launch(
+        x.data_ptr(), idx.data_ptr(), val.data_ptr(), scales.data_ptr(), n,
+        block_size, k, int(vdt == torch.bfloat16), stream(dev))
+    raise_if(err, "topk_pack")
+    launches["topk_pack"] += 1
+    return idx, val, scales
+
+
+def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
+                       scales: torch.Tensor, mask: torch.Tensor,
+                       block_size: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Server-side decode + masked sum over senders, in sender order:
+    idx (N, n/B, k), val (N, n/B, k), scales (N, n/B) f32, mask (N,) f32
+    -> (n,) f32, written into `out` when given.  A pack's k indices in a
+    block are distinct and < B."""
+    dev = idx.device
+    if idx.dim() != 3:
+        raise ValueError(f"idx: need (N, n/B, k), got {tuple(idx.shape)}")
+    N, nb, k = idx.shape
+    n = nb * block_size
+    _check_shape(n, k, block_size, val.dtype, dev)
+    check(idx, "idx", index_dtype(block_size), (N, nb, k), dev)
+    check(val, "val", val.dtype, (N, nb, k), dev)
+    check(scales, "scales", torch.float32, (N, nb), dev)
+    check(mask, "mask", torch.float32, (N,), dev)
+    if out is None:
+        out = torch.empty(n, dtype=torch.float32, device=dev)
+    check(out, "out", torch.float32, (n,), dev)
+
+    if dev.type == "cpu":
+        return out.copy_(ref.topk_decode_reduce_ref(idx, val, scales, mask,
+                                                    block_size))
+    if out.data_ptr() % 16:
+        raise ValueError("out: the kernel stores float4, need 16-byte "
+                         "alignment")
+    err = _lib().topk_decode_reduce_launch(
+        idx.data_ptr(), val.data_ptr(), scales.data_ptr(), mask.data_ptr(),
+        out.data_ptr(), N, n, block_size, k,
+        int(val.dtype == torch.bfloat16), stream(dev))
+    raise_if(err, "topk_decode_reduce")
+    launches["topk_decode_reduce"] += 1
+    return out

@@ -4,11 +4,13 @@
   Stage 1  each coding rank's coded gradient g_i is one weighted backward
            pass (the encode weights are folded into the per-example
            weights), written into the model's one flat gradient buffer.
-  Stage 2  rank by rank, the fused local step (ef_sign_fused) packs
-           gamma*g_i + e_i into rank i's sign payload and updates e_i in
-           place; then one sender-order decode (sign_decode_reduce) writes
-           ghat into the gradient buffer, and the server update
-           theta <- theta - ghat runs in place.
+  Stage 2  rank by rank, the fused local step of the wire
+           (ef_sign_fused on the sign wire, ef_topk_fused on the block
+           top-K wire; topk_pack when the ranks have their own k budgets)
+           packs gamma*g_i + e_i into rank i's payload and updates e_i in
+           place; then one sender-order decode (sign_decode_reduce or
+           topk_decode_reduce) writes ghat into the gradient buffer, and
+           the server update theta <- theta - ghat runs in place.
 
 The coding ranks share the card, so the JAX collective's all_to_all /
 decode / all_gather is one decode here (`core.collectives`).
@@ -21,10 +23,11 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.common import ArchSpec, ShapeCfg
+from repro_torch.configs.common import ArchSpec, CodingPlan, ShapeCfg
 from repro_torch.core import coding
 from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
 from repro_torch.data import pipeline
+from repro_torch.kernels import ref
 from repro_torch.nn.models import Model
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_update,
                                           init_opt_state, lr_schedule)
@@ -36,13 +39,48 @@ __all__ = ["TrainRun", "TrainSetup", "build_train_setup"]
 @dataclasses.dataclass(frozen=True)
 class TrainRun:
     """The knobs of the slice's run: constant learning rate (the paper's
-    setting), the server optimizer, and the seed of the parameters, the
-    batches and the straggler masks.  The sign wire and cocoef mode are
-    fixed; the wire group comes from the spec's CodingPlan."""
+    setting), the server optimizer, the seed of the parameters, the
+    batches and the straggler masks, and JAX's wire overrides (cocoef mode
+    is fixed; the other wire knobs come from the spec's CodingPlan).
+
+    compressor: overrides spec.coding.compressor ("sign" | "block_topk").
+    k_budgets: one block top-K budget per coding rank; overrides
+      spec.coding.k_per_block and needs the block_topk wire."""
 
     base_lr: float = 1e-3
     optimizer: OptimizerConfig = OptimizerConfig()
     seed: int = 0
+    compressor: Optional[str] = None
+    k_budgets: Optional[Tuple[int, ...]] = None
+
+    def __post_init__(self):
+        if self.k_budgets is not None and \
+                any(k < 1 for k in self.k_budgets):
+            raise ValueError("every per-rank k budget must be >= 1")
+        if self.k_budgets is not None and len(self.k_budgets) == 0:
+            raise ValueError("k_budgets must be non-empty (one per-rank "
+                             "block-top-K budget per coding rank)")
+
+    def coding_config(self, plan: CodingPlan, n_code: int) -> CocoEFConfig:
+        """The wire this run codes with on `n_code` ranks: the plan's,
+        with this run's overrides (JAX `TrainRun.resolve_plan`)."""
+        comp = self.compressor or plan.compressor
+        k_per_block = plan.k_per_block
+        if self.k_budgets is not None:
+            if comp != "block_topk":
+                raise ValueError(
+                    f"k_budgets rides the block-top-K sparse wire; the "
+                    f"effective compressor is {comp!r} (pass "
+                    f"compressor='block_topk' or drop k_budgets)")
+            if len(self.k_budgets) != n_code:
+                raise ValueError(f"k_budgets has {len(self.k_budgets)} "
+                                 f"entries, the run has {n_code} coding "
+                                 f"ranks")
+            k_per_block = tuple(self.k_budgets)
+        return CocoEFConfig(group_size=plan.group_size, compressor=comp,
+                            k_per_block=k_per_block,
+                            block_size=plan.block_size,
+                            wire_dtype=plan.wire_dtype)
 
 
 Batch = Tuple[torch.Tensor, torch.Tensor]    # tokens (N, b, S+1), weights
@@ -63,7 +101,7 @@ class TrainSetup:
     W: np.ndarray                    # (N, M) f32 encode weights
     cocoef_cfg: CocoEFConfig
     straggler_process: Optional[IIDBernoulli]
-    payload: Tuple[torch.Tensor, torch.Tensor]
+    payload: Tuple[torch.Tensor, ...]     # the wire's, stacked over ranks
     opt_state: Tuple[torch.Tensor, ...]
 
     @property
@@ -143,10 +181,9 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
     """The slice's counterpart of JAX's `build_train_setup` on a
     (data=n_code, model=1) mesh: cyclic allocation with M = n_code subsets
     and d = spec.coding.redundancy, rate-aware encode weights (eq. 3 for
-    the iid process), flat size padded to n_code * group_size."""
+    the iid process), flat size padded to n_code * pad_multiple (the sign
+    group, joined with the block on the block top-K wire)."""
     cfg = spec.smoke if smoke else spec.config
-    if spec.coding.compressor != "sign":
-        raise NotImplementedError("the port carries the sign wire only")
     if n_code < 2:
         raise ValueError("the coded step needs at least 2 coding ranks")
     p = spec.coding.straggler_p
@@ -157,17 +194,35 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
     W = (coding.encode_weights(alloc, rates=proc.rates()) if proc
          else coding.encode_weights(alloc, p=0.0))
     per_subset = max(1, shape.global_batch // M)
-    ccfg = CocoEFConfig(group_size=spec.coding.group_size)
+    ccfg = run.coding_config(spec.coding, n_code)
 
     model = Model(cfg, chunk_ranks=n_code, group_size=ccfg.pad_multiple,
                   device=device)
     dev = model.theta.device
     n = model.layout.padded
-    payload = (torch.zeros((n_code, n // 32), dtype=torch.uint32, device=dev),
-               torch.zeros((n_code, n // ccfg.group_size),
-                           dtype=torch.float32, device=dev))
+    payload = _payload_buffers(ccfg, n_code, n, dev)
     return TrainSetup(
         run=run, model=model, n_code=n_code, b_loc=per_subset * d,
         per_subset=per_subset, seq_len=shape.seq_len, allocation=alloc, W=W,
         cocoef_cfg=ccfg, straggler_process=proc, payload=payload,
         opt_state=init_opt_state(run.optimizer, n, dev))
+
+
+def _payload_buffers(ccfg: CocoEFConfig, n_code: int, n: int,
+                    device) -> Tuple[torch.Tensor, ...]:
+    """Zeroed payload buffers of the run's wire for n_code ranks, in the
+    wire's dtypes: sign (words (N, n/32) u32, scales (N, n/g) f32); block
+    top-K (idx (N, n/B, k_max), values (N, n/B, k_max), scales (N, n/B))."""
+    wire = ccfg.wire
+    if ccfg.compressor == "sign":
+        return (torch.zeros((n_code, n // 32), dtype=torch.uint32,
+                            device=device),
+                torch.zeros((n_code, n // ccfg.group_size),
+                            dtype=torch.float32, device=device))
+    nb = n // wire.block_size
+    return (torch.zeros((n_code, nb, wire.k_max), dtype=wire.index_dtype,
+                        device=device),
+            torch.zeros((n_code, nb, wire.k_max),
+                        dtype=ref.wire_dtype(wire.value_dtype),
+                        device=device),
+            torch.zeros((n_code, nb), dtype=torch.float32, device=device))

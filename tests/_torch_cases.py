@@ -66,3 +66,58 @@ def check_ef_outputs(ref, got, group_size: int, max_ulp: int = 2,
             np.testing.assert_array_equal(a[same].view(np.int32),
                                           b[same].view(np.int32))
         assert np.all(np.abs(a - b) <= tol + extra)
+
+
+def topk_inputs(n: int, block_size: int, k: int, seed: int,
+                denormals: bool = True):
+    """(g, e) f32 of length n for the block top-K wire, with adversarial
+    blocks first (acc = gamma*g + e): all zeros; -0.0 everywhere; tiny
+    values (denormal acc, or with denormals=False small normals);
+    k + 1 equal maxima of mixed sign over small values; exactly k nonzeros;
+    every |acc| equal; then random blocks of widely varying scale."""
+    rng = np.random.default_rng(seed)
+    B = block_size
+    g = rng.standard_normal(n).astype(np.float32)
+    e = rng.standard_normal(n).astype(np.float32)
+    mag = np.exp(rng.uniform(-20, 5, n // B)).astype(np.float32)
+    g *= np.repeat(mag, B)
+    e *= np.repeat(mag, B) * np.float32(0.01)
+    blk = [slice(i * B, (i + 1) * B) for i in range(6)]
+    g[blk[0]] = 0.0
+    e[blk[0]] = 0.0
+    g[blk[1]] = -0.0
+    e[blk[1]] = -0.0
+    # tiny block: with denormals=False every |acc| and every rounding
+    # error of e' = acc - c stays normal (|acc| >= 2**-103), since XLA:CPU
+    # flushes denormal results too
+    tiny = np.float32(1.0) if denormals else np.float32(1e10)
+    sgn = np.where(rng.random(B) < 0.5, -1.0, 1.0).astype(np.float32)
+    g[blk[2]] = sgn * rng.uniform(1, 2, B).astype(np.float32) * 1e-40 * tiny
+    e[blk[2]] = sgn * rng.uniform(1, 3, B).astype(np.float32) * 1e-41 * tiny
+    ties = rng.choice(B, k + 1, replace=False)
+    g[blk[3]] *= np.float32(1e-3) / np.abs(g[blk[3]]).max()
+    e[blk[3]] = 0.0
+    g[blk[3].start + ties] = np.where(np.arange(k + 1) % 2, -2.0, 2.0)
+    g[blk[4]] = 0.0
+    e[blk[4]] = 0.0
+    g[blk[4].start + rng.choice(B, k, replace=False)] = \
+        rng.standard_normal(k).astype(np.float32)
+    g[blk[5]] = np.where(rng.random(B) < 0.5, -1.0, 1.0)
+    e[blk[5]] = 0.0
+    return g, e
+
+
+def topk_payload(N: int, nb: int, k: int, block_size: int, seed: int):
+    """Random block top-K payloads for N senders: distinct in-block indices
+    (int64), values in [-1, 1] with some -0.0 and +0.0, scales with a few
+    all-zero-block 1.0s, and a mask with a straggler."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((N, nb, block_size)), axis=-1)[..., :k]
+    val = rng.uniform(-1, 1, (N, nb, k)).astype(np.float32)
+    val[0, 0] = -0.0
+    val[1, 1, :k // 2] = 0.0
+    scales = np.exp(rng.uniform(-10, 2, (N, nb))).astype(np.float32)
+    scales[:, 2] = 1.0
+    mask = np.ones(N, np.float32)
+    mask[1 % N] = 0.0
+    return idx, val, scales, mask

@@ -9,8 +9,9 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import GAMMA, check_ef_outputs, ef_inputs
-from repro_torch.kernels import ref, sign_pack as sp
+from _torch_cases import (GAMMA, check_ef_outputs, ef_inputs, topk_inputs,
+                          topk_payload)
+from repro_torch.kernels import ref, sign_pack as sp, topk_pack as tp
 
 pytestmark = pytest.mark.gpu
 
@@ -85,6 +86,104 @@ def test_train_step_cuda_matches_cpu(cuda):
     bit for bit."""
     from repro_torch.launch.device_parity import step_parity
     step_parity("cuda")
+
+
+@pytest.mark.parametrize("k_budgets", [None, (8, 8, 4, 2)])
+def test_block_topk_train_step_cuda_matches_cpu(cuda, k_budgets):
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda", compressor="block_topk", k_budgets=k_budgets)
+
+
+def _bits(t):
+    t = t.cpu()
+    ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
+            torch.uint16: torch.int16}
+    return t.view(ints[t.dtype]) if t.dtype in ints else t
+
+
+def _same(a, b) -> bool:
+    return torch.equal(_bits(a), _bits(b))
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_ef_topk_fused_kernel_matches_plain(cuda, block_size, k,
+                                            value_dtype, mask):
+    n = block_size * 8 * 37
+    g, e = topk_inputs(n, block_size, k, seed=block_size + k)
+    gt, et = torch.from_numpy(g).to(cuda), torch.from_numpy(e).to(cuda)
+    before = tp.launches["ef_topk_fused"]
+    got = tp.ef_topk_fused(gt, et, float(GAMMA), mask, k, block_size,
+                           value_dtype, want_c=True)
+    torch.cuda.synchronize()
+    assert tp.launches["ef_topk_fused"] == before + 1
+    want = ref.ef_topk_fused_ref(gt, et, float(GAMMA), mask, k, block_size,
+                                 value_dtype)
+    assert torch.equal(got[0].to(torch.int32), want[0])
+    assert _same(got[1].float(), want[1])
+    for a, b in zip(got[2:], want[2:]):
+        assert _same(a, b)
+    # in place (e_new aliases e) on payload rows, as the train step runs it
+    e2 = et.clone()
+    rows = tuple(torch.empty((2,) + t.shape, dtype=t.dtype, device=cuda)
+                 for t in got[:3])
+    tp.ef_topk_fused(gt, e2, float(GAMMA), mask, k, block_size, value_dtype,
+                     out=tuple(r[1] for r in rows) + (e2,))
+    torch.cuda.synchronize()
+    for r, a in zip(rows, got[:3]):
+        assert _same(r[1], a)
+    assert _same(e2, got[4])
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_topk_pack_kernel_matches_plain(cuda, block_size, k, value_dtype):
+    n = block_size * 8 * 29
+    g, e = topk_inputs(n, block_size, k, seed=k)
+    x = torch.from_numpy(g + e).to(cuda)
+    before = tp.launches["topk_pack"]
+    idx, val, scales = tp.topk_pack(x, k, block_size, value_dtype)
+    torch.cuda.synchronize()
+    assert tp.launches["topk_pack"] == before + 1
+    i0, v0, s0 = ref.topk_pack_ref(x, k, block_size)
+    assert torch.equal(idx.to(torch.int32), i0)
+    assert _same(val, v0.to(ref.wire_dtype(value_dtype)))
+    assert _same(scales, s0)
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("k", [1, 8, 32])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_topk_decode_reduce_kernel_matches_plain(cuda, block_size, k,
+                                                 value_dtype):
+    N, nb = 5, 8 * 23
+    idx, val, scales, mask = topk_payload(N, nb, k, block_size, seed=k)
+    vdt = ref.wire_dtype(value_dtype)
+    idx = torch.from_numpy(idx).to(cuda).to(torch.uint16)
+    val = torch.from_numpy(val).to(cuda).to(vdt)
+    scales, mask = torch.from_numpy(scales).to(cuda), \
+        torch.from_numpy(mask).to(cuda)
+    before = tp.launches["topk_decode_reduce"]
+    got = tp.topk_decode_reduce(idx, val, scales, mask, block_size)
+    torch.cuda.synchronize()
+    assert tp.launches["topk_decode_reduce"] == before + 1
+    want = ref.topk_decode_reduce_ref(idx, val, scales, mask, block_size)
+    assert _same(got, want)
+
+
+def test_topk_wrappers_raise_instead_of_falling_back(cuda):
+    x = torch.zeros(128 * 8, device=cuda)
+    with pytest.raises(ValueError):                 # no kernel for B=128
+        tp.topk_pack(x, 8, 128)
+    with pytest.raises(ValueError):                 # k > 32
+        tp.topk_pack(x, 33, 256)
+    with pytest.raises(ValueError):                 # no fp16 values
+        tp.topk_pack(x, 8, 256, value_dtype="float16")
+    with pytest.raises(ValueError):
+        tp.ef_topk_fused(x, x.cpu(), 1.0, 1.0, 8, 256)
 
 
 def test_kernels_on_rank_rows_match_plain(cuda):

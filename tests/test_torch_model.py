@@ -65,7 +65,8 @@ def test_configs_match_the_jax_package():
         dataclasses.asdict(JAX_ARCH.config)
     assert dataclasses.asdict(SPEC.smoke) == dataclasses.asdict(JAX_ARCH.smoke)
     for f in ("redundancy", "straggler_p", "group_size", "compressor",
-              "coding_axes"):
+              "coding_axes", "k_per_block", "block_size", "topk_k",
+              "wire_dtype"):
         assert getattr(SPEC.coding, f) == getattr(JAX_ARCH.coding, f)
 
 

@@ -1,15 +1,19 @@
 """The slice end to end: the port's COCO-EF train step against JAX's real
 main path (`build_train_setup` + `train_step` on a (data=4, model=1) mesh of
-4 host devices, in a subprocess), gemma2-2b smoke config in float32, sign
-wire g = 32, N = 4 coding ranks, d = 2, iid stragglers p = 0.1.
+4 host devices, in a subprocess), gemma2-2b smoke config in float32, g = 32,
+N = 4 coding ranks, d = 2, iid stragglers p = 0.1; on the sign wire, and on
+the block top-K wire (k = 8, B = 256, f32 values), uniform and with the
+per-rank budgets k = (8, 8, 4, 2).
 
 JAX dumps its init params, batches, encode weights, host-side masks, each
 rank's stage-1 gradient, and the loss, theta and e after each of 3 steps.
-Its flat size (164,480) is not a multiple of the 256-element Pallas tile, so
-JAX takes its jnp path, which tests/test_backend_parity.py shows is
-bit-identical to the Pallas one.
+Its flat sizes (164,480 sign, 164,864 block top-K) are not multiples of the
+Pallas tiles (256 and 2,048 elements), so JAX takes its jnp path, which
+tests/test_backend_parity.py and tests/test_topk_select.py show is
+bit-identical to the Pallas one (up to the signed zeros of ROADMAP C7).
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
@@ -22,6 +26,7 @@ import pytest
 import torch
 
 from repro.core import coding as jcoding
+from repro.core.collectives import SparseWire as JaxSparseWire
 from repro.kernels import ref as jref
 from repro.optim import optimizers as joptim
 from repro_torch.configs import REGISTRY, ShapeCfg
@@ -36,7 +41,7 @@ STEPS, N, G, LR = 3, 4, 32, 5e-3
 JAX_RUN = textwrap.dedent(f"""
     import os, sys
     os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import dataclasses, warnings
+    import dataclasses, json, math, warnings
     import jax, jax.numpy as jnp, numpy as np
     from repro.compat import make_mesh
     from repro.configs import REGISTRY
@@ -51,12 +56,17 @@ JAX_RUN = textwrap.dedent(f"""
         coding=dataclasses.replace(spec.coding, group_size={G}))
     mesh = make_mesh((4, 1), ("data", "model"))
     shape = ShapeCfg("train", 32, 8)
+    kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
+    if "k_budgets" in kw:
+        kw["k_budgets"] = tuple(kw["k_budgets"])
+    pad = ({G} if kw.get("compressor", "sign") == "sign"
+           else math.lcm({G}, spec.coding.block_size))
     setup = build_train_setup(spec, mesh, shape,
-                              TrainRun(base_lr={LR}, backend="pallas"),
+                              TrainRun(base_lr={LR}, backend="pallas", **kw),
                               smoke=True)
     key = jax.random.PRNGKey(0)
     params, e, opt = setup.init_state(key)
-    flat = lambda leaves: np.asarray(flatten_local(leaves, 4, {G})[0])
+    flat = lambda leaves: np.asarray(flatten_local(leaves, 4, pad)[0])
     out = {{"flat_pad": setup.flat_pad,
             "W": np.asarray(setup_encode_weights(setup))}}
     for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
@@ -82,25 +92,45 @@ JAX_RUN = textwrap.dedent(f"""
 """)
 
 
-@pytest.fixture(scope="module")
-def ref_run(tmp_path_factory):
+def _jax_run(tmp_path_factory, run_kw=None):
     path = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", JAX_RUN, str(path)], env=env,
+    r = subprocess.run([sys.executable, "-c", JAX_RUN, str(path)]
+                       + ([json.dumps(run_kw)] if run_kw else []), env=env,
                        capture_output=True, text=True, timeout=300)
     assert r.returncode == 0, r.stderr[-3000:]
     return dict(np.load(path))
 
 
-def _port_setup():
+@pytest.fixture(scope="module")
+def ref_run(tmp_path_factory):
+    return _jax_run(tmp_path_factory)
+
+
+SPARSE_RUNS = {"uniform": {"compressor": "block_topk"},
+               "budgets": {"compressor": "block_topk",
+                           "k_budgets": [8, 8, 4, 2]}}
+
+
+@pytest.fixture(scope="module", params=list(SPARSE_RUNS))
+def sparse_run(request, tmp_path_factory):
+    """(TrainRun overrides, JAX's dump) of a block top-K run."""
+    kw = SPARSE_RUNS[request.param]
+    run_kw = {"compressor": kw["compressor"],
+              "k_budgets": (tuple(kw["k_budgets"]) if "k_budgets" in kw
+                            else None)}
+    return run_kw, _jax_run(tmp_path_factory, kw)
+
+
+def _port_setup(**run_kw):
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
         coding=dataclasses.replace(spec.coding, group_size=G))
     return build_train_setup(spec, ShapeCfg("train", 32, 8),
-                             TrainRun(base_lr=LR), smoke=True, n_code=N,
-                             device="cpu")
+                             TrainRun(base_lr=LR, **run_kw), smoke=True,
+                             n_code=N, device="cpu")
 
 
 def _state_dict(ref):
@@ -200,6 +230,139 @@ def test_step_parity_cpu_against_cpu():
     out = step_parity("cpu")
     assert out["max_abs_dtheta"] == 0.0 and out["loss_cpu"] == \
         out["loss_device"]
+
+
+def test_block_topk_setup_matches_jax(sparse_run):
+    run_kw, ref = sparse_run
+    s = _port_setup(**run_kw)
+    assert s.flat_pad == int(ref["flat_pad"]) == 164_864
+    assert s.cocoef_cfg.pad_multiple == 256
+    np.testing.assert_array_equal(s.W, ref["W"])
+    s.model.load_params(_state_dict(ref))
+    np.testing.assert_array_equal(s.model.theta.numpy(), ref["theta0"])
+    idx, val, scales = s.payload
+    assert idx.shape == val.shape == (N, 164_864 // 256, 8)
+    assert idx.dtype == torch.uint16 and scales.shape == (N, 644)
+
+
+def _normal_blocks(acc: np.ndarray, e_new: np.ndarray) -> np.ndarray:
+    """(N, n/B) True for the blocks where no acc and no e' is denormal:
+    XLA:CPU flushes denormal operands and results to zero (ROADMAP C6),
+    which can change a block's selection and its e'."""
+    tiny = np.finfo(np.float32).tiny
+
+    def denormal(x):
+        return ((x != 0) & (np.abs(x) < tiny)).reshape(N, -1, 256).any(-1)
+    return ~(denormal(acc) | denormal(e_new))
+
+
+def test_block_topk_stage2_with_jax_gradients(sparse_run):
+    """JAX's stage-1 gradients and JAX's state at the start of each step go
+    into the port's stage 2.  Against JAX's jnp references on the same
+    inputs, composed as JAX's cocoef_update does (the fused step, or with
+    budgets pack, budget, unpack): payload, e' and ghat equal by value on
+    every block with no denormal acc or e'; theta = theta - ghat there too.
+    Against JAX's mesh step, whose stage-1 gradients come from another jit
+    of the same function: theta and e' within N * (max block scale), the
+    most that selections flipped at near-ties can move a coordinate."""
+    run_kw, ref = sparse_run
+    s = _port_setup(**run_kw)
+    cfg, n = s.cocoef_cfg, s.flat_pad
+    jw = JaxSparseWire(cfg.k_per_block, 256)
+    for t in range(STEPS):
+        theta = ref[f"theta{t}"]
+        e_in = (np.zeros((N, n), np.float32) if t == 0 else ref[f"e{t}"])
+        e = torch.from_numpy(e_in.copy())
+        g, mask = ref[f"g{t}"], ref[f"mask{t}"]
+        payload = tuple(torch.zeros_like(p) for p in s.payload)
+        ghat = cocoef_update(lambda i: torch.from_numpy(g[i].copy()), e,
+                             torch.from_numpy(mask), LR, cfg,
+                             payload).numpy()
+        jp, je = [], []
+        for i in range(N):
+            gi, ei = jnp.asarray(g[i]), jnp.asarray(e_in[i])
+            if jw.has_rank_budgets():
+                acc = jref.mul_add(jnp.float32(LR), gi, ei)
+                p = jw.apply_rank_budget(jw.pack(acc), i)
+                en = jnp.where(mask[i] > 0, acc - jw.unpack(p), ei)
+            else:
+                idx, val, sc, _, en = jref.ef_topk_fused_ref(
+                    gi, ei, jnp.float32(LR), jnp.float32(mask[i]), 8, 256)
+                p = (idx, val, sc)
+            jp.append([np.asarray(x).astype(np.float32) for x in p])
+            je.append(np.asarray(en))
+        je = np.stack(je)
+        acc = (np.float32(LR) * g + e_in).astype(np.float32)    # IEEE
+        ok = _normal_blocks(acc, e.numpy())
+        assert ok.mean() > 0.99
+        for j in range(3):
+            want = np.stack([p[j] for p in jp])
+            got = payload[j].float().numpy()
+            np.testing.assert_array_equal(got[ok], want[ok])
+        okx = np.repeat(ok, 256, axis=1)
+        np.testing.assert_array_equal(e.numpy()[okx], je[okx])
+        jghat = np.asarray(jref.topk_decode_reduce_scan(
+            *(jnp.asarray(np.stack([p[j] for p in jp]).astype(
+                np.int32 if j == 0 else np.float32)) for j in range(3)),
+            jnp.asarray(mask), 256))
+        col = okx.all(0)
+        np.testing.assert_array_equal(ghat[col], jghat[col])
+        np.testing.assert_array_equal((theta - ghat)[col],
+                                      (theta - jghat)[col])
+        flip = N * float(payload[2].max()) + 1e-6
+        assert np.abs(theta - ghat - ref[f"theta{t + 1}"]).max() <= flip
+        assert np.abs(e.numpy() - ref[f"e{t + 1}"]).max() <= flip
+
+
+def test_block_topk_end_to_end_matches_jax(sparse_run):
+    """The port's whole step (its own stage 1 from the converted params,
+    JAX's batches and masks) for 3 steps: loss within rtol 1e-4 per step;
+    theta within steps * N * (max block scale), the most that selections
+    flipped at near-ties can move a coordinate, and almost every
+    coordinate far closer."""
+    run_kw, ref = sparse_run
+    s = _port_setup(**run_kw)
+    s.model.load_params(_state_dict(ref))
+    e = torch.zeros((N, s.flat_pad))
+    max_scale = 0.0
+    for t in range(STEPS):
+        batch = (torch.from_numpy(ref[f"tokens{t}"]).long(),
+                 torch.from_numpy(ref[f"weights{t}"]))
+        m = s.train_step(s.model, e, batch, t,
+                         masks=torch.from_numpy(ref[f"mask{t}"]))
+        np.testing.assert_allclose(m["loss"].item(), ref[f"loss{t}"],
+                                   rtol=1e-4)
+        max_scale = max(max_scale, s.payload[2].max().item())
+        d = np.abs(s.model.theta.numpy() - ref[f"theta{t + 1}"])
+        assert d.max() <= (t + 1) * N * max_scale
+        assert np.mean(d > 1e-6) < 0.01
+
+
+@pytest.mark.parametrize("compressor,k_budgets", [
+    ("block_topk", None), ("block_topk", (8, 8, 4, 2))])
+def test_block_topk_step_parity_cpu_against_cpu(compressor, k_budgets):
+    from repro_torch.launch.device_parity import step_parity
+    out = step_parity("cpu", compressor=compressor, k_budgets=k_budgets)
+    assert out["max_abs_dtheta"] == 0.0 and out["loss_cpu"] == \
+        out["loss_device"]
+
+
+def test_train_run_validates_the_wire_overrides():
+    spec = REGISTRY["gemma2-2b"]
+    with pytest.raises(ValueError):
+        TrainRun(k_budgets=(8, 0, 4, 2))
+    with pytest.raises(ValueError):
+        TrainRun(k_budgets=())
+    with pytest.raises(ValueError):          # budgets need block_topk
+        TrainRun(k_budgets=(8, 8, 4, 2)).coding_config(spec.coding, 4)
+    with pytest.raises(ValueError):          # one budget per rank
+        TrainRun(compressor="block_topk",
+                 k_budgets=(8, 4)).coding_config(spec.coding, 4)
+    with pytest.raises(ValueError):
+        TrainRun(compressor="topk").coding_config(spec.coding, 4)
+    cfg = TrainRun(compressor="block_topk", k_budgets=(8, 8, 4, 2)
+                   ).coding_config(spec.coding, 4)
+    assert cfg.k_per_block == (8, 8, 4, 2) and cfg.pad_multiple == 512
 
 
 def test_encode_weights_and_allocation_match_jax():
