@@ -9,23 +9,29 @@ Phases (any failure exits non-zero and prints no result line):
                 one nvcc per source, all at once
   3. kernels    each kernel against its plain PyTorch version at n = 2**28
                 with adversarial groups and blocks (sign: words and decode
-                exact, scales <= 2 ulp; block top-K: every output bit for
-                bit, f32 and bf16 values), then again at the slice's n
-                (past 2**31) in the train step's buffer layout, chunk by
-                chunk, and timed there with CUDA events
+                exact, scales <= 2 ulp; block top-K, sign_pack and
+                block_topk: every output bit for bit, f32 and bf16 values,
+                block_topk at B in {128, 256, 512} and k in {8, 32}), then
+                again at the slice's n (past 2**31) in the train step's
+                buffer layout, chunk by chunk, and timed there with CUDA
+                events
   4. reference  the f32 smoke-size train step on the card against the CPU
                 (repro_torch/launch/device_parity.py) on the sign wire, the
                 block top-K wire and the block top-K wire with per-rank
-                budgets: the full step within stated tolerances, stage 2 on
-                injected gradients bit for bit
+                budgets, in cocoef and in coco mode: the full step within
+                stated tolerances, stage 2 on injected gradients bit for
+                bit (in coco mode e untouched)
   5. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
-                the card, d = 2.  Sign wire g = 512, 5 COCO-EF steps; then,
-                with that setup freed, the block top-K wire (k = 8,
-                B = 256, f32 values), 5 steps, and 2 more steps with the
-                per-rank budgets k = (8, 8, 4, 2) on the same buffers.  The
-                kernel launch counts are reset just before each path and
-                read just after: 4 x steps local steps and one decode per
-                step, through the path's kernels only
+                the card, d = 2.  Sign wire g = 512: 5 COCO-EF steps, then
+                5 COCO steps (mode "coco", no error feedback) on the same
+                setup; then, with that setup freed, the block top-K wire
+                (k = 8, B = 256, f32 values): 5 COCO-EF steps, 2 with the
+                per-rank budgets k = (8, 8, 4, 2), 5 COCO steps and 2 COCO
+                steps with the budgets, on the same buffers.  The kernel
+                launch counts are reset just before each path and read just
+                after: 4 x steps local steps (or packs) and one decode per
+                step, through the path's kernels only; a COCO path must
+                leave the error vectors' bits as they were
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -49,6 +55,7 @@ SEQ_LEN, GLOBAL_BATCH = 512, 4
 GROUP = 512
 BLOCK, K = 256, 8                 # the block top-K wire of CodingPlan
 K_BUDGETS = (8, 8, 4, 2)
+TOPK_BLOCKS = (128, 256, 512)     # block_topk's kernel block sizes
 CHECK_N = 1 << 28
 CHUNK = 1 << 28           # the plain versions run in chunks this long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
@@ -492,6 +499,123 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     return res
 
 
+def pack_adversarial_(x, L: int, k: int) -> None:
+    """Blocks of length L at the start of x: +0, -0.0, mixed signed zeros,
+    denormals, all |x| equal, k equal maxima of mixed sign before a larger
+    entry (ties at the k-th largest), exactly k nonzeros."""
+    import torch
+    blk = [slice(i * L, (i + 1) * L) for i in range(7)]
+    x[blk[0]] = 0.0
+    x[blk[1]] = -0.0
+    x[blk[2]] = torch.where(x[blk[2]] >= 0, 0.0, -0.0)
+    x[blk[3]] = x[blk[3]].sign() * 1e-40
+    x[blk[4]] = torch.where(x[blk[4]] >= 0, 1.0, -1.0)
+    tie = x[blk[5]]
+    tie.mul_(1e-3 / tie.abs().max())
+    tie[1:1 + 3 * k:3] = 3.0
+    tie[2:2 + 6 * (k // 2):6] = -3.0
+    tie[1 + 3 * k] = 5.0
+    x[blk[6]] = 0.0
+    x[blk[6]][3:3 + 3 * k:3] = 1.5
+
+
+def pack_inputs(torch, gen, dev, n: int, L: int, k: int):
+    """(n,) f32 of widely varying scale per block of L, with the
+    adversarial blocks at the start and at the end."""
+    x = torch.randn(n, device=dev, generator=gen)
+    x.mul_(torch.exp(torch.rand(n // L, device=dev, generator=gen) * 40 - 20)
+           .repeat_interleave(L))
+    for a in (0, n - 7 * L):
+        pack_adversarial_(x[a:a + 7 * L], L, k)
+    return x
+
+
+def check_pack(torch, ref, sp, tp, gen, dev) -> None:
+    """B5 and B7 against their plain versions at n = 2**28 on fresh
+    buffers, bit for bit: sign_pack at g = GROUP; block_topk in f32 and
+    bf16, B in {128, 256, 512}, k in {K, 32}."""
+    x = pack_inputs(torch, gen, dev, CHECK_N, GROUP, K)
+    words, scales = sp.sign_pack(x, GROUP)
+    torch.cuda.synchronize()
+    w0, s0 = ref.sign_pack_ref(x, GROUP)
+    if not (torch.equal(words, w0) and same(scales, s0)):
+        fail(f"sign_pack at n={CHECK_N} differs from the plain version")
+    del x, words, scales, w0, s0
+    for B in TOPK_BLOCKS:
+        for k in (K, 32):
+            x = pack_inputs(torch, gen, dev, CHECK_N, B, k)
+            for dt in (torch.float32, torch.bfloat16):
+                xd = x.to(dt)
+                got = tp.block_topk(xd, k, B)
+                torch.cuda.synchronize()
+                if not same(got, ref.block_topk_ref(xd, k, B)):
+                    fail(f"block_topk at n={CHECK_N} (B={B}, k={k}, {dt}) "
+                         f"differs from the plain version")
+                del xd, got
+            del x
+
+
+def pack_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
+    """B5 and B7 at the slice's n (past 2**31 elements).  sign_pack reads a
+    gradient-sized buffer and writes row 1 of the (N, n/32) and (N, n/g)
+    payload buffers, as the coco step does; block_topk (k = K, B = BLOCK,
+    f32) writes a second (n,) buffer.  Each held against its plain version
+    chunk by chunk, bit for bit, then timed."""
+    x = pack_inputs(torch, gen, dev, n, BLOCK, K)
+    words = torch.zeros((N_CODE, n // 32), dtype=torch.uint32, device=dev)
+    scales = torch.zeros((N_CODE, n // GROUP), device=dev)
+    sp.sign_pack(x, GROUP, out=(words[1], scales[1]))
+    torch.cuda.synchronize()
+    for i in range(0, n, CHUNK):
+        j = min(i + CHUNK, n)
+        w0, s0 = ref.sign_pack_ref(x[i:j], GROUP)
+        if not (torch.equal(words[1, i // 32:j // 32], w0)
+                and same(scales[1, i // GROUP:j // GROUP], s0)):
+            fail(f"sign_pack at n={n} differs from the plain version in "
+                 f"[{i}, {j})")
+        del w0, s0
+    out = {}
+    ms = cuda_ms(lambda: sp.sign_pack(x, GROUP, out=(words[1], scales[1])),
+                 10)
+
+    def plain_sign():
+        for i in range(0, n, CHUNK):
+            ref.sign_pack_ref(x[i:i + CHUNK], GROUP)
+    out["sign_pack"] = (ms, cuda_ms(plain_sign, 2),
+                        4 * n + n / 8 + 4 * n / GROUP, 3 * n)
+    del words, scales
+
+    y = torch.empty(n, device=dev)
+    tp.block_topk(x, K, BLOCK, out=y)
+    torch.cuda.synchronize()
+    for i in range(0, n, CHUNK):
+        j = min(i + CHUNK, n)
+        if not same(y[i:j], ref.block_topk_ref(x[i:j], K, BLOCK)):
+            fail(f"block_topk at n={n} differs from the plain version in "
+                 f"[{i}, {j})")
+    ms = cuda_ms(lambda: tp.block_topk(x, K, BLOCK, out=y), 10)
+
+    def plain_topk():
+        for i in range(0, n, CHUNK):
+            ref.block_topk_ref(x[i:i + CHUNK], K, BLOCK)
+    out["block_topk"] = (ms, cuda_ms(plain_topk, 2), 8 * n, K * n)
+    res = {}
+    for name, (ms, plain_ms, moved, ops) in out.items():
+        b, by = bound(moved, ops)
+        res[name] = {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "ops": ops, "gb_per_s": moved / ms / 1e6}
+    return res
+
+
+def e_checksums(torch, e) -> list:
+    """Chunked int64 sums of e's bits (no copy of e fits beside a train
+    setup): equal lists before and after a coco path mean e was left
+    alone."""
+    return [int(r[i:i + CHUNK].view(torch.int32).sum(dtype=torch.int64))
+            for r in e for i in range(0, r.numel(), CHUNK)]
+
+
 def train_path(torch, setup, e, first: int, steps: int, label: str,
                want: dict, launches: dict) -> dict:
     """`steps` train steps from step `first`, with the launch counts reset
@@ -520,6 +644,58 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
         if not all_finite(torch, rows):
             fail(f"{label}: non-finite {name} after training")
     return got
+
+
+def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
+               smoke: bool = False) -> dict:
+    """Every path of one wire in turn on one setup (the same model, error
+    and payload buffers; the block top-K payload is shaped by max k = K
+    either way): COCO-EF, then (block top-K) COCO-EF with the per-rank
+    budgets, COCO, and (block top-K) COCO with the budgets.  Returns the
+    launch counts of each path by label; prints each path's peak memory."""
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    torch.cuda.reset_peak_memory_stats()
+    base = TrainRun(base_lr=5e-3, compressor=wire)
+    setup = build_train_setup(spec, shape, base, smoke=smoke, n_code=N_CODE,
+                              device=dev)
+    if setup.flat_pad != n:
+        fail(f"{wire}: flat size {setup.flat_pad} != {n}")
+    e = setup.init_state()
+    # (label, mode, k budgets, steps, launches wanted per step)
+    if wire == "sign":
+        paths = [("sign", "cocoef", None, STEPS,
+                  {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}),
+                 ("sign coco", "coco", None, STEPS,
+                  {"sign_pack": N_CODE, "sign_decode_reduce": 1})]
+    else:
+        paths = [("block_topk", "cocoef", None, STEPS,
+                  {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
+                 ("block_topk budgets", "cocoef", K_BUDGETS, BUDGET_STEPS,
+                  {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
+                 ("block_topk coco", "coco", None, STEPS,
+                  {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
+                 ("block_topk coco budgets", "coco", K_BUDGETS, BUDGET_STEPS,
+                  {"topk_pack": N_CODE, "topk_decode_reduce": 1})]
+    counts, first = {}, 0
+    for label, mode, kb, steps, per_step in paths:
+        run = dataclasses.replace(base, mode=mode, k_budgets=kb)
+        path = dataclasses.replace(
+            setup, run=run, cocoef_cfg=run.coding_config(spec.coding, N_CODE))
+        sums = e_checksums(torch, e) if mode == "coco" else None
+        counts[label] = train_path(
+            torch, path, e, first, steps, label,
+            {k: v * steps for k, v in per_step.items()}, launches)
+        # the peak over the path's steps (the first path's includes
+        # building the setup)
+        peak = torch.cuda.max_memory_allocated()
+        if sums is not None and e_checksums(torch, e) != sums:
+            fail(f"{label}: the error vectors changed in coco mode")
+        print(f"train ({label}): gemma2-2b "
+              f"{setup.model.cfg.num_layers} layers, flat {n}, peak "
+              f"memory {peak} B ({peak / 1e9:.2f} GB)", flush=True)
+        torch.cuda.reset_peak_memory_stats()
+        first += steps
+    return counts
 
 
 def all_finite(torch, rows) -> bool:
@@ -553,7 +729,6 @@ def main() -> None:
         topk_pack as tp
     from repro_torch.kernels.common import launches
     from repro_torch.launch.device_parity import step_parity
-    from repro_torch.launch.train import TrainRun, build_train_setup
     from repro_torch.nn.transformer import num_params
 
     dev = torch.device("cuda", 0)
@@ -571,8 +746,11 @@ def main() -> None:
     checks = {"ef_sign_fused": check_ef(torch, ref, sp, gen, dev),
               "sign_decode_reduce": check_decode(torch, ref, sp, gen, dev)}
     check_topk(torch, ref, tp, gen, dev)
+    check_pack(torch, ref, sp, tp, gen, dev)
     print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}; "
-          f"block top-K kernels bit-equal (f32 and bf16 values)", flush=True)
+          f"block top-K kernels bit-equal (f32 and bf16 values); sign_pack "
+          f"and block_topk bit-equal (B in {TOPK_BLOCKS}, k in {{{K}, 32}})",
+          flush=True)
     settle(torch, "the 2**28 checks")
     spec = REGISTRY["gemma2-2b"]
     n = padded_size(num_params(spec.config), N_CODE, GROUP)
@@ -583,58 +761,31 @@ def main() -> None:
     settle(torch, "sign_decode_reduce at the slice's n")
     at_slice.update(topk_at_slice(torch, ref, tp, gen, dev, n))
     settle(torch, "the block top-K kernels at the slice's n")
+    at_slice.update(pack_at_slice(torch, ref, sp, tp, gen, dev, n))
+    settle(torch, "sign_pack and block_topk at the slice's n")
     print(f"kernels vs plain and times at n={n}, train layout: "
           f"{json.dumps(at_slice)}", flush=True)
 
-    for comp, kb in (("sign", None), ("block_topk", None),
-                     ("block_topk", K_BUDGETS)):
-        try:
-            parity = step_parity("cuda", compressor=comp, k_budgets=kb)
-        except AssertionError as err:
-            fail(f"smoke-size step on the card vs the CPU ({comp}, budgets "
-                 f"{kb}): {err}")
-        print(f"reference ({comp}, budgets {kb}): {json.dumps(parity)}",
-              flush=True)
+    for mode in ("cocoef", "coco"):
+        for comp, kb in (("sign", None), ("block_topk", None),
+                         ("block_topk", K_BUDGETS)):
+            try:
+                parity = step_parity("cuda", compressor=comp, k_budgets=kb,
+                                     mode=mode)
+            except AssertionError as err:
+                fail(f"smoke-size step on the card vs the CPU ({mode}, "
+                     f"{comp}, budgets {kb}): {err}")
+            print(f"reference ({mode}, {comp}, budgets {kb}): "
+                  f"{json.dumps(parity)}", flush=True)
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
-    counts, peaks = {}, {}
-    for label, run in (("sign", TrainRun(base_lr=5e-3)),
-                       ("block_topk", TrainRun(base_lr=5e-3,
-                                               compressor="block_topk"))):
-        if settle(torch, f"the phases before the {label} path") > 1 << 30:
+    counts = {}
+    for wire in ("sign", "block_topk"):
+        if settle(torch, f"the phases before the {wire} paths") > 1 << 30:
             fail("over 1 GiB still allocated before a train path: the two "
-                 "paths' setups must not share the card")
-        torch.cuda.reset_peak_memory_stats()
-        setup = build_train_setup(spec, shape, run, n_code=N_CODE, device=dev)
-        if setup.flat_pad != n:
-            fail(f"{label}: flat size {setup.flat_pad} != {n}")
-        e = setup.init_state()
-        if label == "sign":
-            want = {"ef_sign_fused": N_CODE * STEPS,
-                    "sign_decode_reduce": STEPS}
-        else:
-            want = {"ef_topk_fused": N_CODE * STEPS,
-                    "topk_decode_reduce": STEPS}
-        counts[label] = train_path(torch, setup, e, 0, STEPS, label, want,
-                                   launches)
-        if label == "block_topk":
-            # the per-rank budgets on the same model, error and payload
-            # buffers (the payload is shaped by max k = K either way)
-            brun = TrainRun(base_lr=5e-3, compressor="block_topk",
-                            k_budgets=K_BUDGETS)
-            budget = dataclasses.replace(
-                setup, run=brun,
-                cocoef_cfg=brun.coding_config(spec.coding, N_CODE))
-            counts["block_topk budgets"] = train_path(
-                torch, budget, e, STEPS, BUDGET_STEPS, "block_topk budgets",
-                {"topk_pack": N_CODE * BUDGET_STEPS,
-                 "topk_decode_reduce": BUDGET_STEPS}, launches)
-            del budget
-        peaks[label] = torch.cuda.max_memory_allocated()
-        print(f"train ({label}): gemma2-2b {spec.config.num_layers} layers, "
-              f"flat {n}, peak memory {peaks[label]} B "
-              f"({peaks[label] / 1e9:.2f} GB)", flush=True)
-        del setup, e
+                 "wires' setups must not share the card")
+        counts.update(train_wire(torch, spec, shape, wire, n, dev,
+                                 launches))
 
     meta = {
         "ef_sign_fused": ("sign_pack", "sign_pack.py:112", "sign"),
@@ -643,6 +794,9 @@ def main() -> None:
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
                                "block_topk"),
         "topk_pack": ("topk_pack", "topk_pack.py:63", "block_topk budgets"),
+        "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
+        # on no train path: the sparsifier of ops.block_topk
+        "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
     }
     kernels = []
     for name, (src, replaces, path) in meta.items():
@@ -651,7 +805,7 @@ def main() -> None:
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/{replaces}", "path": path,
-            "launches": counts[path][name],
+            "launches": counts.get(path, {}).get(name, 0),
             "max_abs_err": max(checks.get(name, r)["max_abs_err"],
                                r["max_abs_err"]),
             "max_ulp": max(checks.get(name, r)["max_ulp"], r["max_ulp"]),

@@ -1,5 +1,5 @@
 """COCO-EF over flat state on one device (port of `repro.core.cocoef`,
-cocoef mode, on the sign and the block top-K wires).
+cocoef and coco modes, on the sign and the block top-K wires).
 
 All N coding ranks share the device.  Each rank's error vector is one row
 of an (N, n) tensor, the rank gradients come one at a time through a single
@@ -13,6 +13,10 @@ With per-rank budgets on the block top-K wire (`k_per_block` a tuple) the
 pack runs on its own and rank i's values beyond its budget are zeroed
 before C(acc_i) feeds the error, as JAX's budget branch
 (`repro/core/cocoef.py:308-318`).
+
+mode="coco" is the paper's baseline without error feedback (JAX
+`cocoef.py:286-296`): acc_i = gamma*g_i, payload_i = budget_i(pack(acc_i)),
+the same decode, and e is neither read nor written.
 
 The flat order is part of the algorithm: sign groups straddle leaf
 boundaries, so the flat vector follows JAX's `tree.leaves` order (dict keys
@@ -33,25 +37,40 @@ from repro_torch.kernels import ref
 from .collectives import Wire, build_wire, coded_aggregate
 
 __all__ = ["CocoEFConfig", "FlatLayout", "flat_layout", "padded_size",
-           "cocoef_update"]
+           "cocoef_update", "MODES", "check_mode"]
+
+MODES = ("cocoef", "coco")
+
+
+def check_mode(mode: str) -> None:
+    """Raise ValueError unless the port carries `mode`."""
+    if mode == "dense":
+        raise ValueError("mode 'dense' (the SGC baseline) is not ported "
+                         f"yet; the port carries {MODES}")
+    if mode not in MODES:
+        raise ValueError(f"unknown mode {mode!r}; have {MODES}")
 
 
 @dataclasses.dataclass(frozen=True)
 class CocoEFConfig:
     """Algorithm 1 on one wire (JAX's names and defaults).
 
+    mode: "cocoef" (error feedback) or "coco" (none); JAX's "dense" (the
+      SGC baseline) is not ported yet.
     compressor: "sign" or "block_topk" (the port's wires).
     k_per_block / block_size: the block top-K wire's kept coordinates per
       block (an int, or one budget per coding rank) and block length.
     wire_dtype: the block top-K wire's value dtype."""
 
     group_size: int = 512
+    mode: str = "cocoef"
     compressor: str = "sign"
     k_per_block: Union[int, Tuple[int, ...]] = 8
     block_size: int = 256
     wire_dtype: str = "float32"
 
     def __post_init__(self):
+        check_mode(self.mode)
         self.wire      # validates the compressor and the wire's knobs
 
     @property
@@ -140,13 +159,15 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor], e: torch.Tensor,
                   payload: Tuple[torch.Tensor, ...],
                   out: Optional[torch.Tensor] = None,
                   kernel_spans: Optional[List] = None) -> torch.Tensor:
-    """One Algorithm-1 update for the N coding ranks sharing this device.
+    """One Algorithm-1 update (or, with cfg.mode "coco", one update without
+    error feedback) for the N coding ranks sharing this device.
 
     grad_of(i): rank i's flat (n,) coded gradient; it may return the same
       buffer every time (the slice reuses one gradient buffer), because
       rank i's gradient is consumed before grad_of(i+1) is called.  On the
-      per-rank budget branch the buffer is overwritten with acc_i.
-    e: (N, n) f32 error vectors, updated in place.
+      per-rank budget branch and in coco mode the buffer is overwritten
+      with acc_i.
+    e: (N, n) f32 error vectors, updated in place (untouched in coco mode).
     mask: (N,) f32 straggler indicators I_i^t.
     gamma: the learning rate (already inside ghat, eq. 4).
     payload: the wire's payload buffers stacked over ranks: sign (words
@@ -155,7 +176,8 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor], e: torch.Tensor,
     out: where to write ghat; may be the gradient buffer, which is free
       once the last rank's local step has run.
     kernel_spans: when a list and on CUDA, gets a (start, end) event pair
-      around every rank's local step and around the decode.
+      around every rank's local step (in coco mode its gamma*g and pack)
+      and around the decode.
     Returns ghat (n,) f32: apply as  params -= ghat."""
     wire = cfg.wire
     N, n = e.shape
@@ -168,7 +190,11 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor], e: torch.Tensor,
         g = grad_of(i)
         rows = tuple(p[i] for p in payload)
         with spans:
-            if wire.has_rank_budgets():
+            if cfg.mode == "coco":
+                # one f32 rounding, as JAX's gamma * g_local; no c, no e
+                acc = g.mul_(ref.as_f32(gamma, g))
+                wire.apply_rank_budget(wire.fused_pack(acc, out=rows), i)
+            elif wire.has_rank_budgets():
                 _budget_local_step(wire, g, e[i], gamma, mask[i], rows, i)
             else:
                 wire.fused_local_step(g, e[i], gamma, mask[i],

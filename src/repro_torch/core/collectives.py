@@ -85,8 +85,18 @@ class SignWire:
     def has_rank_budgets(self) -> bool:
         return False
 
+    def apply_rank_budget(self, payload: Payload, rank: int) -> Payload:
+        """Identity: the sign wire has no per-rank budgets."""
+        return payload
+
     def payload_n(self, payload: Payload) -> int:
         return payload[0].shape[-1] * 32
+
+    def fused_pack(self, x: torch.Tensor,
+                   out: Optional[Payload] = None) -> Payload:
+        """pack(x) through the kernel, written into `out` = (words, scales)
+        when given."""
+        return ops.sign_pack(x, self.group_size, out=out)
 
     def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
                          mask_self, want_c: bool = False,

@@ -23,6 +23,13 @@
 //   before any e' element of its group is written, so e' may alias e
 //   (the train step updates the error in place).
 //
+// sign_pack — replaces repro/kernels/sign_pack.py::_sign_pack_kernel
+//   (:43-46, body _pack_block :32-40, pallas_call at :60).  Pack only, the
+//   group machinery of ef_sign_fused without the accumulate and without e':
+//     word w bit j = x[32w+j] >= 0,  scale = sum|x| / G  (same order).
+//   Bound: bytes.  It reads 4 B/coordinate and writes n/8 + 4n/G bytes of
+//   payload; one warp per group as in ef_sign_fused.
+//
 // sign_decode_reduce — replaces repro/kernels/sign_pack.py::
 //   _decode_reduce_kernel (:136-145, pallas_call at :162).
 //     out[x] = sum over senders i = 0..N-1, in order, from +0.0,
@@ -42,6 +49,36 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// One group's sign words and scale from the warp's registers (lane j holds
+// elements 32w + j): scale = sum|v| / G, summed lane-sequentially, then in
+// an xor butterfly (both partners add the same two values, so every lane
+// ends with the bitwise-same total); word w = __ballot_sync(v[w] >= 0).
+// Stores the words and the scale; returns the scale on every lane.
+template <int G>
+__device__ __forceinline__ float pack_group(const float (&v)[G / 32],
+                                            int lane, int64_t grp,
+                                            uint32_t* __restrict__ words,
+                                            float* __restrict__ scales) {
+  constexpr int kPerLane = G / 32;
+  float s = 0.f;
+#pragma unroll
+  for (int w = 0; w < kPerLane; ++w) s = __fadd_rn(s, fabsf(v[w]));
+#pragma unroll
+  for (int off = 16; off > 0; off >>= 1)
+    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
+  const float scale = __fdiv_rn(s, (float)G);
+
+  uint32_t my_word = 0;
+#pragma unroll
+  for (int w = 0; w < kPerLane; ++w) {
+    const uint32_t b = __ballot_sync(kFull, v[w] >= 0.f);
+    if (lane == w) my_word = b;
+  }
+  if (lane < kPerLane) words[grp * kPerLane + lane] = my_word;
+  if (lane == 0) scales[grp] = scale;
+  return scale;
+}
 
 template <int G>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
@@ -68,24 +105,7 @@ ef_sign_fused_kernel(const float* __restrict__ g, const float* e,
     acc[w] = __fadd_rn(__fmul_rn(gamma, gv), ev[w]);
   }
 
-  float s = 0.f;
-#pragma unroll
-  for (int w = 0; w < kPerLane; ++w) s = __fadd_rn(s, fabsf(acc[w]));
-  // xor butterfly: both partners add the same two values, so every lane
-  // ends with the bitwise-same total
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1)
-    s = __fadd_rn(s, __shfl_xor_sync(kFull, s, off));
-  const float scale = __fdiv_rn(s, (float)G);
-
-  uint32_t my_word = 0;
-#pragma unroll
-  for (int w = 0; w < kPerLane; ++w) {
-    const uint32_t b = __ballot_sync(kFull, acc[w] >= 0.f);
-    if (lane == w) my_word = b;
-  }
-  if (lane < kPerLane) words[grp * kPerLane + lane] = my_word;
-  if (lane == 0) scales[grp] = scale;
+  const float scale = pack_group<G>(acc, lane, grp, words, scales);
 
 #pragma unroll
   for (int w = 0; w < kPerLane; ++w) {
@@ -93,6 +113,22 @@ ef_sign_fused_kernel(const float* __restrict__ g, const float* e,
     if (c != nullptr) c[base + 32 * w] = cv;
     e_out[base + 32 * w] = keep ? __fsub_rn(acc[w], cv) : ev[w];
   }
+}
+
+template <int G>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+sign_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
+                 float* __restrict__ scales, int64_t n_groups) {
+  constexpr int kPerLane = G / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t grp =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (grp >= n_groups) return;  // whole warp leaves together
+  const int64_t base = grp * G + lane;
+  float xv[kPerLane];
+#pragma unroll
+  for (int w = 0; w < kPerLane; ++w) xv[w] = x[base + 32 * w];
+  pack_group<G>(xv, lane, grp, words, scales);
 }
 
 template <int G>
@@ -139,6 +175,17 @@ int launch_ef(const float* g, const float* e, const float* gamma,
 }
 
 template <int G>
+int launch_pack(const float* x, uint32_t* words, float* scales, int64_t n,
+                cudaStream_t stream) {
+  const int64_t n_groups = n / G;
+  const int64_t blocks = (n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
+  if (blocks > kMaxBlocks) return (int)cudaErrorInvalidConfiguration;
+  sign_pack_kernel<G><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
+      x, words, scales, n_groups);
+  return (int)cudaGetLastError();
+}
+
+template <int G>
 int launch_decode(const uint32_t* words, const float* scales,
                   const float* mask, float* out, int n_senders, int64_t n,
                   cudaStream_t stream) {
@@ -176,6 +223,15 @@ extern "C" int ef_sign_fused_launch(const float* g, const float* e,
                                 (int64_t)n, st)
   SIGN_DISPATCH(group_size, EF_CALL)
 #undef EF_CALL
+}
+
+extern "C" int sign_pack_launch(const float* x, uint32_t* words,
+                                float* scales, long long n, int group_size,
+                                void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define PACK_CALL(G) launch_pack<G>(x, words, scales, (int64_t)n, st)
+  SIGN_DISPATCH(group_size, PACK_CALL)
+#undef PACK_CALL
 }
 
 extern "C" int sign_decode_reduce_launch(const uint32_t* words,

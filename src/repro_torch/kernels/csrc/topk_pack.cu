@@ -5,20 +5,21 @@
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
 // Block sizes B in {256, 512}, 1 <= k <= 32, wire values f32 or bf16; the
 // payload is written in the wire's dtypes (u16 in-block indices, values in
-// the value dtype, f32 scales), so no cast pass follows.
+// the value dtype, f32 scales), so no cast pass follows.  block_topk also
+// takes B = 128.
 //
-// Selection (warp_topk, shared by ef_topk_fused and topk_pack) replaces
-//   repro/kernels/topk_block.py::block_select / block_select_mask.  One warp
-//   holds one block in registers, lane j holding elements 32w + j.  k rounds
-//   each take the largest remaining |x| bit pattern (non-negative floats
-//   order like their bits; -0.0 and +0.0 tie) and, among equal patterns,
-//   the smallest position: __reduce_max_sync over each lane's own largest
-//   remaining pattern, then __reduce_min_sync over the positions of the lanes
-//   holding it.  Round r fills output slot r, so the slots come out in
-//   lax.top_k's order (magnitude descending, first occurrence winning ties)
-//   with no threshold search, tie cut or sort.  Work: k rounds of two warp
-//   reductions and one shuffle, plus the winning lane's rescan of its B/32
-//   values; about k*B compares per block.
+// Selection (warp_topk, shared by ef_topk_fused, topk_pack and block_topk)
+//   replaces repro/kernels/topk_block.py::block_select / block_select_mask.
+//   One warp holds one block in registers, lane j holding elements
+//   32w + j.  k rounds each take the largest remaining |x| bit pattern
+//   (non-negative floats order like their bits; -0.0 and +0.0 tie) and,
+//   among equal patterns, the smallest position: __reduce_max_sync over
+//   each lane's own largest remaining pattern, then __reduce_min_sync over
+//   the positions of the lanes holding it.  Round r fills output slot r,
+//   so the slots come out in lax.top_k's order (magnitude descending,
+//   first occurrence winning ties) with no threshold search, tie cut or
+//   sort.  Work: k rounds of two warp reductions and one shuffle, plus the
+//   winning lane's rescan of its B/32 values; about k*B compares per block.
 //
 // ef_topk_fused — replaces repro/kernels/topk_pack.py::_ef_topk_fused_kernel
 //   (:92-111, pallas_call at :137).  Per block of B coordinates:
@@ -39,6 +40,15 @@
 // topk_pack — replaces repro/kernels/topk_pack.py::_topk_pack_kernel
 //   (:43-49, pallas_call at :63).  Pack only: idx, V(sv / scale), scale.
 //   Bound: bytes (4 B/coordinate read plus the payload).
+//
+// block_topk — replaces repro/kernels/topk_block.py::_topk_kernel (:136-140,
+//   pallas_call at :148) with block_select_mask (:57).  Sparsify: per block
+//   the k largest |x| (warp_topk's set, which is lax.top_k's) keep their
+//   value, bits and all (a kept -0.0 stays -0.0), everything else is +0.0;
+//   x and out f32 or bf16, selection on the f32 of x.  Each block is read
+//   into registers before any store, so out may alias x.
+//   Bound: bytes (read and write 2 * sizeof(T) B/coordinate); the
+//   selection's k*B compares per block are issue work under that stream.
 //
 // topk_decode_reduce — replaces repro/kernels/topk_pack.py::
 //   _topk_decode_reduce_kernel (:165-171, pallas_call at :186).
@@ -216,6 +226,33 @@ topk_pack_kernel(const float* __restrict__ x, uint16_t* __restrict__ idx,
   if (lane == 0) scales[blk] = safe;
 }
 
+template <int B, typename T>
+__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+block_topk_kernel(const T* x, T* out, int k, int64_t n_blocks) {
+  constexpr int P = B / 32;
+  const int lane = threadIdx.x & 31;
+  const int64_t blk =
+      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  if (blk >= n_blocks) return;
+  const int64_t base = blk * B + lane;
+  T raw[P];
+  float xv[P];
+#pragma unroll
+  for (int w = 0; w < P; ++w) {
+    raw[w] = x[base + 32 * w];
+    xv[w] = from_wire(raw[w]);
+  }
+
+  int slot_pos, max_bits;
+  float slot_val;
+  unsigned taken;
+  warp_topk(xv, k, lane, slot_pos, slot_val, taken, max_bits);
+  const T zero = to_wire<T>(0.f);
+#pragma unroll
+  for (int w = 0; w < P; ++w)
+    out[base + 32 * w] = (taken & (1u << w)) ? raw[w] : zero;
+}
+
 template <int B, typename V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 topk_decode_reduce_kernel(const uint16_t* __restrict__ idx,
@@ -297,6 +334,16 @@ int launch_pack(const float* x, void* idx, void* val, float* scales,
   return (int)cudaGetLastError();
 }
 
+template <int B, typename T>
+int launch_block_topk(const void* x, void* out, int64_t n, int k,
+                      cudaStream_t st) {
+  unsigned grid;
+  if (int err = grid_for(n / B, &grid)) return err;
+  block_topk_kernel<B, T><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const T*>(x), static_cast<T*>(out), k, n / B);
+  return (int)cudaGetLastError();
+}
+
 template <int B, typename V>
 int launch_decode(const void* idx, const void* val, const float* scales,
                   const float* mask, float* out, int n_senders, int64_t n,
@@ -358,4 +405,24 @@ extern "C" int topk_decode_reduce_launch(const void* idx, const void* val,
                                            n_senders, (int64_t)n, k, st)
   TOPK_DISPATCH(block_size, value_bf16, k, DEC_CALL)
 #undef DEC_CALL
+}
+
+// block_topk's block sizes (BLOCK_TOPK_SIZES in topk_pack.py); bf16: 0 = f32
+// input and output, 1 = bf16.
+extern "C" int block_topk_launch(const void* x, void* out, long long n,
+                                 int block_size, int k, int bf16,
+                                 void* stream) {
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+#define TOPK_CALL(B, T) launch_block_topk<B, T>(x, out, (int64_t)n, k, st)
+  if (k < 1 || k > kMaxK) return (int)cudaErrorInvalidValue;
+  switch (block_size * 2 + (bf16 ? 1 : 0)) {
+    case 256: return TOPK_CALL(128, float);
+    case 257: return TOPK_CALL(128, __nv_bfloat16);
+    case 512: return TOPK_CALL(256, float);
+    case 513: return TOPK_CALL(256, __nv_bfloat16);
+    case 1024: return TOPK_CALL(512, float);
+    case 1025: return TOPK_CALL(512, __nv_bfloat16);
+    default: return (int)cudaErrorInvalidValue;
+  }
+#undef TOPK_CALL
 }

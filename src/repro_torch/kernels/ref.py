@@ -9,7 +9,9 @@ uint32 shift.
 
 Block top-K selection is a stable descending sort of |x| per block, which
 gives `lax.top_k`'s order (magnitude descending, first occurrence winning
-ties); `torch.topk` orders ties otherwise (ROADMAP C1).  Signed zeros
+ties); `torch.topk` orders ties otherwise (ROADMAP C1).  `block_topk_ref`
+keeps that set too, as JAX's Pallas `block_topk` does, not the set of
+JAX's `ref.block_topk_ref` (ROADMAP C8).  Signed zeros
 follow JAX's jnp reference, not its Pallas kernel (ROADMAP C7): a selected
 -0.0 keeps its sign in the values, in c and in e' = acc - c.
 """
@@ -22,20 +24,21 @@ import torch
 _F32 = torch.float32
 
 
-def _as_f32(v, like: torch.Tensor) -> torch.Tensor:
+def as_f32(v, like: torch.Tensor) -> torch.Tensor:
+    """v as an f32 tensor on like's device (a scalar such as gamma)."""
     return torch.as_tensor(v, dtype=_F32, device=like.device)
 
 
 def mul_add(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """The Algorithm-1 accumulate  acc = gamma * g + e  as two separately
     rounded f32 ops (eager PyTorch never contracts them into an FMA)."""
-    return _as_f32(gamma, g) * g.to(_F32) + e.to(_F32)
+    return as_f32(gamma, g) * g.to(_F32) + e.to(_F32)
 
 
 def mul_add_(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """`mul_add` written into g (g <- gamma * g + e, the same two
     roundings); returns g."""
-    return g.mul_(_as_f32(gamma, g)).add_(e)
+    return g.mul_(as_f32(gamma, g)).add_(e)
 
 
 def _pack_words(x: torch.Tensor) -> torch.Tensor:
@@ -92,7 +95,7 @@ def ef_sign_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     scales = group_abs_mean(accg, group_size)
     words = _pack_words(accg)
     c = torch.where(accg >= 0, 1.0, -1.0) * scales[:, None]
-    keep = _as_f32(mask_self, g) > 0
+    keep = as_f32(mask_self, g) > 0
     e_new = torch.where(keep, accg - c, e.to(_F32).reshape(-1, group_size))
     return words, scales, c.reshape(-1), e_new.reshape(-1)
 
@@ -176,7 +179,7 @@ def ef_topk_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     safe = _safe_scale(sv)
     val = (sv / safe[:, None]).to(wire_dtype(value_dtype)).to(_F32)
     c = _scatter_blocks(idx, val * safe[:, None], block_size)
-    keep = _as_f32(mask_self, g) > 0
+    keep = as_f32(mask_self, g) > 0
     e_new = torch.where(keep, accb.reshape(-1) - c, e.to(_F32))
     return idx.to(torch.int32), val, safe, c, e_new
 
@@ -202,3 +205,21 @@ def topk_decode_reduce_ref(idx: torch.Tensor, values: torch.Tensor,
         acc = acc + mask[i].to(_F32) * topk_unpack_ref(idx[i], values[i],
                                                        scales[i], block_size)
     return acc
+
+
+def block_topk_ref(x: torch.Tensor, k: int, block_size: int) -> torch.Tensor:
+    """Block top-k sparsification: x (n,) -> (n,) of x's dtype keeping each
+    block's k largest |x| (`topk_select` on the f32 of x) with their bits,
+    so a kept -0.0 stays -0.0, and +0.0 elsewhere, as JAX's Pallas
+    `block_topk` (`jnp.where(keep, x, 0.0)`).
+
+    ROADMAP C8: JAX's `ref.block_topk_ref` and `BlockTopK.apply` keep the
+    first k entries with |x| >= the k-th largest, so ties at that value
+    which come before a larger entry push the larger one out: on a block
+    |x| = [3, 3, 5, ...] with k = 2 they keep positions {0, 1}, where
+    `lax.top_k`, the Pallas kernel and this function keep {0, 2}."""
+    blocks = x.reshape(-1, block_size)
+    idx, _ = topk_select(blocks.to(_F32), k)
+    out = torch.zeros_like(blocks)
+    return out.scatter_(1, idx, torch.gather(blocks, 1, idx)
+                        ).reshape(x.shape)

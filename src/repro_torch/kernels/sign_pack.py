@@ -25,6 +25,8 @@ def _lib() -> ctypes.CDLL:
     lib = build.library("sign_pack")
     lib.ef_sign_fused_launch.argtypes = [VP] * 8 + [LL, I, VP]
     lib.ef_sign_fused_launch.restype = I
+    lib.sign_pack_launch.argtypes = [VP] * 3 + [LL, I, VP]
+    lib.sign_pack_launch.restype = I
     lib.sign_decode_reduce_launch.argtypes = [VP] * 4 + [I, LL, I, VP]
     lib.sign_decode_reduce_launch.restype = I
     return lib
@@ -89,6 +91,38 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     raise_if(err, "ef_sign_fused")
     launches["ef_sign_fused"] += 1
     return words, scales, c, e_new
+
+
+def sign_pack(x: torch.Tensor, group_size: int,
+              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+              ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack only: x (n,) f32 -> (words (n/32,) u32 with bit j of word w =
+    x[32w+j] >= 0, scales (n/g,) f32 = mean |x| per group, summed in
+    `ref.group_abs_mean`'s order), written into `out` = (words, scales)
+    when given."""
+    n, dev = x.numel(), x.device
+    _check_group(n, group_size, dev)
+    check(x, "x", torch.float32, (n,), dev)
+    if out is None:
+        out = (torch.empty(n // 32, dtype=torch.uint32, device=dev),
+               torch.empty(n // group_size, dtype=torch.float32, device=dev))
+    words, scales = out
+    check(words, "words", torch.uint32, (n // 32,), dev)
+    check(scales, "scales", torch.float32, (n // group_size,), dev)
+
+    if dev.type == "cpu":
+        w, s = ref.sign_pack_ref(x, group_size)
+        words.copy_(w)
+        scales.copy_(s)
+        return words, scales
+    if dev.type != "cuda":
+        raise ValueError(f"sign_pack: unsupported device {dev}")
+    err = _lib().sign_pack_launch(x.data_ptr(), words.data_ptr(),
+                                  scales.data_ptr(), n, group_size,
+                                  stream(dev))
+    raise_if(err, "sign_pack")
+    launches["sign_pack"] += 1
+    return words, scales
 
 
 def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,

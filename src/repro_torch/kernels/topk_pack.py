@@ -1,12 +1,14 @@
-"""Wrappers of the block top-K wire CUDA kernels (`csrc/topk_pack.cu`).
+"""Wrappers of the block top-K wire CUDA kernels and the `block_topk`
+sparsifier (`csrc/topk_pack.cu`).
 
 For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
 current stream, or raises: there is no fallback.  Only for CPU tensors does
 it run the plain version in `ref.py`, which takes any block size and k that
-JAX's reference takes.  The kernels take B in SUPPORTED_BLOCK_SIZES,
-1 <= k <= K_MAX and f32 or bf16 values; anything else raises ValueError on
-CUDA.  Payloads are in the wire's dtypes: in-block indices u16 (u32 when
-B > 65536), values in the value dtype, scales f32.  Each kernel launch adds
+JAX's reference takes.  The kernels take B in SUPPORTED_BLOCK_SIZES
+(`block_topk` in BLOCK_TOPK_SIZES), 1 <= k <= K_MAX and f32 or bf16 values;
+anything else raises ValueError on CUDA.  Payloads are in the wire's
+dtypes: in-block indices u16 (u32 when B > 65536), values in the value
+dtype, scales f32.  Each kernel launch adds
 one to `launches[<name>]` (`common.py`).
 """
 from __future__ import annotations
@@ -21,6 +23,7 @@ from . import build, ref
 from .common import LL, VP, I, check, launches, raise_if, scalar, stream
 
 SUPPORTED_BLOCK_SIZES = (256, 512)     # see TOPK_DISPATCH
+BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
 K_MAX = 32                             # one output slot per lane
 
 
@@ -33,6 +36,8 @@ def _lib() -> ctypes.CDLL:
     lib.topk_pack_launch.restype = I
     lib.topk_decode_reduce_launch.argtypes = [VP] * 5 + [I, LL, I, I, I, VP]
     lib.topk_decode_reduce_launch.restype = I
+    lib.block_topk_launch.argtypes = [VP] * 2 + [LL, I, I, I, VP]
+    lib.block_topk_launch.restype = I
     return lib
 
 
@@ -42,16 +47,17 @@ def index_dtype(block_size: int) -> torch.dtype:
 
 
 def _check_shape(n: int, k: int, block_size: int, vdt: torch.dtype,
-                 device: torch.device) -> None:
+                 device: torch.device,
+                 sizes: Tuple[int, ...] = SUPPORTED_BLOCK_SIZES) -> None:
     if block_size <= 0 or n <= 0 or n % block_size:
         raise ValueError(f"need n a positive multiple of block_size (n={n}, "
                          f"B={block_size})")
     if not 0 < k <= block_size:
         raise ValueError(f"need 0 < k <= block_size, got {k} / {block_size}")
     if device.type == "cuda":
-        if block_size not in SUPPORTED_BLOCK_SIZES:
+        if block_size not in sizes:
             raise ValueError(f"no CUDA kernel for block_size={block_size}; "
-                             f"have {SUPPORTED_BLOCK_SIZES}")
+                             f"have {sizes}")
         if k > K_MAX:
             raise ValueError(f"no CUDA kernel for k={k}; have 1..{K_MAX}")
         if vdt not in (torch.float32, torch.bfloat16):
@@ -178,4 +184,26 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
         int(val.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "topk_decode_reduce")
     launches["topk_decode_reduce"] += 1
+    return out
+
+
+def block_topk(x: torch.Tensor, k: int, block_size: int,
+               out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """Sparsify: x (n,) f32 or bf16 -> (n,) of the same dtype keeping each
+    block's k largest |x| (the `lax.top_k` set; ROADMAP C8) with their
+    bits, +0.0 elsewhere; written into `out` when given (`out` may be
+    `x`).  The kernel takes B in BLOCK_TOPK_SIZES and 1 <= k <= K_MAX."""
+    n, dev = x.numel(), x.device
+    _check_shape(n, k, block_size, x.dtype, dev, BLOCK_TOPK_SIZES)
+    check(x, "x", x.dtype, (n,), dev)
+    if out is None:
+        out = torch.empty_like(x)
+    check(out, "out", x.dtype, (n,), dev)
+    if dev.type == "cpu":
+        return out.copy_(ref.block_topk_ref(x, k, block_size))
+    err = _lib().block_topk_launch(
+        x.data_ptr(), out.data_ptr(), n, block_size, k,
+        int(x.dtype == torch.bfloat16), stream(dev))
+    raise_if(err, "block_topk")
+    launches["block_topk"] += 1
     return out

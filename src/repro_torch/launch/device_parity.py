@@ -1,9 +1,10 @@
 """The train step on one device against the same step on the CPU.
 
-`step_parity(device, compressor, k_budgets)` builds the f32 smoke-size
-gemma2-2b slice (g = 32, N = 4; sign wire, or block top-K with k = 8,
-B = 256, f32 values, uniform or with one k budget per rank) on the CPU and
-on `device`, from the same parameters, and checks two things:
+`step_parity(device, compressor, k_budgets, mode)` builds the f32
+smoke-size gemma2-2b slice (g = 32, N = 4; sign wire, or block top-K with
+k = 8, B = 256, f32 values, uniform or with one k budget per rank; cocoef
+or coco mode) on the CPU and on `device`, from the same parameters, and
+checks two things:
 
   full step   one `train_step` from the same batch and mask (rank 1 a
               straggler).  Stage 1 sums in another order on each device, so
@@ -25,7 +26,8 @@ on `device`, from the same parameters, and checks two things:
               payload rows or buffers cannot hide in a tolerance.  The
               injected blocks include a zero block, a -0.0 block and, on
               the block top-K wire, k + 1 equal maxima of mixed sign and a
-              block of exactly k nonzeros.
+              block of exactly k nonzeros.  In coco mode every error
+              vector must keep the bits it had before the step.
 
 It raises AssertionError on a miss.  `chip_smoke.py` and the `gpu` tests
 run it with device="cuda"; on the CPU it also runs against itself.
@@ -51,14 +53,15 @@ PAYLOAD = {"sign": ("words", "scales"),
            "block_topk": ("idx", "values", "scales")}
 
 
-def _setups(device, compressor: str,
-            k_budgets: Optional[Tuple[int, ...]]) -> List[TrainSetup]:
+def _setups(device, compressor: str, k_budgets: Optional[Tuple[int, ...]],
+            mode: str) -> List[TrainSetup]:
     """Two separate setups, one on the CPU and one on `device`."""
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
         coding=dataclasses.replace(spec.coding, group_size=32))
-    run = TrainRun(base_lr=5e-3, compressor=compressor, k_budgets=k_budgets)
+    run = TrainRun(base_lr=5e-3, compressor=compressor, k_budgets=k_budgets,
+                   mode=mode)
     return [build_train_setup(spec, ShapeCfg("train", 32, 8), run,
                               smoke=True, device=d)
             for d in ("cpu", device)]
@@ -92,11 +95,11 @@ def _adversarial_(grads: torch.Tensor, e0: torch.Tensor, L: int,
 
 
 def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
-                k_budgets: Optional[Tuple[int, ...]] = None
-                ) -> Dict[str, float]:
+                k_budgets: Optional[Tuple[int, ...]] = None,
+                mode: str = "cocoef") -> Dict[str, float]:
     """Run both checks (see the module docstring); returns the measured
     gaps of the full step."""
-    cpu, dev = _setups(device, compressor, k_budgets)
+    cpu, dev = _setups(device, compressor, k_budgets, mode)
     n_code, n = cpu.n_code, cpu.flat_pad
     cpu.init_state()
     theta0 = cpu.model.theta.clone()
@@ -144,9 +147,11 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     for k in got[0]:
         a, b = _bits(got[0][k]), _bits(got[1][k])
         assert torch.equal(a, b), (
-            f"stage 2 on {device} ({compressor}, budgets {k_budgets}): "
-            f"{k} differs from the CPU in "
+            f"stage 2 on {device} ({mode}, {compressor}, budgets "
+            f"{k_budgets}): {k} differs from the CPU in "
             f"{int((a != b).sum())} of {a.numel()} entries")
-    assert torch.equal(_bits(got[0]["e"][1]), _bits(e0[1])), \
-        "the straggler's error vector changed"
+    # cocoef leaves the straggler's error alone, coco every rank's
+    for i in (range(n_code) if mode == "coco" else [1]):
+        assert torch.equal(_bits(got[0]["e"][i]), _bits(e0[i])), \
+            f"{mode}: rank {i}'s error vector changed"
     return out

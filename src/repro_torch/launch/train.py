@@ -11,6 +11,9 @@
            place; then one sender-order decode (sign_decode_reduce or
            topk_decode_reduce) writes ghat into the gradient buffer, and
            the server update theta <- theta - ghat runs in place.
+           In coco mode (no error feedback) the local step is gamma*g_i
+           in place and the pack only (sign_pack or topk_pack); e stays
+           as it is.
 
 The coding ranks share the card, so the JAX collective's all_to_all /
 decode / all_gather is one decode here (`core.collectives`).
@@ -25,7 +28,7 @@ import torch
 
 from repro_torch.configs.common import ArchSpec, CodingPlan, ShapeCfg
 from repro_torch.core import coding
-from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
+from repro_torch.core.cocoef import CocoEFConfig, check_mode, cocoef_update
 from repro_torch.data import pipeline
 from repro_torch.kernels import ref
 from repro_torch.nn.models import Model
@@ -40,9 +43,11 @@ __all__ = ["TrainRun", "TrainSetup", "build_train_setup"]
 class TrainRun:
     """The knobs of the slice's run: constant learning rate (the paper's
     setting), the server optimizer, the seed of the parameters, the
-    batches and the straggler masks, and JAX's wire overrides (cocoef mode
-    is fixed; the other wire knobs come from the spec's CodingPlan).
+    batches and the straggler masks, the mode, and JAX's wire overrides
+    (the other wire knobs come from the spec's CodingPlan).
 
+    mode: "cocoef" (the paper's method) or "coco" (its baseline without
+      error feedback); JAX's "dense" is not ported yet.
     compressor: overrides spec.coding.compressor ("sign" | "block_topk").
     k_budgets: one block top-K budget per coding rank; overrides
       spec.coding.k_per_block and needs the block_topk wire."""
@@ -52,8 +57,10 @@ class TrainRun:
     seed: int = 0
     compressor: Optional[str] = None
     k_budgets: Optional[Tuple[int, ...]] = None
+    mode: str = "cocoef"
 
     def __post_init__(self):
+        check_mode(self.mode)
         if self.k_budgets is not None and \
                 any(k < 1 for k in self.k_budgets):
             raise ValueError("every per-rank k budget must be >= 1")
@@ -77,7 +84,8 @@ class TrainRun:
                                  f"entries, the run has {n_code} coding "
                                  f"ranks")
             k_per_block = tuple(self.k_budgets)
-        return CocoEFConfig(group_size=plan.group_size, compressor=comp,
+        return CocoEFConfig(group_size=plan.group_size, mode=self.mode,
+                            compressor=comp,
                             k_per_block=k_per_block,
                             block_size=plan.block_size,
                             wire_dtype=plan.wire_dtype)
@@ -114,7 +122,8 @@ class TrainSetup:
 
     def init_state(self) -> torch.Tensor:
         """Random parameters from `run.seed`; returns the zero (N, n) error
-        vectors."""
+        vectors (in coco mode too, which never touches them: the state has
+        JAX's shape)."""
         self.model.init_(self.run.seed)
         return torch.zeros((self.n_code, self.flat_pad), dtype=torch.float32,
                            device=self.device)
@@ -134,8 +143,9 @@ class TrainSetup:
                    step: int, masks: Optional[torch.Tensor] = None,
                    kernel_spans: Optional[List] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One COCO-EF step; updates params.theta, e and the optimizer
-        state in place.  masks: (N,) participation for this step (default:
+        """One COCO-EF step (or COCO step, in coco mode); updates
+        params.theta, e (not in coco mode) and the optimizer state in
+        place.  masks: (N,) participation for this step (default:
         the setup's straggler process at `step`).  kernel_spans: see
         `cocoef_update`.  Returns {"loss": mean rank loss, "losses": (N,),
         "mask": (N,)}."""

@@ -14,6 +14,8 @@ from typing import Optional, Tuple
 
 import torch
 
+from repro_torch import resolve_device
+
 _F32 = torch.float32
 
 
@@ -27,8 +29,11 @@ class OptimizerConfig:
     weight_decay: float = 0.0
 
 
-def init_opt_state(cfg: OptimizerConfig, n: int, device="cpu"
+def init_opt_state(cfg: OptimizerConfig, n: int, device="cuda"
                    ) -> Tuple[torch.Tensor, ...]:
+    """Zero state vectors of `cfg.kind` for n parameters, on `device`
+    (the card unless the caller asks for the CPU)."""
+    device = resolve_device(device)
     if cfg.kind == "sgd":
         return ()
     if cfg.kind == "momentum":

@@ -1,6 +1,19 @@
-"""Inputs and comparisons shared by the port's kernel tests (numpy only,
-so the GPU tests, which run without JAX, can use them too)."""
+"""Inputs, comparisons and the JAX reference harness shared by the port's
+tests.  Nothing here imports JAX (the harness runs it in a subprocess), so
+the GPU tests, which run without JAX, can use this module too."""
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import numpy as np
+import torch
+
+from repro_torch.configs import REGISTRY, ShapeCfg
+from repro_torch.launch.train import TrainRun, build_train_setup
 
 
 def ef_inputs(n: int, group_size: int, seed: int, denormals: bool = True):
@@ -107,6 +120,29 @@ def topk_inputs(n: int, block_size: int, k: int, seed: int,
     return g, e
 
 
+def topk_rows(B: int, seed: int, denormals: bool = False) -> np.ndarray:
+    """(16 * B,) f32, 16 blocks of B for `block_topk`: the adversarial row
+    families of tests/test_topk_select.py (ties, all equal, tiny,
+    zero-riddled, all zero), a block of -0.0, one of mixed signed zeros
+    with a few ties, ties around zero, then random blocks of widely varying
+    scale.  The tiny block is denormal with denormals=True; otherwise every
+    |x| is >= 2**-126 or zero (XLA:CPU flushes denormals, ROADMAP C6)."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal((16, B)).astype(np.float32)
+    tiny = np.float32(2.0 ** (-140 if denormals else -126))
+    x[0] = np.round(x[0] * 3.0) / 3.0                 # ties
+    x[1] = np.where(x[1] >= 0, 1.0, -1.0)             # all equal
+    x[2] = np.where(x[2] >= 0, 1.0, -1.0) * rng.uniform(1, 4, B) * tiny
+    x[3, ::2] = 0.0                                   # zero-riddled
+    x[4] = 0.0
+    x[5] = -0.0
+    x[6] = np.where(rng.random(B) < 0.5, -0.0, 0.0)
+    x[6, 3::7] = np.round(x[6, 3::7])                 # few ties among zeros
+    x[7] = np.round(x[7] * 2.0) / 2.0                 # ties around zero
+    x[8:] *= np.exp(rng.uniform(-20, 20, (8, 1))).astype(np.float32)
+    return x.reshape(-1)
+
+
 def topk_payload(N: int, nb: int, k: int, block_size: int, seed: int):
     """Random block top-K payloads for N senders: distinct in-block indices
     (int64), values in [-1, 1] with some -0.0 and +0.0, scales with a few
@@ -121,3 +157,101 @@ def topk_payload(N: int, nb: int, k: int, block_size: int, seed: int):
     mask = np.ones(N, np.float32)
     mask[1 % N] = 0.0
     return idx, val, scales, mask
+
+
+# The slice end to end against JAX's real train step
+# (tests/test_torch_train.py, tests/test_torch_coco.py): f32 gemma2-2b
+# smoke config, g = G, N coding ranks, STEPS steps at the constant
+# learning rate LR.
+SRC = str(Path(__file__).resolve().parents[1] / "src")
+STEPS, N, G, LR = 3, 4, 32, 5e-3
+
+JAX_RUN = textwrap.dedent(f"""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import dataclasses, json, math, warnings
+    import jax, jax.numpy as jnp, numpy as np
+    from repro.compat import make_mesh
+    from repro.configs import REGISTRY
+    from repro.configs.common import ShapeCfg
+    from repro.core.cocoef import flatten_local
+    from repro.launch.train import (TrainRun, build_train_setup,
+                                    make_batch_for_step, setup_encode_weights)
+    warnings.simplefilter("ignore")
+    spec = REGISTRY["gemma2-2b"]
+    spec = dataclasses.replace(
+        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
+        coding=dataclasses.replace(spec.coding, group_size={G}))
+    mesh = make_mesh((4, 1), ("data", "model"))
+    shape = ShapeCfg("train", 32, 8)
+    kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
+    if "k_budgets" in kw:
+        kw["k_budgets"] = tuple(kw["k_budgets"])
+    pad = ({G} if kw.get("compressor", "sign") == "sign"
+           else math.lcm({G}, spec.coding.block_size))
+    setup = build_train_setup(spec, mesh, shape,
+                              TrainRun(base_lr={LR}, backend="pallas", **kw),
+                              smoke=True)
+    key = jax.random.PRNGKey(0)
+    params, e, opt = setup.init_state(key)
+    flat = lambda leaves: np.asarray(flatten_local(leaves, 4, pad)[0])
+    out = {{"flat_pad": setup.flat_pad,
+            "W": np.asarray(setup_encode_weights(setup))}}
+    for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
+        out["p0/" + "/".join(k.key for k in p)] = np.asarray(v)
+    out["theta0"] = flat(jax.tree.leaves(params))
+    model = setup.model
+    grads = jax.jit(lambda p, b: jax.vmap(
+        lambda bb: jax.grad(lambda q: model.loss(q, bb)[0])(p))(b))
+    step = jax.jit(setup.train_step)
+    for t in range(3):
+        batch = make_batch_for_step(setup, spec, shape, key, t, smoke=True)
+        g = grads(params, batch)
+        out[f"g{{t}}"] = np.stack([flat([l[i] for l in jax.tree.leaves(g)])
+                                  for i in range(4)])
+        out[f"tokens{{t}}"] = np.asarray(batch["inputs"])
+        out[f"weights{{t}}"] = np.asarray(batch["weights"])
+        out[f"mask{{t}}"] = np.asarray(setup.straggler_process.mask(key, t))
+        params, e, opt, m = step(params, e, opt, batch, jnp.int32(t), key)
+        out[f"loss{{t}}"] = np.asarray(m["loss"])
+        out[f"theta{{t+1}}"] = flat(jax.tree.leaves(params))
+        out[f"e{{t+1}}"] = np.asarray(e).reshape(4, -1)
+    np.savez(sys.argv[1], **out)
+""")
+
+
+def _jax_run(tmp_path_factory, run_kw=None):
+    path = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", JAX_RUN, str(path)]
+                       + ([json.dumps(run_kw)] if run_kw else []), env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    return dict(np.load(path))
+
+
+def _port_setup(**run_kw):
+    spec = REGISTRY["gemma2-2b"]
+    spec = dataclasses.replace(
+        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
+        coding=dataclasses.replace(spec.coding, group_size=G))
+    return build_train_setup(spec, ShapeCfg("train", 32, 8),
+                             TrainRun(base_lr=LR, **run_kw), smoke=True,
+                             n_code=N, device="cpu")
+
+
+def _state_dict(ref):
+    return {k[3:]: torch.from_numpy(v) for k, v in ref.items()
+            if k.startswith("p0/")}
+
+
+def _normal_blocks(acc: np.ndarray, e_new: np.ndarray) -> np.ndarray:
+    """(N, n/B) True for the blocks where no acc and no e' is denormal:
+    XLA:CPU flushes denormal operands and results to zero (ROADMAP C6),
+    which can change a block's selection and its e'."""
+    tiny = np.finfo(np.float32).tiny
+
+    def denormal(x):
+        return ((x != 0) & (np.abs(x) < tiny)).reshape(N, -1, 256).any(-1)
+    return ~(denormal(acc) | denormal(e_new))

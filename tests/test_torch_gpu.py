@@ -10,7 +10,7 @@ import pytest
 import torch
 
 from _torch_cases import (GAMMA, check_ef_outputs, ef_inputs, topk_inputs,
-                          topk_payload)
+                          topk_payload, topk_rows)
 from repro_torch.kernels import ref, sign_pack as sp, topk_pack as tp
 
 pytestmark = pytest.mark.gpu
@@ -208,3 +208,56 @@ def test_kernels_on_rank_rows_match_plain(cuda):
         assert torch.equal(e_all[i].view(torch.int32), en.view(torch.int32))
     want = ref.sign_decode_reduce_ref(words, scales, mask, G)
     assert torch.equal(got.view(torch.int32), want.view(torch.int32))
+
+
+@pytest.mark.parametrize("group_size", sp.SUPPORTED_GROUP_SIZES)
+def test_sign_pack_kernel_matches_plain(cuda, group_size):
+    """Groups of +0, -0.0, denormals and all-equal first; bit for bit (the
+    kernel and the plain version sum a group in one order), also written
+    into rows of (N, .) payload buffers as the coco step does."""
+    n = group_size * 8 * 37
+    g, _ = ef_inputs(n, group_size, seed=group_size)
+    x = torch.from_numpy(g).to(cuda)
+    before = sp.launches["sign_pack"]
+    words, scales = sp.sign_pack(x, group_size)
+    torch.cuda.synchronize()
+    assert sp.launches["sign_pack"] == before + 1
+    w0, s0 = ref.sign_pack_ref(x, group_size)
+    assert torch.equal(words, w0) and _same(scales, s0)
+    rows = (torch.zeros((2, n // 32), dtype=torch.uint32, device=cuda),
+            torch.zeros((2, n // group_size), device=cuda))
+    sp.sign_pack(x, group_size, out=(rows[0][1], rows[1][1]))
+    torch.cuda.synchronize()
+    assert torch.equal(rows[0][1], w0) and _same(rows[1][1], s0)
+    assert not rows[0][0].view(torch.int32).any() and not rows[1][0].any()
+
+
+@pytest.mark.parametrize("block_size", tp.BLOCK_TOPK_SIZES)
+@pytest.mark.parametrize("k", [1, 4, 8, 16, 32])
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_block_topk_kernel_matches_plain(cuda, block_size, k, dtype):
+    """The adversarial rows (denormals included) and random blocks, bit
+    for bit, into a new buffer and in place."""
+    x = torch.from_numpy(topk_rows(block_size, seed=block_size + k,
+                                   denormals=True)).to(cuda)
+    x = x.to(ref.wire_dtype(dtype))
+    before = tp.launches["block_topk"]
+    got = tp.block_topk(x, k, block_size)
+    torch.cuda.synchronize()
+    assert tp.launches["block_topk"] == before + 1
+    want = ref.block_topk_ref(x, k, block_size)
+    assert got.dtype == x.dtype and _same(got, want)
+    xi = x.clone()
+    tp.block_topk(xi, k, block_size, out=xi)
+    torch.cuda.synchronize()
+    assert _same(xi, want)
+
+
+@pytest.mark.parametrize("compressor,k_budgets", [
+    ("sign", None), ("block_topk", None), ("block_topk", (8, 8, 4, 2))])
+def test_coco_train_step_cuda_matches_cpu(cuda, compressor, k_budgets):
+    """The coco step on the card against the CPU: stage 2 bit for bit, e
+    untouched."""
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda", compressor=compressor, k_budgets=k_budgets,
+                mode="coco")

@@ -12,95 +12,22 @@ Pallas tiles (256 and 2,048 elements), so JAX takes its jnp path, which
 tests/test_backend_parity.py and tests/test_topk_select.py show is
 bit-identical to the Pallas one (up to the signed zeros of ROADMAP C7).
 """
-import dataclasses
-import json
-import os
-import subprocess
-import sys
-import textwrap
-from pathlib import Path
-
 import jax.numpy as jnp
 import numpy as np
 import pytest
 import torch
 
+from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
+                          _port_setup, _state_dict)
 from repro.core import coding as jcoding
 from repro.core.collectives import SparseWire as JaxSparseWire
 from repro.kernels import ref as jref
 from repro.optim import optimizers as joptim
-from repro_torch.configs import REGISTRY, ShapeCfg
+from repro_torch.configs import REGISTRY
 from repro_torch.core import coding
 from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
-from repro_torch.launch.train import TrainRun, build_train_setup
+from repro_torch.launch.train import TrainRun
 from repro_torch.optim import optimizers as optim
-
-SRC = str(Path(__file__).resolve().parents[1] / "src")
-STEPS, N, G, LR = 3, 4, 32, 5e-3
-
-JAX_RUN = textwrap.dedent(f"""
-    import os, sys
-    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
-    import dataclasses, json, math, warnings
-    import jax, jax.numpy as jnp, numpy as np
-    from repro.compat import make_mesh
-    from repro.configs import REGISTRY
-    from repro.configs.common import ShapeCfg
-    from repro.core.cocoef import flatten_local
-    from repro.launch.train import (TrainRun, build_train_setup,
-                                    make_batch_for_step, setup_encode_weights)
-    warnings.simplefilter("ignore")
-    spec = REGISTRY["gemma2-2b"]
-    spec = dataclasses.replace(
-        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
-        coding=dataclasses.replace(spec.coding, group_size={G}))
-    mesh = make_mesh((4, 1), ("data", "model"))
-    shape = ShapeCfg("train", 32, 8)
-    kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
-    if "k_budgets" in kw:
-        kw["k_budgets"] = tuple(kw["k_budgets"])
-    pad = ({G} if kw.get("compressor", "sign") == "sign"
-           else math.lcm({G}, spec.coding.block_size))
-    setup = build_train_setup(spec, mesh, shape,
-                              TrainRun(base_lr={LR}, backend="pallas", **kw),
-                              smoke=True)
-    key = jax.random.PRNGKey(0)
-    params, e, opt = setup.init_state(key)
-    flat = lambda leaves: np.asarray(flatten_local(leaves, 4, pad)[0])
-    out = {{"flat_pad": setup.flat_pad,
-            "W": np.asarray(setup_encode_weights(setup))}}
-    for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
-        out["p0/" + "/".join(k.key for k in p)] = np.asarray(v)
-    out["theta0"] = flat(jax.tree.leaves(params))
-    model = setup.model
-    grads = jax.jit(lambda p, b: jax.vmap(
-        lambda bb: jax.grad(lambda q: model.loss(q, bb)[0])(p))(b))
-    step = jax.jit(setup.train_step)
-    for t in range(3):
-        batch = make_batch_for_step(setup, spec, shape, key, t, smoke=True)
-        g = grads(params, batch)
-        out[f"g{{t}}"] = np.stack([flat([l[i] for l in jax.tree.leaves(g)])
-                                  for i in range(4)])
-        out[f"tokens{{t}}"] = np.asarray(batch["inputs"])
-        out[f"weights{{t}}"] = np.asarray(batch["weights"])
-        out[f"mask{{t}}"] = np.asarray(setup.straggler_process.mask(key, t))
-        params, e, opt, m = step(params, e, opt, batch, jnp.int32(t), key)
-        out[f"loss{{t}}"] = np.asarray(m["loss"])
-        out[f"theta{{t+1}}"] = flat(jax.tree.leaves(params))
-        out[f"e{{t+1}}"] = np.asarray(e).reshape(4, -1)
-    np.savez(sys.argv[1], **out)
-""")
-
-
-def _jax_run(tmp_path_factory, run_kw=None):
-    path = tmp_path_factory.mktemp("jax_ref") / "ref.npz"
-    env = dict(os.environ)
-    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, "-c", JAX_RUN, str(path)]
-                       + ([json.dumps(run_kw)] if run_kw else []), env=env,
-                       capture_output=True, text=True, timeout=300)
-    assert r.returncode == 0, r.stderr[-3000:]
-    return dict(np.load(path))
 
 
 @pytest.fixture(scope="module")
@@ -121,21 +48,6 @@ def sparse_run(request, tmp_path_factory):
               "k_budgets": (tuple(kw["k_budgets"]) if "k_budgets" in kw
                             else None)}
     return run_kw, _jax_run(tmp_path_factory, kw)
-
-
-def _port_setup(**run_kw):
-    spec = REGISTRY["gemma2-2b"]
-    spec = dataclasses.replace(
-        spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
-        coding=dataclasses.replace(spec.coding, group_size=G))
-    return build_train_setup(spec, ShapeCfg("train", 32, 8),
-                             TrainRun(base_lr=LR, **run_kw), smoke=True,
-                             n_code=N, device="cpu")
-
-
-def _state_dict(ref):
-    return {k[3:]: torch.from_numpy(v) for k, v in ref.items()
-            if k.startswith("p0/")}
 
 
 def test_setup_matches_jax(ref_run):
@@ -243,17 +155,6 @@ def test_block_topk_setup_matches_jax(sparse_run):
     idx, val, scales = s.payload
     assert idx.shape == val.shape == (N, 164_864 // 256, 8)
     assert idx.dtype == torch.uint16 and scales.shape == (N, 644)
-
-
-def _normal_blocks(acc: np.ndarray, e_new: np.ndarray) -> np.ndarray:
-    """(N, n/B) True for the blocks where no acc and no e' is denormal:
-    XLA:CPU flushes denormal operands and results to zero (ROADMAP C6),
-    which can change a block's selection and its e'."""
-    tiny = np.finfo(np.float32).tiny
-
-    def denormal(x):
-        return ((x != 0) & (np.abs(x) < tiny)).reshape(N, -1, 256).any(-1)
-    return ~(denormal(acc) | denormal(e_new))
 
 
 def test_block_topk_stage2_with_jax_gradients(sparse_run):
@@ -390,7 +291,7 @@ def test_optimizers_match_jax(kind):
     jcfg = joptim.OptimizerConfig(kind=kind, weight_decay=0.01)
     pcfg = optim.OptimizerConfig(kind=kind, weight_decay=0.01)
     jstate = joptim.init_opt_state(jcfg, n)
-    pstate = optim.init_opt_state(pcfg, n)
+    pstate = optim.init_opt_state(pcfg, n, device="cpu")
     jp, pp = jnp.asarray(p0), torch.from_numpy(p0.copy())
     for step in range(3):
         gamma = np.float32(1e-2)
