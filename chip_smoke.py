@@ -14,13 +14,26 @@ Phases (any failure exits non-zero and prints no result line):
                 block_topk at B in {128, 256, 512} and k in {8, 32}), then
                 again at the slice's n (past 2**31) in the train step's
                 buffer layout, chunk by chunk, and timed there with CUDA
-                events
+                events.  flash_attention within its stated tolerance of
+                its plain version (f32: 2e-4 relative + 2e-5; bf16: one
+                bf16 ulp) over an adversarial sweep (hd 16/64/288, groups
+                1/2/4, softcap 0/50 with scores far past it, window
+                0/1/64/S, S 1/1000/4096, the largest raw score of most
+                rows at a masked position, f32 and bf16), then at the
+                serve slice's global and local layer shapes (B 32, H 8,
+                Hkv 4, S 8192, hd 288, bf16, softcap 50, window 0 and
+                4096) against the plain version run per (batch, kv head),
+                and timed there, beside one library call of the same
+                function (flex_attention, compiled; never called by the
+                port)
   4. reference  the f32 smoke-size train step on the card against the CPU
                 (repro_torch/launch/device_parity.py) on the sign wire, the
                 block top-K wire and the block top-K wire with per-rank
                 budgets, in cocoef and in coco mode: the full step within
                 stated tolerances, stage 2 on injected gradients bit for
-                bit (in coco mode e untouched)
+                bit (in coco mode e untouched); the smoke-size serving
+                path (prefill + 4 decode steps, f32 and bf16) on the card
+                against the CPU (`serve_parity`)
   5. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
                 the card, d = 2.  Sign wire g = 512: 5 COCO-EF steps, then
                 5 COCO steps (mode "coco", no error feedback) on the same
@@ -31,7 +44,17 @@ Phases (any failure exits non-zero and prints no result line):
                 launch counts are reset just before each path and read just
                 after: 4 x steps local steps (or packs) and one decode per
                 step, through the path's kernels only; a COCO path must
-                leave the error vectors' bits as they were
+                leave the error vectors' bits as they were, and no path
+                launches flash_attention
+  6. serve      with the train setups freed: gemma2-2b at full width and
+                depth serves 3 requests, each 32 seeded prompts of 8192
+                tokens prefilled (26 flash_attention launches, one per
+                layer) then 32 greedy decode steps (no kernel launch);
+                then request 0 again, which must give the same tokens and
+                logits bit for bit.  Prints per request the prefill
+                seconds, decode ms per token (and the host's time to
+                enqueue the decode steps), tokens per second and the peak
+                memory
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -60,7 +83,18 @@ CHECK_N = 1 << 28
 CHUNK = 1 << 28           # the plain versions run in chunks this long
 HBM_BYTES_PER_S = 3.35e12     # H100 SXM data sheet, at 700 W
 F32_OPS_PER_S = 67e12         # H100 SXM data sheet, f32 outside tensor cores
+BF16_OPS_PER_S = 989e12       # H100 SXM data sheet, bf16 dense tensor cores
 MAX_ULP = 2
+SERVE_BATCH, SERVE_SEQ = 32, 8192  # PREFILL_32K's batch, S cut to 8192
+NEW_TOKENS = 32
+REQUESTS = 3
+SERVE_SEED = 0
+# flex_attention's own tile choice needs 256 KiB of shared memory at hd
+# 288 (padded to 512), over the card's 227 KiB: the fastest of the tiles
+# tools/flex_tiles.py tries
+FLEX_OPTIONS = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1,
+                "num_warps": 8}
+LIBRARY_MAX_ABS_ERR = 0.0625  # flex_attention rounds p to bf16 for p.v
 
 
 def fail(msg: str) -> None:
@@ -608,6 +642,151 @@ def pack_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
     return res
 
 
+def attention_inputs(torch, gen, dev, B, Hkv, groups, S, hd, dtype,
+                     q_scale=1.0):
+    """q pre-scaled by hd**-0.5 * q_scale, k, v normal; the keys of the
+    last quarter of the positions 8 times larger, so the largest raw score
+    of most earlier rows sits at a masked position (q_scale = 100 drives
+    the scores far past a softcap of 50)."""
+    q = torch.randn((B, Hkv * groups, S, hd), device=dev, generator=gen)
+    q.mul_(hd ** -0.5 * q_scale)
+    k = torch.randn((B, Hkv, S, hd), device=dev, generator=gen)
+    v = torch.randn((B, Hkv, S, hd), device=dev, generator=gen)
+    k[:, :, S - S // 4:] *= 8.0
+    return q.to(dtype), k.to(dtype), v.to(dtype)
+
+
+def compare_flash(torch, fa, got, want, what: str) -> dict:
+    """Within `flash_attention.allowed_error` everywhere (a tolerance in
+    value, not in ulps: outputs near 0 may change sign); returns the
+    largest absolute error."""
+    err = (got.float() - want.float()).abs()
+    if not bool(torch.isfinite(got.float()).all()):
+        fail(f"{what}: non-finite output")
+    if not bool((err <= fa.allowed_error(got, want)).all()):
+        fail(f"{what}: off by {err.max().item():.3e}, beyond the stated "
+             f"tolerance")
+    return {"max_abs_err": err.max().item()}
+
+
+def check_flash(torch, ref, fa, gen, dev) -> dict:
+    """The adversarial sweep (B 2, Hkv 2) against the plain version."""
+    worst = {"max_abs_err": 0.0}
+    cases = 0
+    for dtype in (torch.float32, torch.bfloat16):
+        for S in (1, 1000, 4096):
+            for hd in (16, 64, 288):
+                for groups in (1, 2, 4):
+                    for softcap, q_scale in ((0.0, 1.0), (50.0, 1.0),
+                                             (50.0, 100.0)):
+                        q, k, v = attention_inputs(torch, gen, dev, 2, 2,
+                                                   groups, S, hd, dtype,
+                                                   q_scale)
+                        for window in (0, 1, 64, S):
+                            got = fa.flash_attention(
+                                q, k, v, softcap=softcap, window=window,
+                                groups=groups)
+                            torch.cuda.synchronize()
+                            want = ref.flash_attention_ref(
+                                q, k, v, softcap, window, groups)
+                            worst = merge(worst, compare_flash(
+                                torch, fa, got, want,
+                                f"flash_attention ({dtype}, S={S}, hd={hd}, "
+                                f"groups={groups}, softcap={softcap}, "
+                                f"q_scale={q_scale}, window={window})"))
+                            cases += 1
+    worst["cases"] = cases
+    return worst
+
+
+def library_attention(torch, q, k, v, softcap: float, window: int,
+                      groups: int, kernel_options=None):
+    """One PyTorch call computing B8's function, for `library_ms` only
+    (the port never calls it): flex_attention with the tanh softcap as its
+    score_mod and the causal (and window) mask as a block mask, so masked
+    tiles are skipped; q is pre-scaled (scale 1), enable_gqa maps q head h
+    to kv head h // groups.  Every row keeps its diagonal, so masking with
+    -inf gives the output JAX's -1e30 gives.  Returns a callable."""
+    from torch.nn.attention.flex_attention import (create_block_mask,
+                                                   flex_attention)
+    S = q.shape[2]
+    w = window if window > 0 else S
+
+    def mask_mod(b, h, i, j):
+        return (j <= i) & (i - j < w)
+
+    def score_mod(s, b, h, i, j):
+        return softcap * torch.tanh(s / softcap) if softcap > 0 else s
+
+    block_mask = create_block_mask(mask_mod, None, None, S, S,
+                                   device=q.device)
+    fn = torch.compile(flex_attention, dynamic=False)
+    return lambda: fn(q, k, v, score_mod=score_mod, block_mask=block_mask,
+                      scale=1.0, enable_gqa=groups > 1,
+                      kernel_options=kernel_options)
+
+
+def attention_pairs(S: int, window: int) -> int:
+    """Unmasked (query, key) pairs of one head: sum over i of
+    min(i + 1, window)."""
+    w = min(window, S) if window > 0 else S
+    return w * (w + 1) // 2 + (S - w) * w
+
+
+def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
+    """B8 at the serve slice's two layer shapes (gemma2-2b: B 32, H 8,
+    Hkv 4, S 8192, hd 288, bf16, softcap 50): a global layer (window 0) and
+    a local one (window 4096), each against the plain version, then timed,
+    and the library call (`library_attention`) timed on the same inputs.
+    The bound counts 4 * hd flops per unmasked (q, k) pair over the bf16
+    tensor-core rate, against q, k, v and o each moved once."""
+    B, S, hd = SERVE_BATCH, SERVE_SEQ, cfg.head_dim
+    H, Hkv, cap = cfg.num_heads, cfg.num_kv_heads, cfg.attn_softcap
+    q, k, v = attention_inputs(torch, gen, dev, B, Hkv, H // Hkv, S, hd,
+                               torch.bfloat16)
+    res, worst = {}, {"max_abs_err": 0.0}
+    for window in (0, cfg.sliding_window):
+        def kernel(window=window):
+            return fa.flash_attention(q, k, v, softcap=cap, window=window,
+                                      groups=H // Hkv)
+
+        def plain(window=window):
+            return ref.flash_attention_ref(q, k, v, cap, window, H // Hkv)
+        library = library_attention(torch, q, k, v, cap, window, H // Hkv,
+                                    kernel_options=FLEX_OPTIONS)
+        want = plain()
+        got = kernel()
+        torch.cuda.synchronize()
+        worst = merge(worst, compare_flash(
+            torch, fa, got, want,
+            f"flash_attention at the serve slice (window {window})"))
+        del got
+        lib_err = (library().float() - want.float()).abs().max().item()
+        if not lib_err <= LIBRARY_MAX_ABS_ERR:
+            fail(f"the library attention (window {window}) is off the "
+                 f"plain version by {lib_err:.3e}")
+        del want
+        flops = 4 * hd * B * H * attention_pairs(S, window)
+        moved = 2 * (2 * q.numel() + 2 * k.numel())
+        t_ops = flops / BF16_OPS_PER_S * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel, 5)
+        res[window] = {"ms": ms, "plain_ms": cuda_ms(plain, 2),
+                       "library_ms": cuda_ms(library, 5),
+                       "library_max_abs_err": lib_err,
+                       "bound_ms": max(t_ops, t_bytes),
+                       "bound_by": "operations" if t_ops >= t_bytes
+                       else "bytes", "gb_per_s": moved / ms / 1e6,
+                       "flops": flops, "tflop_per_s": flops / ms / 1e9}
+    # the row: the global layer; the local layer's numbers beside it
+    glob = dict(res[0])
+    more = {k: glob.pop(k)
+            for k in ("flops", "tflop_per_s", "library_max_abs_err")}
+    return {**worst, **glob, "more": {
+        **more,
+        **{f"{k}_local": v for k, v in res[cfg.sliding_window].items()}}}
+
+
 def e_checksums(torch, e) -> list:
     """Chunked int64 sums of e's bits (no copy of e fits beside a train
     setup): equal lists before and after a coco path mean e was left
@@ -698,6 +877,90 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
     return counts
 
 
+def serve_request(torch, setup, prompts, launches, n_layers: int):
+    """Prefill `prompts`, then NEW_TOKENS greedy decode steps, with the
+    launch counts reset just before and checked after each part: one
+    flash_attention launch per layer in the prefill, none in the decode.
+    Returns (tokens (B, NEW_TOKENS + 1), logits (NEW_TOKENS + 1, B, V),
+    prefill seconds, decode seconds, seconds the host took to enqueue the
+    decode steps)."""
+    B, S = prompts.shape
+    torch.cuda.synchronize()
+    for k in launches:
+        launches[k] = 0
+    t0 = time.perf_counter()
+    logits, caches = setup.prefill_step(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    want = {"flash_attention": n_layers}
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        fail(f"serve prefill: launch counts {dict(launches)}, want {want}")
+    toks, outs = [logits.argmax(-1)], [logits]
+    t0 = time.perf_counter()
+    for i in range(NEW_TOKENS):
+        logits, caches = setup.decode_step(caches, toks[-1][:, None], S + i)
+        toks.append(logits.argmax(-1))
+        outs.append(logits)
+    enqueue_s = time.perf_counter() - t0   # the host never waits in the
+    torch.cuda.synchronize()               # loop: near decode_s means the
+    decode_s = time.perf_counter() - t0    # card waits for the host
+    if any(launches[k] != want.get(k, 0) for k in launches):
+        fail(f"serve decode: launch counts {dict(launches)}, want none "
+             f"beyond the prefill's {want}")
+    outs = torch.stack(outs)
+    if outs.shape != (NEW_TOKENS + 1, B, setup.model.cfg.vocab_size):
+        fail(f"serve: logits of shape {tuple(outs.shape)}")
+    if not bool(torch.isfinite(outs.float()).all()):
+        fail("serve: non-finite logits")
+    pos = caches["kv"]["pos"]
+    want_pos = torch.arange(S, device=pos.device, dtype=pos.dtype)
+    want_pos[:NEW_TOKENS] += S          # ring slots pos % S of the decode
+    if not bool((pos == want_pos).all()):
+        fail("serve: cache positions are not the ring JAX writes")
+    return torch.stack(toks, 1), outs, prefill_s, decode_s, enqueue_s
+
+
+def serve(torch, spec, dev, launches) -> int:
+    """The serve phase (6 in the module docstring); returns the
+    flash_attention launches of the whole phase."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.serve import build_serve_setup
+    torch.cuda.reset_peak_memory_stats()
+    setup = build_serve_setup(spec, ShapeCfg("prefill", SERVE_SEQ,
+                                             SERVE_BATCH), device=dev)
+    setup.model.init_(SERVE_SEED)
+    cfg = setup.model.cfg
+    first, total = None, 0
+    for rid in list(range(REQUESTS)) + [0]:
+        gen = torch.Generator(device=dev).manual_seed(1000 + rid)
+        prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                                device=dev, generator=gen)
+        toks, logits, prefill_s, decode_s, enqueue_s = serve_request(
+            torch, setup, prompts, launches, cfg.num_layers)
+        total += launches["flash_attention"]
+        peak = torch.cuda.max_memory_allocated()
+        print(json.dumps({
+            "path": "serve", "request": rid, "prefill_s": prefill_s,
+            "prefill_tokens_per_s": SERVE_BATCH * SERVE_SEQ / prefill_s,
+            "decode_ms_per_token": decode_s / NEW_TOKENS * 1e3,
+            "decode_tokens_per_s": SERVE_BATCH * NEW_TOKENS / decode_s,
+            "decode_enqueue_ms_per_token": enqueue_s / NEW_TOKENS * 1e3,
+            "peak_memory_bytes": peak,
+            "tokens": toks[:4, :8].tolist()}), flush=True)
+        if first is None:
+            first = (toks, logits)
+        elif rid == 0:
+            if not (torch.equal(toks, first[0]) and same(logits, first[1])):
+                fail("serve: request 0 served again gave other tokens or "
+                     "other logits' bits")
+        del toks, logits
+    print(f"serve: gemma2-2b {cfg.num_layers} layers, {REQUESTS} requests "
+          f"of {SERVE_BATCH} x {SERVE_SEQ} tokens + {NEW_TOKENS} decode "
+          f"steps, then request 0 again bit for bit; flash_attention "
+          f"launches {total}", flush=True)
+    return total
+
+
 def all_finite(torch, rows) -> bool:
     """Every entry finite, checked CHUNK at a time: torch.isfinite makes
     an f32 |x| and two bool tensors of the input's length, 16 GB for a
@@ -725,10 +988,10 @@ def main() -> None:
     sys.path.insert(0, str(SRC))
     from repro_torch.configs import REGISTRY, ShapeCfg
     from repro_torch.core.cocoef import padded_size
-    from repro_torch.kernels import build, ref, sign_pack as sp, \
-        topk_pack as tp
+    from repro_torch.kernels import build, flash_attention as fa, ref, \
+        sign_pack as sp, topk_pack as tp
     from repro_torch.kernels.common import launches
-    from repro_torch.launch.device_parity import step_parity
+    from repro_torch.launch.device_parity import serve_parity, step_parity
     from repro_torch.nn.transformer import num_params
 
     dev = torch.device("cuda", 0)
@@ -747,14 +1010,18 @@ def main() -> None:
               "sign_decode_reduce": check_decode(torch, ref, sp, gen, dev)}
     check_topk(torch, ref, tp, gen, dev)
     check_pack(torch, ref, sp, tp, gen, dev)
+    checks["flash_attention"] = check_flash(torch, ref, fa, gen, dev)
     print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}; "
           f"block top-K kernels bit-equal (f32 and bf16 values); sign_pack "
-          f"and block_topk bit-equal (B in {TOPK_BLOCKS}, k in {{{K}, 32}})",
-          flush=True)
+          f"and block_topk bit-equal (B in {TOPK_BLOCKS}, k in {{{K}, 32}}); "
+          f"flash_attention over the adversarial sweep", flush=True)
     settle(torch, "the 2**28 checks")
     spec = REGISTRY["gemma2-2b"]
+    at_slice = {"flash_attention": flash_at_slice(torch, ref, fa, gen, dev,
+                                                  spec.config)}
+    settle(torch, "flash_attention at the serve slice's shapes")
     n = padded_size(num_params(spec.config), N_CODE, GROUP)
-    at_slice = {"ef_sign_fused": ef_at_slice(torch, ref, sp, gen, dev, n)}
+    at_slice["ef_sign_fused"] = ef_at_slice(torch, ref, sp, gen, dev, n)
     settle(torch, "ef_sign_fused at the slice's n")
     at_slice["sign_decode_reduce"] = decode_at_slice(torch, ref, sp, gen,
                                                      dev, n)
@@ -777,6 +1044,12 @@ def main() -> None:
                      f"{comp}, budgets {kb}): {err}")
             print(f"reference ({mode}, {comp}, budgets {kb}): "
                   f"{json.dumps(parity)}", flush=True)
+    try:
+        gaps = serve_parity("cuda")
+    except AssertionError as err:
+        fail(f"smoke-size serving on the card vs the CPU: {err}")
+    print(f"reference (serve, relative gaps): {json.dumps(gaps)}",
+          flush=True)
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     counts = {}
@@ -786,6 +1059,10 @@ def main() -> None:
                  "wires' setups must not share the card")
         counts.update(train_wire(torch, spec, shape, wire, n, dev,
                                  launches))
+    if settle(torch, "the train paths") > 1 << 30:
+        fail("over 1 GiB still allocated before the serve path")
+    counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
+                                                        launches)}
 
     meta = {
         "ef_sign_fused": ("sign_pack", "sign_pack.py:112", "sign"),
@@ -797,6 +1074,8 @@ def main() -> None:
         "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
+        "flash_attention": ("flash_attention", "flash_attention.py:67",
+                            "serve prefill"),
     }
     kernels = []
     for name, (src, replaces, path) in meta.items():
@@ -808,10 +1087,12 @@ def main() -> None:
             "launches": counts.get(path, {}).get(name, 0),
             "max_abs_err": max(checks.get(name, r)["max_abs_err"],
                                r["max_abs_err"]),
-            "max_ulp": max(checks.get(name, r)["max_ulp"], r["max_ulp"]),
+            "max_ulp": (max(checks.get(name, r)["max_ulp"], r["max_ulp"])
+                        if "max_ulp" in r else None),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
-            "gb_per_s": r["gb_per_s"], "library_ms": None})
+            "gb_per_s": r["gb_per_s"], "library_ms": r.get("library_ms"),
+            **r.get("more", {})})
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -20,6 +20,8 @@ class ShapeCfg:
 
 
 TRAIN_4K = ShapeCfg("train", 4096, 256)
+PREFILL_32K = ShapeCfg("prefill", 32768, 32)
+DECODE_32K = ShapeCfg("decode", 32768, 128)
 
 
 @dataclasses.dataclass(frozen=True)

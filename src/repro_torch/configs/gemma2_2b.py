@@ -1,7 +1,7 @@
 """gemma2-2b [dense]: local+global alternating attention, logit softcaps.
 [arXiv:2408.00118; hf]  Same numbers as `repro.configs.gemma2_2b`."""
 from repro_torch.nn.config import ModelConfig
-from .common import TRAIN_4K, ArchSpec, CodingPlan
+from .common import DECODE_32K, PREFILL_32K, TRAIN_4K, ArchSpec, CodingPlan
 
 CONFIG = ModelConfig(
     name="gemma2-2b", family="dense", num_layers=26, d_model=2304,
@@ -17,4 +17,5 @@ ARCH = ArchSpec(
     arch_id="gemma2-2b", config=CONFIG, smoke=SMOKE,
     coding=CodingPlan(coding_axes=("pod", "data"), redundancy=2,
                       straggler_p=0.1, group_size=512),
-    shapes={"train_4k": TRAIN_4K})
+    shapes={"train_4k": TRAIN_4K, "prefill_32k": PREFILL_32K,
+            "decode_32k": DECODE_32K})

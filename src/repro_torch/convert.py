@@ -4,6 +4,11 @@
 (nested dicts of arrays, e.g. `jax.tree.map(np.asarray, params)`) and
 returns the port's state dict: '/'-joined key paths -> torch tensors of the
 same shapes.  `params_to_jax` is the inverse.  Neither imports JAX.
+
+bfloat16 crosses through a 16-bit view: JAX hands bf16 over as numpy
+arrays of ml_dtypes' `bfloat16`, which `torch.from_numpy` refuses.  The
+port does not import ml_dtypes; `params_to_jax` finds numpy's `bfloat16`
+by name, which exists once ml_dtypes is loaded (JAX loads it).
 """
 from __future__ import annotations
 
@@ -23,8 +28,21 @@ def params_from_jax(tree: Dict[str, Any], prefix: str = ""
         if isinstance(v, dict):
             out.update(params_from_jax(v, name))
         else:
-            out[name] = torch.from_numpy(np.array(v, copy=True))
+            out[name] = _to_torch(np.array(v, copy=True))
     return out
+
+
+def _to_torch(a: np.ndarray) -> torch.Tensor:
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _to_numpy(t: torch.Tensor) -> np.ndarray:
+    t = t.detach().cpu()
+    if t.dtype == torch.bfloat16:
+        return t.view(torch.int16).numpy().view(np.dtype("bfloat16")).copy()
+    return t.numpy().copy()
 
 
 def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
@@ -34,5 +52,5 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
         node = tree
         for k in path:
             node = node.setdefault(k, {})
-        node[leaf] = t.detach().cpu().numpy().copy()
+        node[leaf] = _to_numpy(t)
     return tree

@@ -13,7 +13,7 @@ import torch
 launches: Dict[str, int] = {
     "ef_sign_fused": 0, "sign_pack": 0, "sign_decode_reduce": 0,
     "ef_topk_fused": 0, "topk_pack": 0, "topk_decode_reduce": 0,
-    "block_topk": 0}
+    "block_topk": 0, "flash_attention": 0}
 
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 

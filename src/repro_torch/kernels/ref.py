@@ -1,5 +1,6 @@
 """Plain PyTorch versions of the port's kernels (mirror of
-`repro/kernels/ref.py`, the sign and the block top-K wires).
+`repro/kernels/ref.py`: the sign and the block top-K wires, and flash
+attention).
 
 They define the semantics: the CUDA kernels in `csrc/` must match them
 bit for bit (the group sum follows the kernel's order), and the wrappers
@@ -14,6 +15,11 @@ keeps that set too, as JAX's Pallas `block_topk` does, not the set of
 JAX's `ref.block_topk_ref` (ROADMAP C8).  Signed zeros
 follow JAX's jnp reference, not its Pallas kernel (ROADMAP C7): a selected
 -0.0 keeps its sign in the values, in c and in e' = acc - c.
+
+`flash_attention_ref` is the one plain version that its kernel matches
+within a stated tolerance instead of bit for bit: the kernel walks each
+row of scores tile by tile with an online softmax, so its sums run in
+another order.
 """
 from __future__ import annotations
 
@@ -223,3 +229,34 @@ def block_topk_ref(x: torch.Tensor, k: int, block_size: int) -> torch.Tensor:
     out = torch.zeros_like(blocks)
     return out.scatter_(1, idx, torch.gather(blocks, 1, idx)
                         ).reshape(x.shape)
+
+
+NEG_INF = -1e30          # JAX's masked score (not -inf)
+BIG_WINDOW = 1 << 30     # "no window"
+
+
+def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                        softcap: float = 0.0, window: int = 0,
+                        groups: int = 1) -> torch.Tensor:
+    """Causal (+ sliding window, + tanh softcap) GQA attention, as JAX's
+    `ref.flash_attention_ref`: q (B, H, S, hd) pre-scaled, k, v
+    (B, H / groups, S, hd), query head h reading kv head h // groups.
+    Scores in f32 from the widened inputs, softcap * tanh(s / softcap),
+    masked to -1e30, softmax in f32, then p.v in f32, cast to q's dtype.
+    Runs one (batch, kv head) at a time, so only that group's (groups, S,
+    S) scores are ever live."""
+    B, H, S, hd = q.shape
+    w = window if window > 0 else BIG_WINDOW
+    pos = torch.arange(S, device=q.device)
+    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
+    out = torch.empty_like(q)
+    for b in range(B):
+        for hk in range(H // groups):
+            hs = slice(hk * groups, (hk + 1) * groups)
+            s = q[b, hs].to(_F32) @ k[b, hk].to(_F32).T      # (groups, S, S)
+            if softcap > 0:
+                s = softcap * torch.tanh(s / softcap)
+            s = torch.where(keep, s, NEG_INF)
+            p = torch.softmax(s, dim=-1)
+            out[b, hs] = (p @ v[b, hk].to(_F32)).to(q.dtype)
+    return out

@@ -1,4 +1,5 @@
-"""The train step on one device against the same step on the CPU.
+"""The train step, and the serving path, on one device against the same
+on the CPU.
 
 `step_parity(device, compressor, k_budgets, mode)` builds the f32
 smoke-size gemma2-2b slice (g = 32, N = 4; sign wire, or block top-K with
@@ -29,6 +30,26 @@ checks two things:
               block of exactly k nonzeros.  In coco mode every error
               vector must keep the bits it had before the step.
 
+`serve_parity(device)` builds the smoke-size gemma2-2b serving setup
+(B = 4 prompts of S = 32 tokens, longer than the local window of 8) on
+the CPU and on `device` from the same parameters, in f32 and in bf16
+compute, and checks the prefill (the flash kernel on the card, its plain
+version on the CPU) and `steps` greedy decode steps from its caches, at
+positions S, S + 1, ... (the ring evicts positions 0, 1, ...).  Both
+devices decode the CPU's greedy tokens.  Logits must agree within
+SERVE_TOL times the largest magnitude of the CPU's logits: in f32 1e-5
+(f32 sums in other orders, the kernel's online softmax and expf and tanhf
+by ulps); in bf16 4 bf16 ulps (2**-6), because each device rounds its
+bf16 products once after its own f32 sums and a flipped last bit moves
+everything downstream (the port against JAX on the CPU differs by one).
+The caches are bf16 in both: with f32 compute each entry is an f32 value
+rounded once, so they must agree elementwise within the flash kernel's
+`allowed_error` (one bf16 ulp of the larger magnitude + 2e-5); with
+bf16 compute within SERVE_TOL as the logits.  The cache positions must be
+equal, and the greedy tokens wherever the CPU's top-2 logit gap exceeds
+the tolerance.  Every check runs before the first miss is raised, so the
+message lists every gap.
+
 It raises AssertionError on a miss.  `chip_smoke.py` and the `gpu` tests
 run it with device="cuda"; on the CPU it also runs against itself.
 """
@@ -41,9 +62,11 @@ import numpy as np
 import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
+from repro_torch.kernels import flash_attention as fa
+from repro_torch.launch.serve import build_serve_setup
 from repro_torch.launch.train import TrainRun, TrainSetup, build_train_setup
 
-__all__ = ["step_parity"]
+__all__ = ["serve_parity", "step_parity"]
 
 MASK = (1.0, 0.0, 1.0, 1.0)
 
@@ -155,3 +178,79 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
         assert torch.equal(_bits(got[0]["e"][i]), _bits(e0[i])), \
             f"{mode}: rank {i}'s error vector changed"
     return out
+
+
+SERVE_SHAPE = ShapeCfg("prefill", 32, 4)
+SERVE_TOL = {"float32": 1e-5, "bfloat16": 2.0 ** -6}
+
+
+def rel_gap(want: torch.Tensor, got: torch.Tensor) -> float:
+    """The largest |got - want| relative to the largest |want|."""
+    a, b = want.float(), got.float().cpu()
+    return (a - b).abs().max().item() / max(a.abs().max().item(), 1e-30)
+
+
+def _gap(name: str, want: torch.Tensor, got: torch.Tensor, tol: float,
+         gaps: Dict[str, float], misses: List[str],
+         elementwise: bool = False) -> None:
+    """Record the gap of `got` from `want` (`rel_gap`, or with
+    `elementwise` in units of flash_attention's `allowed_error` of each
+    entry, one bf16 ulp for bf16) and note a miss of `tol`."""
+    if elementwise:
+        err = (want.float() - got.float().cpu()).abs()
+        gap = (err / fa.allowed_error(got.cpu(), want)).max().item()
+    else:
+        gap = rel_gap(want, got)
+    gaps[name] = max(gaps.get(name, 0.0), gap)
+    if not (torch.isfinite(got.float()).all() and gap <= tol):
+        misses.append(f"{name}: {gap:.3e} (tol {tol:.1e})")
+
+
+def serve_parity(device="cuda", seed: int = 0, steps: int = 4
+                 ) -> Dict[str, float]:
+    """Run the serving check (see the module docstring); returns the
+    measured gaps by dtype and tensor."""
+    spec = REGISTRY["gemma2-2b"]
+    B, S = SERVE_SHAPE.global_batch, SERVE_SHAPE.seq_len
+    rng = np.random.default_rng(seed)
+    prompts = torch.from_numpy(rng.integers(0, spec.smoke.vocab_size,
+                                            (B, S)))
+    gaps: Dict[str, float] = {}
+    misses: List[str] = []
+    for dtype, tol in SERVE_TOL.items():
+        sp = dataclasses.replace(
+            spec, smoke=dataclasses.replace(spec.smoke, dtype=dtype))
+        cpu, dev = (build_serve_setup(sp, SERVE_SHAPE, smoke=True, device=d)
+                    for d in ("cpu", device))
+        cpu.model.init_(seed)
+        dev.model.theta.copy_(cpu.model.theta)
+        on = dev.model.theta.device
+        (l0, c0), (l1, c1) = cpu.prefill_step(prompts), \
+            dev.prefill_step(prompts.to(on))
+        _gap(f"{dtype} prefill logits", l0, l1, tol, gaps, misses)
+        for t in range(steps + 1):
+            for k in ("k", "v"):
+                if dtype == "float32":
+                    _gap(f"{dtype} cache {k} (bf16 ulps)", c0["kv"][k],
+                         c1["kv"][k], 1.0, gaps, misses, elementwise=True)
+                else:
+                    _gap(f"{dtype} cache {k}", c0["kv"][k], c1["kv"][k],
+                         tol, gaps, misses)
+            if not torch.equal(c0["kv"]["pos"], c1["kv"]["pos"].cpu()):
+                misses.append(f"{dtype}: cache positions differ after {t} "
+                              f"decode steps")
+            top2 = l0.float().topk(2, dim=-1).values
+            sure = (top2[:, 0] - top2[:, 1]) > tol * l0.abs().max().item()
+            tok = l0.argmax(-1)
+            if not torch.equal(tok[sure], l1.argmax(-1).cpu()[sure]):
+                misses.append(f"{dtype}: greedy tokens differ after {t} "
+                              f"decode steps")
+            if t == steps:
+                break
+            (l0, c0), (l1, c1) = cpu.decode_step(c0, tok[:, None], S + t), \
+                dev.decode_step(c1, tok[:, None].to(on), S + t)
+            _gap(f"{dtype} decode logits", l0, l1, tol, gaps, misses)
+        del cpu, dev
+    assert not misses, f"serving on {device} vs the CPU: " + \
+        "; ".join(misses) + f" (all gaps: {gaps})"
+    return gaps

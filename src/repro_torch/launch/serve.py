@@ -1,0 +1,62 @@
+"""Serving (prefill / decode) steps on one device (port of
+`repro.launch.serve` for the one-card slice).
+
+`build_serve_setup(spec, shape)` builds the model and two steps:
+`prefill_step(inputs)` runs the prompt through the stack (attention in the
+hand-written flash kernel) and returns (last-position logits, caches
+whose length is the prompt's); `decode_step(caches, inputs, pos)` feeds one
+token per sequence at absolute position `pos` and writes the caches' ring
+slot pos % cache_len in place.  Both run under `torch.inference_mode()`.
+The caller loads or initialises the parameters (`setup.model.init_(seed)`
+or `load_params`).
+
+Still to port: the mesh, the parameter and cache shardings and
+`input_specs` (no one-card counterpart), and `instrument_steps` (with the
+telemetry of ROADMAP A8).
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Callable
+
+import torch
+
+from repro_torch.configs.common import ArchSpec, ShapeCfg
+from repro_torch.nn.models import Model
+
+__all__ = ["LONG_SEQ", "ServeSetup", "build_serve_setup"]
+
+LONG_SEQ = 1 << 19
+
+
+@dataclasses.dataclass
+class ServeSetup:
+    model: Model
+    cache_len: int
+    batch: int
+    seq_len: int
+    prefill_step: Callable
+    decode_step: Callable
+
+
+def build_serve_setup(spec: ArchSpec, shape: ShapeCfg, smoke: bool = False,
+                      device="cuda") -> ServeSetup:
+    cfg = spec.smoke if smoke else spec.config
+    model = Model(cfg, device=device, with_grad=False)
+    B, S = shape.global_batch, shape.seq_len
+
+    cache_len = S
+    if cfg.family in ("dense", "moe") and cfg.sliding_window \
+            and S >= LONG_SEQ:
+        cache_len = cfg.sliding_window      # window-capped rings (gemma2)
+
+    def prefill_step(inputs: torch.Tensor):
+        with torch.inference_mode():
+            return model.prefill(inputs)
+
+    def decode_step(caches, inputs: torch.Tensor, pos: int):
+        with torch.inference_mode():
+            return model.decode_step(caches, inputs, pos)
+
+    return ServeSetup(model=model, cache_len=cache_len, batch=B, seq_len=S,
+                      prefill_step=prefill_step, decode_step=decode_step)

@@ -4,8 +4,10 @@
 Layouts match JAX: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d),
 w_gate/w_up (d, ff), w_down (ff, d), products written x @ W.  Parameters
 are f32 and cast to the compute dtype at use; compute runs in cfg.dtype.
-Attention is plain einsum + softmax, as JAX's XLA path is (a flash kernel
-is a later port).
+Training attention is plain einsum + softmax, as JAX's XLA path is.  The
+prefill runs the hand-written flash kernel (`kernels.flash_attention`), as
+JAX's `attn_train` docstring says its Pallas kernel does on real hardware;
+the decode step attends plain against the whole KV cache, as JAX's does.
 
 Scalars that JAX multiplies as weakly typed Python floats are rounded to
 the compute dtype first (`_cs`), as JAX does; torch would otherwise keep
@@ -16,6 +18,7 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.kernels import ops
 from .config import ModelConfig
 
 BIG_WINDOW = 1 << 30  # "no window" sentinel
@@ -96,6 +99,63 @@ def attn_train(p, x, cfg: ModelConfig, window: int = 0) -> torch.Tensor:
     w_eff = window if window > 0 else BIG_WINDOW
     out = _attn_core(q, k, v, cfg, pos, pos, w_eff)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(x.dtype))
+
+
+def attn_prefill(p, x, cfg: ModelConfig, window: int = 0):
+    """Causal self-attention over the prompt through the flash kernel (JAX
+    `attn_train(..., return_kv=True)`).  Returns (y, (k, v)) with k, v in
+    cache layout (B, Hkv, S, hd).  Forward only: run it without autograd."""
+    B, S, _ = x.shape
+    pos = torch.arange(S, device=x.device)
+    q, k, v = _qkv(p, x, cfg, pos[None])
+    k = k.transpose(1, 2).contiguous()
+    v = v.transpose(1, 2).contiguous()
+    out = ops.flash_attention(q.transpose(1, 2).contiguous(), k, v,
+                              softcap=cfg.attn_softcap, window=window,
+                              groups=cfg.num_heads // cfg.num_kv_heads)
+    y = torch.einsum("bshk,hkd->bsd", out.transpose(1, 2),
+                     p["wo"].to(x.dtype))
+    return y, (k, v)
+
+
+def init_kv_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                  dtype: torch.dtype, device: torch.device):
+    """An empty ring cache: k, v (B, Hkv, T, hd) zeros, pos (T,) int32 at
+    -BIG_WINDOW (no slot holds a position yet)."""
+    shape = (batch, cfg.num_kv_heads, cache_len, cfg.head_dim)
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device),
+            "pos": torch.full((cache_len,), -BIG_WINDOW, dtype=torch.int32,
+                              device=device)}
+
+
+def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, window: int = 0
+                ) -> torch.Tensor:
+    """One-step decode (JAX `attn_decode`): x (B, 1, d) at absolute
+    position `pos` (a host int).  Writes k, v and pos into ring slot
+    pos % T of `cache` IN PLACE (JAX returns new caches; a copy of the
+    full-size caches per token would move 3.9 GB), then attends plain
+    against the whole cache, keeping slots with pos - window < cpos <=
+    pos."""
+    B = x.shape[0]
+    ct = x.dtype
+    ck, cv, cpos = cache["k"], cache["v"], cache["pos"]
+    q, k, v = _qkv(p, x, cfg, torch.full((1, 1), pos, device=x.device))
+    slot = pos % ck.shape[2]
+    ck[:, :, slot] = k[:, 0]
+    cv[:, :, slot] = v[:, 0]
+    cpos[slot] = pos
+    w_eff = window if window > 0 else BIG_WINDOW
+    keep = (cpos <= pos) & (cpos > pos - w_eff)                   # (T,)
+    groups = cfg.num_heads // cfg.num_kv_heads
+    qh = q.reshape(B, 1, cfg.num_kv_heads, groups, cfg.head_dim)
+    scores = torch.einsum("bsngk,bntk->bsngt", qh, ck.to(ct))
+    scores = _softcap(scores, cfg.attn_softcap)
+    scores = torch.where(keep, scores, NEG_INF)
+    wts = torch.softmax(scores.float(), dim=-1).to(ct)
+    out = torch.einsum("bsngt,bntk->bsngk", wts, cv.to(ct))
+    out = out.reshape(B, 1, cfg.num_heads, cfg.head_dim)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
 
 
 def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:

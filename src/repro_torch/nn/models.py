@@ -1,7 +1,8 @@
-"""Public model facade (port of `repro.nn.models.Model`, dense family)."""
+"""Public model facade (port of `repro.nn.models.Model`, dense family):
+training loss, and serving (caches, prefill, decode)."""
 from __future__ import annotations
 
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 
@@ -16,17 +17,20 @@ __all__ = ["Model"]
 class Model:
     """A model whose parameters and gradients live in two padded flat f32
     buffers on `device` (`theta`, `grad`), laid out as JAX flattens its
-    param tree and padded to a multiple of chunk_ranks * group_size."""
+    param tree and padded to a multiple of chunk_ranks * group_size.
+    `with_grad=False` (serving) allocates no gradient buffer: `grad` is
+    then None."""
 
     def __init__(self, cfg: ModelConfig, chunk_ranks: int = 1,
-                 group_size: int = 512, device="cuda"):
+                 group_size: int = 512, device="cuda",
+                 with_grad: bool = True):
         dev = resolve_device(device)
         self.cfg = cfg
         self.layout: FlatLayout = flat_layout(T.param_shapes(cfg),
                                               chunk_ranks, group_size)
         theta = torch.zeros(self.layout.padded, dtype=torch.float32,
                             device=dev)
-        grad = torch.zeros_like(theta)
+        grad = torch.zeros_like(theta) if with_grad else None
         self.net = T.Transformer(cfg, self.layout, theta, grad)
 
     @property
@@ -34,7 +38,7 @@ class Model:
         return self.net.theta
 
     @property
-    def grad(self) -> torch.Tensor:
+    def grad(self) -> Optional[torch.Tensor]:
         return self.net.grad
 
     def params(self) -> Dict[str, torch.Tensor]:
@@ -42,6 +46,8 @@ class Model:
         return self.net.stacked
 
     def grads(self) -> Dict[str, torch.Tensor]:
+        if self.net.grad is None:
+            raise ValueError("this Model was built with_grad=False")
         return self.layout.views(self.net.grad)
 
     @torch.no_grad()
@@ -63,3 +69,14 @@ class Model:
     def loss(self, tokens: torch.Tensor, weights: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:
         return self.net.weighted_loss(tokens, weights)
+
+    # ---- serving ---------------------------------------------------------
+    def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16):
+        return T.init_caches(self.cfg, batch, cache_len, dtype,
+                             self.theta.device)
+
+    def prefill(self, inputs: torch.Tensor, cache_dtype=torch.bfloat16):
+        return self.net.prefill(inputs, cache_dtype)
+
+    def decode_step(self, caches, inputs: torch.Tensor, pos: int):
+        return self.net.decode_step(caches, inputs, pos)

@@ -1,6 +1,6 @@
 """The dense decoder stack (port of the dense family of
-`repro.nn.transformer`): parameter shapes, init, forward and the coded
-weighted loss.
+`repro.nn.transformer`): parameter shapes, init, forward, the coded
+weighted loss, and serving (prefill, KV caches, decode).
 
 Block parameters are stacked (L, ...) exactly as JAX lays them out
 (`blocks/attn/wq` is (L, d, H, hd), ...), and every leaf is a view into one
@@ -13,12 +13,13 @@ concatenation and no full-size per-layer temporaries.
 from __future__ import annotations
 
 import math
-from typing import Dict, Tuple
+from typing import Dict, Optional, Tuple
 
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from repro_torch import resolve_device
 from . import layers as L
 from .config import ModelConfig
 
@@ -67,6 +68,28 @@ def layer_windows(cfg: ModelConfig):
     return [cfg.sliding_window or L.BIG_WINDOW] * n
 
 
+def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
+                dtype=torch.bfloat16, device="cuda"):
+    """Empty ring caches of the dense family (JAX `init_caches`), stacked
+    over layers: {"kv": {"k", "v": (L, B, Hkv, T, hd), "pos": (L, T)
+    int32}}.  With gemma2's alternation JAX sizes the local layers' rings
+    at min(cache_len, window) and then allocates every layer at the
+    longest of those lengths."""
+    if cfg.local_global_period and cfg.sliding_window:
+        lens = [min(cache_len, cfg.sliding_window)
+                if i % cfg.local_global_period == 0 else cache_len
+                for i in range(cfg.num_layers)]
+        cache_len = max(lens)
+    one = L.init_kv_cache(cfg, batch, cache_len, dtype,
+                          resolve_device(device))
+    return {"kv": {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
+                   for k, v in one.items()}}
+
+
+def _layer_cache(caches, l: int):
+    return {k: v[l] for k, v in caches["kv"].items()}
+
+
 def _fan_in(name: str, shape) -> int:
     """Input size of a dense weight (JAX's dense_init scale)."""
     if name.endswith("attn/wo"):
@@ -77,30 +100,33 @@ def _fan_in(name: str, shape) -> int:
 class Transformer(nn.Module):
     """Dense decoder stack over flat parameter/gradient buffers.
 
-    theta, grad: (layout.padded,) f32 buffers; `stacked` maps every leaf
-    name to its view of theta in the JAX shape."""
+    theta, grad: (layout.padded,) f32 buffers (grad None: no gradient
+    views are attached); `stacked` maps every leaf name to its view of
+    theta in the JAX shape."""
 
     def __init__(self, cfg: ModelConfig, layout, theta: torch.Tensor,
-                 grad: torch.Tensor):
+                 grad: Optional[torch.Tensor]):
         super().__init__()
         self.cfg = cfg
         self.layout = layout
         self.theta, self.grad = theta, grad
         self.stacked = layout.views(theta)
-        gviews = layout.views(grad)
+        gviews = layout.views(grad) if grad is not None else None
         self.layers = nn.ModuleList()
         for l in range(cfg.num_layers):
             blk = nn.ParameterDict()
             for leaf in BLOCK_LEAVES:
                 name = "blocks/" + leaf
                 p = nn.Parameter(self.stacked[name][l])
-                p.grad = gviews[name][l]
+                if gviews is not None:
+                    p.grad = gviews[name][l]
                 blk[leaf.replace("/", "_")] = p
             self.layers.append(blk)
         self.tok = nn.Parameter(self.stacked["embed/tok"])
-        self.tok.grad = gviews["embed/tok"]
         self.final_norm = nn.Parameter(self.stacked["final_norm/scale"])
-        self.final_norm.grad = gviews["final_norm/scale"]
+        if gviews is not None:
+            self.tok.grad = gviews["embed/tok"]
+            self.final_norm.grad = gviews["final_norm/scale"]
         self.windows = layer_windows(cfg)
 
     @torch.no_grad()
@@ -115,10 +141,14 @@ class Transformer(nn.Module):
             if name != "embed/tok":
                 v.mul_(1.0 / math.sqrt(max(1, _fan_in(name, v.shape))))
 
-    def _block(self, x: torch.Tensor, l: int) -> torch.Tensor:
+    def _params(self, l: int):
         b = self.layers[l]
         attn = {k: b["attn_" + k] for k in ("wq", "wk", "wv", "wo")}
         mlp = {k: b["mlp_" + k] for k in ("w_gate", "w_up", "w_down")}
+        return b, attn, mlp
+
+    def _block(self, x: torch.Tensor, l: int) -> torch.Tensor:
+        b, attn, mlp = self._params(l)
         h = L.attn_train(attn, L.apply_norm(b["norm1_scale"], x), self.cfg,
                          window=self.windows[l])
         x = x + h
@@ -146,3 +176,46 @@ class Transformer(nn.Module):
         nll = -torch.gather(logp, -1, tokens[:, 1:, None])[..., 0]
         per_example = nll.mean(dim=-1)
         return (per_example * weights).sum(), per_example
+
+    @torch.no_grad()
+    def prefill(self, inputs: torch.Tensor, cache_dtype=torch.bfloat16):
+        """Forward over the prompt (JAX `prefill`, dense family): inputs
+        (B, S) tokens -> (logits of the last position (B, vocab), caches).
+        Attention runs through the flash kernel; each layer's k and v go
+        straight into the stacked caches, whose length is the prompt's, and
+        pos (L, S) holds 0..S-1."""
+        cfg = self.cfg
+        B, S = inputs.shape
+        x = L.embed(self.tok, inputs, cfg)
+        shape = (cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)
+        kv = {"k": torch.empty(shape, dtype=cache_dtype, device=x.device),
+              "v": torch.empty(shape, dtype=cache_dtype, device=x.device),
+              "pos": torch.arange(S, dtype=torch.int32, device=x.device
+                                  ).repeat(cfg.num_layers, 1)}
+        for l in range(cfg.num_layers):
+            b, attn, mlp = self._params(l)
+            h, (k, v) = L.attn_prefill(attn, L.apply_norm(b["norm1_scale"], x),
+                                       cfg, window=self.windows[l])
+            kv["k"][l].copy_(k)
+            kv["v"][l].copy_(v)
+            x = x + h
+            x = x + L.apply_mlp(mlp, L.apply_norm(b["norm2_scale"], x), cfg)
+        x = L.apply_norm(self.final_norm, x[:, -1:])
+        return L.logits_from(self.tok, x, cfg)[:, -1], {"kv": kv}
+
+    @torch.no_grad()
+    def decode_step(self, caches, inputs: torch.Tensor, pos: int):
+        """One-token decode (JAX `decode_step`, dense family): inputs (B, 1)
+        tokens at absolute position `pos` (a host int).  Every layer writes
+        its ring slot of `caches` in place (`layers.attn_decode`).  Returns
+        (logits (B, vocab), caches)."""
+        cfg = self.cfg
+        x = L.embed(self.tok, inputs, cfg)
+        for l in range(cfg.num_layers):
+            b, attn, mlp = self._params(l)
+            x = x + L.attn_decode(attn, L.apply_norm(b["norm1_scale"], x),
+                                  cfg, _layer_cache(caches, l), pos,
+                                  window=self.windows[l])
+            x = x + L.apply_mlp(mlp, L.apply_norm(b["norm2_scale"], x), cfg)
+        x = L.apply_norm(self.final_norm, x)
+        return L.logits_from(self.tok, x, cfg)[:, -1], caches

@@ -44,6 +44,23 @@ def ef_inputs(n: int, group_size: int, seed: int, denormals: bool = True):
 GAMMA = np.float32(0.37)
 
 
+def flash_inputs(B: int, Hkv: int, groups: int, S: int, hd: int, dtype,
+                 seed: int, q_scale: float = 1.0):
+    """numpy (q, k, v) of attention in JAX's layout, q pre-scaled by
+    hd**-0.5 * q_scale.  The keys of the last quarter of the positions are
+    8 times larger, so the largest raw score of most earlier rows sits at a
+    masked (future) position; q_scale = 100 drives the scores far past a
+    softcap of 50.  dtype is "float32" or "bfloat16" (rounded by torch)."""
+    rng = np.random.default_rng(seed)
+    q = rng.standard_normal((B, Hkv * groups, S, hd)) * (hd ** -0.5 * q_scale)
+    k = rng.standard_normal((B, Hkv, S, hd))
+    v = rng.standard_normal((B, Hkv, S, hd))
+    k[:, :, S - S // 4:] *= 8.0
+    dt = getattr(torch, dtype)
+    return tuple(torch.from_numpy(x.astype(np.float32)).to(dt)
+                 for x in (q, k, v))
+
+
 def ulp_diff(a, b) -> np.ndarray:
     """Distance in units in the last place between f32 arrays of one sign
     (both >= 0: group scales)."""

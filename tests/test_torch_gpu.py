@@ -9,9 +9,10 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import (GAMMA, check_ef_outputs, ef_inputs, topk_inputs,
-                          topk_payload, topk_rows)
-from repro_torch.kernels import ref, sign_pack as sp, topk_pack as tp
+from _torch_cases import (GAMMA, check_ef_outputs, ef_inputs, flash_inputs,
+                          topk_inputs, topk_payload, topk_rows)
+from repro_torch.kernels import flash_attention as fa, ref, \
+    sign_pack as sp, topk_pack as tp
 
 pytestmark = pytest.mark.gpu
 
@@ -261,3 +262,55 @@ def test_coco_train_step_cuda_matches_cpu(cuda, compressor, k_budgets):
     from repro_torch.launch.device_parity import step_parity
     step_parity("cuda", compressor=compressor, k_budgets=k_budgets,
                 mode="coco")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 1000, 4096])
+@pytest.mark.parametrize("window", [0, 1, 64, 5000])
+@pytest.mark.parametrize("softcap,q_scale", [(0.0, 1.0), (50.0, 1.0),
+                                             (50.0, 100.0)])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("hd", [16, 64, 288])
+def test_flash_attention_kernel_matches_plain(cuda, hd, groups, softcap,
+                                              q_scale, window, S, dtype):
+    """Within `flash_attention.allowed_error` of the plain version: f32 as
+    JAX's kernel test (2e-4 relative, 2e-5 absolute), bf16 one bf16 ulp.
+    The largest raw score of most rows sits at a masked position;
+    q_scale = 100 puts the scores far past the softcap."""
+    q, k, v = (t.to(cuda) for t in flash_inputs(2, 2, groups, S, hd, dtype,
+                                                seed=hd + S, q_scale=q_scale))
+    before = fa.launches["flash_attention"]
+    got = fa.flash_attention(q, k, v, softcap=softcap, window=window,
+                             groups=groups)
+    torch.cuda.synchronize()
+    assert fa.launches["flash_attention"] == before + 1
+    want = ref.flash_attention_ref(q, k, v, softcap, window, groups)
+    assert got.dtype == want.dtype and got.shape == want.shape
+    assert bool(torch.isfinite(got.float()).all())
+    err = (got.float() - want.float()).abs()
+    assert bool((err <= fa.allowed_error(got, want)).all()), err.max().item()
+    again = fa.flash_attention(q, k, v, softcap=softcap, window=window,
+                               groups=groups)
+    assert _same(again, got)                      # no atomics: deterministic
+
+
+def test_flash_attention_raises_instead_of_falling_back(cuda):
+    q = torch.zeros((1, 2, 8, 16), device=cuda)
+    with pytest.raises(TypeError):
+        fa.flash_attention(q, q.bfloat16(), q.bfloat16())
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q.cpu(), q)
+    with pytest.raises(ValueError):                  # hd over the tiles
+        z = torch.zeros((1, 2, 8, 320), device=cuda)
+        fa.flash_attention(z, z, z)
+    with pytest.raises(ValueError):
+        fa.flash_attention(q, q[:, :1], q[:, :1], groups=3)
+    with pytest.raises(RuntimeError):
+        fa.flash_attention(q.requires_grad_(), q, q)
+
+
+def test_serve_cuda_matches_cpu(cuda):
+    """Prefill and 4 decode steps of the smoke config on the card against
+    the CPU (`launch/device_parity.serve_parity`), f32 and bf16."""
+    from repro_torch.launch.device_parity import serve_parity
+    serve_parity("cuda")
