@@ -19,13 +19,15 @@ Phases (any failure exits non-zero and prints no result line):
                 bf16 ulp) over an adversarial sweep (hd 16/64/288, groups
                 1/2/4, softcap 0/50 with scores far past it, window
                 0/1/64/S, S 1/1000/4096, the largest raw score of most
-                rows at a masked position, f32 and bf16), then at the
-                serve slice's global and local layer shapes (B 32, H 8,
-                Hkv 4, S 8192, hd 288, bf16, softcap 50, window 0 and
-                4096) against the plain version run per (batch, kv head),
-                and timed there, beside one library call of the same
-                function (flex_attention, compiled; never called by the
-                port)
+                rows at a masked position, f32 on the CUDA-core kernel and
+                bf16 on the tensor-core kernel, each case on its route),
+                then at the serve slice's global and local layer shapes
+                (B 32, H 8, Hkv 4, S 8192, hd 288, bf16, softcap 50,
+                window 0 and 4096) against the plain version run per
+                (batch, kv head), and timed there, beside one library
+                call of the same function (flex_attention, compiled; never
+                called by the port); ptxas's registers and spills of the
+                tensor-core kernel are printed, and a spill fails
   4. reference  the f32 smoke-size train step on the card against the CPU
                 (repro_torch/launch/device_parity.py) on the sign wire, the
                 block top-K wire and the block top-K wire with per-rank
@@ -49,7 +51,8 @@ Phases (any failure exits non-zero and prints no result line):
   6. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
-                layer) then 32 greedy decode steps (no kernel launch);
+                layer, all on the tensor-core route) then 32 greedy
+                decode steps (no kernel launch);
                 then request 0 again, which must give the same tokens and
                 logits bit for bit.  Prints per request the prefill
                 seconds, decode ms per token (and the host's time to
@@ -63,6 +66,7 @@ import dataclasses
 import gc
 import json
 import math
+import re
 import subprocess
 import sys
 import time
@@ -95,6 +99,25 @@ SERVE_SEED = 0
 FLEX_OPTIONS = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1,
                 "num_warps": 8}
 LIBRARY_MAX_ABS_ERR = 0.0625  # flex_attention rounds p to bf16 for p.v
+
+
+def ptxas_summary(report: str) -> list:
+    """Per kernel entry of ptxas -v's report: registers at entry and spill
+    bytes (the kernels' shared memory is all dynamic, sized at launch)."""
+    rows = []
+    for line in report.splitlines():
+        if "Compiling entry function" in line:
+            rows.append({"entry": line.split("'")[1], "registers": None,
+                         "spill_bytes": 0})
+        elif rows and "spill stores" in line:
+            nums = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            rows[-1]["spill_bytes"] = sum(map(int, nums))
+        elif rows and "Used" in line and "registers" in line:
+            m = re.search(r"Used (\d+) registers", line)
+            rows[-1]["registers"] = int(m.group(1))
+    if not rows:
+        fail("no ptxas report for the tensor-core flash_attention kernel")
+    return rows
 
 
 def fail(msg: str) -> None:
@@ -670,9 +693,12 @@ def compare_flash(torch, fa, got, want, what: str) -> dict:
 
 
 def check_flash(torch, ref, fa, gen, dev) -> dict:
-    """The adversarial sweep (B 2, Hkv 2) against the plain version."""
+    """The adversarial sweep (B 2, Hkv 2) against the plain version, each
+    case on its dtype's route (bf16: tensor cores, f32: CUDA cores)."""
+    from repro_torch.kernels.common import flash_routes
     worst = {"max_abs_err": 0.0}
     cases = 0
+    routes0 = dict(flash_routes)
     for dtype in (torch.float32, torch.bfloat16):
         for S in (1, 1000, 4096):
             for hd in (16, 64, 288):
@@ -695,7 +721,12 @@ def check_flash(torch, ref, fa, gen, dev) -> dict:
                                 f"groups={groups}, softcap={softcap}, "
                                 f"q_scale={q_scale}, window={window})"))
                             cases += 1
+    routes = {k: flash_routes[k] - routes0[k] for k in flash_routes}
+    if routes != {"tensor_core": cases // 2, "cuda_core": cases // 2}:
+        fail(f"flash_attention sweep: routes {routes}, want half of the "
+             f"{cases} cases on each")
     worst["cases"] = cases
+    worst["routes"] = routes
     return worst
 
 
@@ -742,9 +773,11 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
     tensor-core rate, against q, k, v and o each moved once."""
     B, S, hd = SERVE_BATCH, SERVE_SEQ, cfg.head_dim
     H, Hkv, cap = cfg.num_heads, cfg.num_kv_heads, cfg.attn_softcap
+    from repro_torch.kernels.common import flash_routes
     q, k, v = attention_inputs(torch, gen, dev, B, Hkv, H // Hkv, S, hd,
                                torch.bfloat16)
     res, worst = {}, {"max_abs_err": 0.0}
+    tensor_core = flash_routes["tensor_core"]
     for window in (0, cfg.sliding_window):
         def kernel(window=window):
             return fa.flash_attention(q, k, v, softcap=cap, window=window,
@@ -777,11 +810,17 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
                        "bound_ms": max(t_ops, t_bytes),
                        "bound_by": "operations" if t_ops >= t_bytes
                        else "bytes", "gb_per_s": moved / ms / 1e6,
-                       "flops": flops, "tflop_per_s": flops / ms / 1e9}
+                       "flops": flops, "tflop_per_s": flops / ms / 1e9,
+                       "bound_share": max(t_ops, t_bytes) / ms}
+    # every launch above: 1 checked + 1 warm-up + 5 timed per window
+    if flash_routes["tensor_core"] - tensor_core != 14:
+        fail("flash_attention at the serve slice did not run on the "
+             "tensor-core route")
     # the row: the global layer; the local layer's numbers beside it
     glob = dict(res[0])
     more = {k: glob.pop(k)
-            for k in ("flops", "tflop_per_s", "library_max_abs_err")}
+            for k in ("flops", "tflop_per_s", "library_max_abs_err",
+                      "bound_share")}
     return {**worst, **glob, "more": {
         **more,
         **{f"{k}_local": v for k, v in res[cfg.sliding_window].items()}}}
@@ -880,14 +919,17 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
 def serve_request(torch, setup, prompts, launches, n_layers: int):
     """Prefill `prompts`, then NEW_TOKENS greedy decode steps, with the
     launch counts reset just before and checked after each part: one
-    flash_attention launch per layer in the prefill, none in the decode.
+    flash_attention launch per layer in the prefill, each on the
+    tensor-core route, none in the decode.
     Returns (tokens (B, NEW_TOKENS + 1), logits (NEW_TOKENS + 1, B, V),
     prefill seconds, decode seconds, seconds the host took to enqueue the
     decode steps)."""
+    from repro_torch.kernels.common import flash_routes
     B, S = prompts.shape
     torch.cuda.synchronize()
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, flash_routes):
+        for k in counts:
+            counts[k] = 0
     t0 = time.perf_counter()
     logits, caches = setup.prefill_step(prompts)
     torch.cuda.synchronize()
@@ -895,6 +937,9 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
     want = {"flash_attention": n_layers}
     if any(launches[k] != want.get(k, 0) for k in launches):
         fail(f"serve prefill: launch counts {dict(launches)}, want {want}")
+    if flash_routes != {"tensor_core": n_layers, "cuda_core": 0}:
+        fail(f"serve prefill: flash_attention routes {flash_routes}, want "
+             f"all {n_layers} on the tensor cores")
     toks, outs = [logits.argmax(-1)], [logits]
     t0 = time.perf_counter()
     for i in range(NEW_TOKENS):
@@ -1004,6 +1049,13 @@ def main() -> None:
     build.build_all()
     print(f"build: {time.perf_counter() - t0:.2f} s (nvcc, sm_90a, "
           f"{', '.join(build.SOURCES)})", flush=True)
+    report = build.ptxas_report("flash_attention_sm90")
+    ptxas = ptxas_summary(report)
+    print(f"ptxas (flash_attention_sm90): {json.dumps(ptxas)}; warnings: "
+          f"{[ln for ln in report.splitlines() if 'warning' in ln]}",
+          flush=True)
+    if any(r["spill_bytes"] for r in ptxas):
+        fail("the tensor-core flash_attention kernel spills registers")
 
     gen = torch.Generator(device=dev).manual_seed(0)
     checks = {"ef_sign_fused": check_ef(torch, ref, sp, gen, dev),
@@ -1074,7 +1126,8 @@ def main() -> None:
         "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
-        "flash_attention": ("flash_attention", "flash_attention.py:67",
+        # the serve path's bf16 kernel (f32 runs flash_attention.cu)
+        "flash_attention": ("flash_attention_sm90", "flash_attention.py:67",
                             "serve prefill"),
     }
     kernels = []

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` has a plain C interface and becomes
 `build/kernels/lib<name>-<hash>.so` at the repository root, compiled for
-Hopper only (`sm_90a`).  The hash covers the source and the flags, so an
-edited source is rebuilt and a stale library is never loaded.  Nothing is
+Hopper only (`sm_90a`), with ptxas's report of registers, shared memory
+and spills beside it (`.log`, `ptxas_report`).  The hash covers the
+source, every header of `csrc/` and the flags, so an edited source or
+header is rebuilt and a stale library is never loaded.  Nothing is
 compiled at import time: the first use of a kernel builds it, or
 `build_all()` builds every source at once, one nvcc each, in parallel.
 """
@@ -21,9 +23,10 @@ from pathlib import Path
 
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
-SOURCES = ("sign_pack", "topk_pack", "flash_attention")
+SOURCES = ("sign_pack", "topk_pack", "flash_attention",
+           "flash_attention_sm90")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC")
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 
 def _nvcc() -> str:
@@ -34,14 +37,22 @@ def _nvcc() -> str:
     return found
 
 
+def _target(name: str) -> Path:
+    """Where the library of `csrc/<name>.cu` lives, named by the hash of
+    the source, the headers of `csrc/` and the flags."""
+    h = hashlib.sha256()
+    for path in [CSRC / f"{name}.cu", *sorted(CSRC.glob("*.cuh"))]:
+        h.update(path.name.encode() + b"\0" + path.read_bytes())
+    h.update(" ".join(NVCC_FLAGS).encode())
+    return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
+
+
 def _compile(name: str) -> Path:
     """Path of the built library of `csrc/<name>.cu`, compiled first if
     missing (into a temporary file renamed atomically, so a reader never
-    sees half a library)."""
+    sees half a library; ptxas's report is written before the rename)."""
     src = CSRC / f"{name}.cu"
-    h = hashlib.sha256(src.read_bytes()
-                       + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-    target = BUILD_DIR / f"lib{name}-{h}.so"
+    target = _target(name)
     if not target.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}"
@@ -52,8 +63,16 @@ def _compile(name: str) -> Path:
             tmp.unlink(missing_ok=True)
             raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}"
                                f"{r.stderr}")
+        target.with_suffix(".log").write_text(r.stdout + r.stderr)
         os.replace(tmp, target)
     return target
+
+
+def ptxas_report(name: str) -> str:
+    """nvcc's output for `csrc/<name>.cu` (ptxas -v: each kernel's
+    registers, shared memory and spill stores and loads), building it
+    first if needed."""
+    return _compile(name).with_suffix(".log").read_text()
 
 
 def build_all() -> None:

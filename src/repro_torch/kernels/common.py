@@ -2,7 +2,10 @@
 checks, device scalars and the launch-error check.
 
 Each kernel launch adds one to `launches[<name>]`, and nothing else does,
-so a run can show that its main path went through the kernels."""
+so a run can show that its main path went through the kernels.
+`flash_routes` splits the flash_attention launches by the kernel that ran:
+"tensor_core" (bf16, `csrc/flash_attention_sm90.cu`) or "cuda_core" (f32,
+`csrc/flash_attention.cu`)."""
 from __future__ import annotations
 
 import ctypes
@@ -14,13 +17,15 @@ launches: Dict[str, int] = {
     "ef_sign_fused": 0, "sign_pack": 0, "sign_decode_reduce": 0,
     "ef_topk_fused": 0, "topk_pack": 0, "topk_decode_reduce": 0,
     "block_topk": 0, "flash_attention": 0}
+flash_routes: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
 
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
 
 def reset_launches() -> None:
-    for k in launches:
-        launches[k] = 0
+    for counts in (launches, flash_routes):
+        for k in counts:
+            counts[k] = 0
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

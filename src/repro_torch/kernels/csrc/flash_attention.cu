@@ -1,20 +1,22 @@
-// Causal GQA attention forward for Hopper (sm_90a), bound to Python with
-// ctypes (see ../build.py and ../flash_attention.py).  Plain C interface:
-// the launcher takes device pointers and a cudaStream_t, launches on that
-// stream, does not synchronise, allocates nothing, and returns
-// cudaGetLastError() so the wrapper can raise on a refused launch.
+// Causal GQA attention forward for f32 inputs on the CUDA cores (sm_90a);
+// bf16 inputs go to the tensor-core kernel of flash_attention_sm90.cu.
+// Bound to Python with ctypes (see ../build.py and ../flash_attention.py).
+// Plain C interface: the launcher takes device pointers and a
+// cudaStream_t, launches on that stream, does not synchronise, allocates
+// nothing, and returns cudaGetLastError() so the wrapper can raise on a
+// refused launch.
 //
 // flash_attention — replaces repro/kernels/flash_attention.py::_flash_kernel
-//   (:34-55, pallas_call at :67).  For q (B, H, S, hd), pre-scaled, and
-//   k, v (B, H/groups, S, hd), f32 or bf16, with kv head h / groups:
+//   (:34-55, pallas_call at :67) for f32 inputs.  For q (B, H, S, hd),
+//   pre-scaled, and k, v (B, H/groups, S, hd), with kv head h / groups:
 //     s[i][j] = sum_d q[i][d] * k[j][d]              (f32, from the widened
 //                                                      inputs)
 //     s = softcap > 0 ? softcap * tanh(s / softcap) : s
 //     s = (j <= i && j > i - window) ? s : -1e30
 //     o[i] = sum_j exp(s[i][j] - m_i) v[j] / max(sum_j exp(s[i][j] - m_i),
 //                                                 1e-30),  m_i = max_j s[i][j]
-//   rounded once to q's dtype.  The JAX kernel holds a whole row of scores
-//   at once; here the row is walked tile by tile with an online softmax
+//   in f32.  The JAX kernel holds a whole row of scores at once; here the
+//   row is walked tile by tile with an online softmax
 //   (running max m, running sum l, accumulator rescaled by exp(m - m_new)).
 //   Masked scores stay -1e30, as in JAX, never -inf: a tile in which a row
 //   is wholly masked gives m = -1e30 and p = 1 on garbage, which the first
@@ -23,11 +25,11 @@
 //   division follow the JAX kernel's f32 arithmetic; the sums run in
 //   another order than XLA's, so the result agrees with the plain version
 //   within a stated tolerance, not bit for bit.
-//   Bound on the H100: operations.  A global layer of the serve slice
-//   (B 4, H 8, S 8192, hd 288) does 4 * hd flops on each of 1.07e9
-//   unmasked (q, k) pairs, 1.24e12 flops, against 453 MB of q, k, v and o.
-//   Design (simple and right first; tensor cores, TMA and warp
-//   specialisation are a later redesign's): one block of 256 threads per
+//   Bound on the H100: operations, 4 * hd flops per unmasked (q, k) pair
+//   on the f32 pipe (67 TFLOP/s); bf16 tensor cores would round the
+//   inputs, so f32 stays on the CUDA cores.  It runs only where a caller
+//   asks for f32 (the serve path's dtype is bf16).
+//   Design: one block of 256 threads per
 //   (b, q head, tile of 64 query rows), heavy tiles (late rows, which see
 //   the most keys) scheduled first.  The q tile sits in shared memory as
 //   f32 for the whole block; k and v tiles of 32 rows are staged through
@@ -41,7 +43,6 @@
 //   free of bank conflicts.  Offsets are 64-bit.  No atomics: a run is
 //   deterministic.
 
-#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -55,13 +56,7 @@ constexpr float kNeg = -1e30f;   // JAX's NEG_INF
 constexpr unsigned kFull = 0xffffffffu;
 
 __device__ __forceinline__ float widen(float x) { return x; }
-__device__ __forceinline__ float widen(__nv_bfloat16 x) {
-  return __bfloat162float(x);
-}
 __device__ __forceinline__ void narrow(float x, float* out) { *out = x; }
-__device__ __forceinline__ void narrow(float x, __nv_bfloat16* out) {
-  *out = __float2bfloat16_rn(x);
-}
 
 // Rows [0, rows) of a contiguous (rows, hd) source into shared memory of
 // row stride ld, widened to f32; rows [rows, cap) get zeros.  Columns
@@ -276,32 +271,25 @@ int launch(const void* q, const void* k, const void* v, void* o, int B,
 
 }  // namespace
 
-// bf16: 0 = f32 inputs and output, 1 = bf16.  window > 0 (the wrapper maps
-// "no window" to 1 << 30, as JAX does); 1 <= hd <= 288; H % groups == 0.
+// f32 q, k, v, o.  window > 0 (the wrapper maps "no window" to 1 << 30, as
+// JAX does); 1 <= hd <= 288; H % groups == 0.
 extern "C" int flash_attention_launch(const void* q, const void* k,
                                       const void* v, void* o, int B, int H,
                                       int S, int hd, int groups,
-                                      float softcap, int window, int bf16,
+                                      float softcap, int window,
                                       void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (B < 1 || H < 1 || S < 1 || hd < 1 || hd > 288 || groups < 1 ||
       H % groups != 0 || window < 1)
     return (int)cudaErrorInvalidValue;
-#define FA_CALL(T, NJ) \
-  launch<T, NJ>(q, k, v, o, B, H, S, hd, groups, softcap, window, st)
-#define FA_NJ(T)                        \
-  switch ((hd + 63) / 64) {             \
-    case 1: return FA_CALL(T, 1);       \
-    case 2: return FA_CALL(T, 2);       \
-    case 3: return FA_CALL(T, 3);       \
-    case 4: return FA_CALL(T, 4);       \
-    default: return FA_CALL(T, 5);      \
+#define FA_CALL(NJ) \
+  launch<float, NJ>(q, k, v, o, B, H, S, hd, groups, softcap, window, st)
+  switch ((hd + 63) / 64) {
+    case 1: return FA_CALL(1);
+    case 2: return FA_CALL(2);
+    case 3: return FA_CALL(3);
+    case 4: return FA_CALL(4);
+    default: return FA_CALL(5);
   }
-  if (bf16) {
-    FA_NJ(__nv_bfloat16)
-  } else {
-    FA_NJ(float)
-  }
-#undef FA_NJ
 #undef FA_CALL
 }

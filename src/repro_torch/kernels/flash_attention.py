@@ -1,17 +1,24 @@
-"""Wrapper of the attention CUDA kernel (`csrc/flash_attention.cu`).
+"""Wrapper of the attention CUDA kernels (`csrc/flash_attention_sm90.cu`,
+`csrc/flash_attention.cu`).
 
 `flash_attention(q, k, v, softcap=, window=, groups=)` keeps JAX's
 signature and layout (`repro.kernels.flash_attention`): q (B, H, S, hd),
 pre-scaled, k and v (B, H / groups, S, hd), f32 or bf16, output
-(B, H, S, hd) in q's dtype.  For a CUDA tensor it launches the
-hand-written Hopper kernel on the current stream, or raises: there is no
-fallback.  Only for CPU tensors does it run the plain version
-`ref.flash_attention_ref`.  The kernel takes any S >= 1, 1 <= hd <=
+(B, H, S, hd) in q's dtype.  For a CUDA tensor it launches a hand-written
+Hopper kernel on the current stream, chosen by dtype, or raises: there is
+no fallback.
+- bf16 (the serve path's dtype): the tensor-core kernel (wgmma fed by TMA;
+  p split into two bf16 halves for p.v).  It needs hd % 8 == 0 (TMA's
+  16-byte row strides) and inputs aligned to 16 bytes.
+- f32: the CUDA-core kernel (bf16 tensor cores would round the inputs).
+Only for CPU tensors does it run the plain version
+`ref.flash_attention_ref`.  The kernels take any S >= 1, hd <=
 MAX_HEAD_DIM and groups >= 1; where JAX's Pallas grid drops the tail rows
-of an S that is not a multiple of min(256, S), this function follows JAX's
-`ref.flash_attention_ref` (ROADMAP C9).  Forward only, as JAX's kernel
-is: it raises when autograd would need its gradient.  Each kernel launch
-adds one to `launches["flash_attention"]` (`common.py`).
+of an S that is not a multiple of min(256, S), this function follows
+JAX's `ref.flash_attention_ref` (ROADMAP C9).  Forward only, as JAX's
+kernel is: it raises when autograd would need its gradient.  Each kernel
+launch adds one to `launches["flash_attention"]` and to
+`flash_routes[<route>]` (`common.py`).
 """
 from __future__ import annotations
 
@@ -21,9 +28,11 @@ import functools
 import torch
 
 from . import build, ref
-from .common import VP, I, check, launches, raise_if, stream
+from .common import VP, I, check, flash_routes, launches, raise_if, \
+    stream
 
-MAX_HEAD_DIM = 288        # gemma2's head_dim; the kernel's register tiles
+MAX_HEAD_DIM = 288        # gemma2's head_dim; the kernels' register tiles
+TMA_ALIGN = 16            # bytes: the bf16 kernel's row strides and bases
 NO_WINDOW = ref.BIG_WINDOW
 RTOL, ATOL = 2e-4, 2e-5   # JAX's own kernel-vs-ref tolerance (f32)
 BF16_ULP = 2.0 ** -7      # one bf16 ulp of x is at most |x| * 2**-7
@@ -42,11 +51,13 @@ def allowed_error(got: torch.Tensor, want: torch.Tensor) -> torch.Tensor:
 
 
 @functools.cache
-def _lib() -> ctypes.CDLL:
-    lib = build.library("flash_attention")
-    lib.flash_attention_launch.argtypes = [VP] * 4 + [I] * 5 + [
-        ctypes.c_float, I, I, VP]
-    lib.flash_attention_launch.restype = I
+def _lib(name: str) -> ctypes.CDLL:
+    """The library of `csrc/<name>.cu`; both launchers take (q, k, v, o,
+    B, H, S, hd, groups, softcap, window, stream)."""
+    lib = build.library(name)
+    fn = getattr(lib, f"{name}_launch")
+    fn.argtypes = [VP] * 4 + [I] * 5 + [ctypes.c_float, I, VP]
+    fn.restype = I
     return lib
 
 
@@ -83,12 +94,23 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         return ref.flash_attention_ref(q, k, v, softcap, window, groups)
     if dev.type != "cuda":
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    if q.dtype == torch.bfloat16:
+        if hd % 8:
+            raise ValueError(f"bf16 flash_attention on the card needs hd a "
+                             f"multiple of 8 (TMA rows of 16 bytes), got "
+                             f"{hd}")
+        if any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
+            raise ValueError("bf16 flash_attention on the card needs q, k "
+                             "and v aligned to 16 bytes")
+        name, route = "flash_attention_sm90", "tensor_core"
+    else:
+        name, route = "flash_attention", "cuda_core"
     w = min(window, NO_WINDOW) if window > 0 else NO_WINDOW
     out = torch.empty_like(q)
-    err = _lib().flash_attention_launch(
+    err = getattr(_lib(name), f"{name}_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S,
-        hd, groups, float(softcap), w, int(q.dtype == torch.bfloat16),
-        stream(dev))
-    raise_if(err, "flash_attention")
+        hd, groups, float(softcap), w, stream(dev))
+    raise_if(err, name)
     launches["flash_attention"] += 1
+    flash_routes[route] += 1
     return out

@@ -13,6 +13,7 @@ from _torch_cases import (GAMMA, check_ef_outputs, ef_inputs, flash_inputs,
                           topk_inputs, topk_payload, topk_rows)
 from repro_torch.kernels import flash_attention as fa, ref, \
     sign_pack as sp, topk_pack as tp
+from repro_torch.kernels.common import flash_routes
 
 pytestmark = pytest.mark.gpu
 
@@ -264,26 +265,17 @@ def test_coco_train_step_cuda_matches_cpu(cuda, compressor, k_budgets):
                 mode="coco")
 
 
-@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
-@pytest.mark.parametrize("S", [1, 1000, 4096])
-@pytest.mark.parametrize("window", [0, 1, 64, 5000])
-@pytest.mark.parametrize("softcap,q_scale", [(0.0, 1.0), (50.0, 1.0),
-                                             (50.0, 100.0)])
-@pytest.mark.parametrize("groups", [1, 2, 4])
-@pytest.mark.parametrize("hd", [16, 64, 288])
-def test_flash_attention_kernel_matches_plain(cuda, hd, groups, softcap,
-                                              q_scale, window, S, dtype):
-    """Within `flash_attention.allowed_error` of the plain version: f32 as
-    JAX's kernel test (2e-4 relative, 2e-5 absolute), bf16 one bf16 ulp.
-    The largest raw score of most rows sits at a masked position;
-    q_scale = 100 puts the scores far past the softcap."""
-    q, k, v = (t.to(cuda) for t in flash_inputs(2, 2, groups, S, hd, dtype,
-                                                seed=hd + S, q_scale=q_scale))
+def _check_flash(q, k, v, softcap, window, groups):
+    """One launch on its dtype's route, within `allowed_error` of the plain
+    version, and the same bits on a repeat (no atomics)."""
+    route = "tensor_core" if q.dtype == torch.bfloat16 else "cuda_core"
     before = fa.launches["flash_attention"]
+    routes = dict(flash_routes)
     got = fa.flash_attention(q, k, v, softcap=softcap, window=window,
                              groups=groups)
     torch.cuda.synchronize()
     assert fa.launches["flash_attention"] == before + 1
+    assert flash_routes == {**routes, route: routes[route] + 1}
     want = ref.flash_attention_ref(q, k, v, softcap, window, groups)
     assert got.dtype == want.dtype and got.shape == want.shape
     assert bool(torch.isfinite(got.float()).all())
@@ -292,6 +284,36 @@ def test_flash_attention_kernel_matches_plain(cuda, hd, groups, softcap,
     again = fa.flash_attention(q, k, v, softcap=softcap, window=window,
                                groups=groups)
     assert _same(again, got)                      # no atomics: deterministic
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1000, 4096])
+@pytest.mark.parametrize("window", [0, 1, 64, 5000])
+@pytest.mark.parametrize("softcap,q_scale", [(0.0, 1.0), (50.0, 1.0),
+                                             (50.0, 100.0)])
+@pytest.mark.parametrize("groups", [1, 2, 4])
+@pytest.mark.parametrize("hd", [16, 64, 288])
+def test_flash_attention_kernel_matches_plain(cuda, hd, groups, softcap,
+                                              q_scale, window, S, dtype):
+    """Within `flash_attention.allowed_error` of the plain version: f32 as
+    JAX's kernel test (2e-4 relative, 2e-5 absolute) on the CUDA-core
+    kernel, bf16 one bf16 ulp on the tensor-core kernel; S at the edges of
+    the bf16 kernel's tiles (128 query rows, 64 keys).  The largest raw
+    score of most rows sits at a masked position; q_scale = 100 puts the
+    scores far past the softcap."""
+    q, k, v = (t.to(cuda) for t in flash_inputs(2, 2, groups, S, hd, dtype,
+                                                seed=hd + S, q_scale=q_scale))
+    _check_flash(q, k, v, softcap, window, groups)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("window", [0, 4096])
+def test_flash_attention_kernel_at_serve_length(cuda, window, dtype):
+    """gemma2-2b's layer at the serve slice's S = 8192 (B 1, groups 2, hd
+    288, softcap 50): global and with the local layers' window of 4096."""
+    q, k, v = (t.to(cuda) for t in flash_inputs(1, 2, 2, 8192, 288, dtype,
+                                                seed=8192))
+    _check_flash(q, k, v, 50.0, window, 2)
 
 
 def test_flash_attention_raises_instead_of_falling_back(cuda):
@@ -307,6 +329,13 @@ def test_flash_attention_raises_instead_of_falling_back(cuda):
         fa.flash_attention(q, q[:, :1], q[:, :1], groups=3)
     with pytest.raises(RuntimeError):
         fa.flash_attention(q.requires_grad_(), q, q)
+    with pytest.raises(ValueError):                  # bf16: TMA rows
+        z = torch.zeros((1, 2, 8, 12), device=cuda, dtype=torch.bfloat16)
+        fa.flash_attention(z, z, z)
+    with pytest.raises(ValueError):                  # bf16: 16-byte aligned
+        z = torch.zeros(1 + 2 * 8 * 16, device=cuda, dtype=torch.bfloat16)
+        z = z[1:].view(1, 2, 8, 16)
+        fa.flash_attention(z, z, z)
 
 
 def test_serve_cuda_matches_cpu(cuda):
