@@ -11,10 +11,14 @@ Phases (any failure exits non-zero and prints no result line):
                 with adversarial groups and blocks (sign: words and decode
                 exact, scales <= 2 ulp; block top-K, sign_pack and
                 block_topk: every output bit for bit, f32 and bf16 values,
-                block_topk at B in {128, 256, 512} and k in {8, 32}), then
-                again at the slice's n (past 2**31) in the train step's
-                buffer layout, chunk by chunk, and timed there with CUDA
-                events.  flash_attention within its stated tolerance of
+                ef_topk_fused and topk_pack also with a coding rank's
+                budget k_send < k, block_topk at B in {128, 256, 512} and
+                k in {8, 32}), then again at the slice's n (past 2**31) in
+                the train step's buffer layout, chunk by chunk, and timed
+                there with CUDA events (beside them, as a yardstick only,
+                torch.topk of |x| per block: not the same function, its
+                tie order differs).  flash_attention within its stated
+                tolerance of
                 its plain version (f32: 2e-4 relative + 2e-5; bf16: one
                 bf16 ulp) over an adversarial sweep (hd 16/64/288, groups
                 1/2/4, softcap 0/50 with scores far past it, window
@@ -45,9 +49,10 @@ Phases (any failure exits non-zero and prints no result line):
                 steps with the budgets, on the same buffers.  The kernel
                 launch counts are reset just before each path and read just
                 after: 4 x steps local steps (or packs) and one decode per
-                step, through the path's kernels only; a COCO path must
-                leave the error vectors' bits as they were, and no path
-                launches flash_attention
+                step, through the path's kernels only (the budgets ride
+                ef_topk_fused in COCO-EF mode, topk_pack in COCO mode); a
+                COCO path must leave the error vectors' bits as they were,
+                and no path launches flash_attention
   6. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
@@ -420,23 +425,32 @@ def topk_inputs(torch, gen, dev, n: int, rows: int = 1):
 
 
 def check_topk(torch, ref, tp, gen, dev) -> None:
-    """B3 (f32 and bf16 values, mask 1 and 0), B6 and B4 against their
-    plain versions at n = 2**28 on fresh buffers, bit for bit."""
+    """B3 (f32 and bf16 values, mask 1 and 0, with and without a rank's
+    budget k_send < k), B6 (with and without the budget) and B4 against
+    their plain versions at n = 2**28 on fresh buffers, bit for bit."""
     gamma = 0.37
     g, e = topk_inputs(torch, gen, dev, CHECK_N)
     e = e[0]
     mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
     for vd in ("float32", "bfloat16"):
-        for m in (1.0, 0.0):
-            got = tp.ef_topk_fused(g, e, gamma, m, K, BLOCK, vd, want_c=True)
-            torch.cuda.synchronize()
-            want = ref.ef_topk_fused_ref(g, e, gamma, m, K, BLOCK, vd)
-            compare_topk(got, want,
-                         f"ef_topk_fused at n={CHECK_N} ({vd}, mask={m})")
-            if m == 0.0 and not same(got[4], e):
-                fail("ef_topk_fused: a straggler's e changed")
-            ef_payload = got[:3]
-            del got, want
+        for ks in (K_BUDGETS[3], K):
+            for m in (1.0, 0.0):
+                got = tp.ef_topk_fused(g, e, gamma, m, K, BLOCK, vd,
+                                       want_c=True, k_send=ks)
+                torch.cuda.synchronize()
+                want = ref.ef_topk_fused_ref(g, e, gamma, m, K, BLOCK, vd, ks)
+                compare_topk(got, want, f"ef_topk_fused at n={CHECK_N} "
+                             f"({vd}, k_send={ks}, mask={m})")
+                if m == 0.0 and not same(got[4], e):
+                    fail("ef_topk_fused: a straggler's e changed")
+                ef_payload = got[:3]
+                del got, want
+        budgeted = tp.topk_pack(g, K, BLOCK, vd, k_send=K_BUDGETS[3])
+        torch.cuda.synchronize()
+        compare_topk(budgeted, ref.topk_pack_ref(g, K, BLOCK, K_BUDGETS[3]),
+                     f"topk_pack at n={CHECK_N} ({vd}, k_send="
+                     f"{K_BUDGETS[3]})")
+        del budgeted
         packed = [tp.topk_pack(x, K, BLOCK, vd) for x in (g, e)]
         torch.cuda.synchronize()
         compare_topk(packed[0], ref.topk_pack_ref(g, K, BLOCK),
@@ -463,10 +477,12 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     step's layout: e is a row of a 2-D buffer updated in place, payloads
     go into rows of the (N, n/B, K) and (N, n/B) buffers.  Row 0 of `e`
     keeps the inputs, row 1 is the one the kernel updates.  Straggler and
-    live launches of B3 (payload rows 2 and 1), B6 on g (row 3, then cut
-    to a budget of 2) and on e (row 0), then B4 over the four rows; each
-    held against its plain version chunk by chunk, bit for bit, then
-    timed."""
+    live launches of B3 (payload rows 2 and 1) and a live one with a
+    rank's budget k_send = 2 (row 0), B6 on g (row 3, then cut to a budget
+    of 2) and on e (row 0), then B4 over the four rows; each held against
+    its plain version chunk by chunk, bit for bit, then timed.  As a
+    yardstick only, torch.topk of |g| per block is timed too: not the same
+    function (its tie order differs, ROADMAP C1)."""
     gamma = 5e-3
     g, e = topk_inputs(torch, gen, dev, n, rows=2)
     gamma_t = torch.tensor(gamma, device=dev)
@@ -496,7 +512,22 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
                                          BLOCK)
             compare_topk(chunk(r, i, j) + (None, e[1, i:j]), want, what)
             del want
-    out = {}
+    ks = K_BUDGETS[3]
+    e[1].copy_(e[0])
+    tp.ef_topk_fused(g, e[1], gamma_t, masks[0], K, BLOCK,
+                     out=row(0) + (e[1],), k_send=ks)
+    torch.cuda.synchronize()
+    for i in range(0, n, CHUNK):
+        j = min(i + CHUNK, n)
+        want = ref.ef_topk_fused_ref(g[i:j], e[0, i:j], gamma_t, masks[0], K,
+                                     BLOCK, k_send=ks)
+        compare_topk(chunk(0, i, j) + (None, e[1, i:j]), want,
+                     f"ef_topk_fused at n={n} (k_send={ks})")
+        del want
+    out, more = {}, {}
+    more["ef_topk_fused"] = {"ms_k_send_2": cuda_ms(
+        lambda: tp.ef_topk_fused(g, e[1], gamma_t, masks[0], K, BLOCK,
+                                 out=row(0) + (e[1],), k_send=ks), 10)}
     ms = cuda_ms(lambda: tp.ef_topk_fused(g, e[1], gamma_t, masks[0], K,
                                           BLOCK, out=row(1) + (e[1],)), 10)
 
@@ -522,6 +553,12 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
         for i in range(0, n, CHUNK):
             ref.topk_pack_ref(g[i:i + CHUNK], K, BLOCK)
     out["topk_pack"] = (ms, cuda_ms(plain_pack, 2), 4 * n + payload_b, K * n)
+    blocks = g.view(-1, BLOCK)
+    yard = cuda_ms(lambda: torch.topk(blocks.abs(), K), 10)
+    more["topk_pack"] = {"yardstick_torch_topk_ms": yard}
+    print(f"yardstick, not the same function (tie order, ROADMAP C1; i64 "
+          f"indices, no scale): torch.topk(x.view(-1, {BLOCK}).abs(), {K}) "
+          f"at n={n}: {yard} ms", flush=True)
 
     val[3, :, K_BUDGETS[3]:] = 0                  # a budgeted rank's row
     del e
@@ -553,6 +590,8 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
         res[name] = {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms,
                      "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
                      "ops": ops, "gb_per_s": moved / ms / 1e6}
+        if name in more:
+            res[name]["more"] = more[name]
     return res
 
 
@@ -889,7 +928,7 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
         paths = [("block_topk", "cocoef", None, STEPS,
                   {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
                  ("block_topk budgets", "cocoef", K_BUDGETS, BUDGET_STEPS,
-                  {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
+                  {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
                  ("block_topk coco", "coco", None, STEPS,
                   {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
                  ("block_topk coco budgets", "coco", K_BUDGETS, BUDGET_STEPS,
@@ -1064,7 +1103,8 @@ def main() -> None:
     check_pack(torch, ref, sp, tp, gen, dev)
     checks["flash_attention"] = check_flash(torch, ref, fa, gen, dev)
     print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}; "
-          f"block top-K kernels bit-equal (f32 and bf16 values); sign_pack "
+          f"block top-K kernels bit-equal (f32 and bf16 values, budget "
+          f"k_send={K_BUDGETS[3]} and none); sign_pack "
           f"and block_topk bit-equal (B in {TOPK_BLOCKS}, k in {{{K}, 32}}); "
           f"flash_attention over the adversarial sweep", flush=True)
     settle(torch, "the 2**28 checks")
@@ -1122,7 +1162,7 @@ def main() -> None:
         "ef_topk_fused": ("topk_pack", "topk_pack.py:137", "block_topk"),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
                                "block_topk"),
-        "topk_pack": ("topk_pack", "topk_pack.py:63", "block_topk budgets"),
+        "topk_pack": ("topk_pack", "topk_pack.py:63", "block_topk coco"),
         "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),

@@ -10,13 +10,14 @@ flat gradient buffer, and the step is Algorithm 1:
   ghat = sum_i mask_i * C(acc_i)                   (one sender-order decode)
 
 With per-rank budgets on the block top-K wire (`k_per_block` a tuple) the
-pack runs on its own and rank i's values beyond its budget are zeroed
-before C(acc_i) feeds the error, as JAX's budget branch
-(`repro/core/cocoef.py:308-318`).
+same fused step takes rank i's budget k_i: its values beyond k_i are +0 and
+C(acc_i) is unpacked from that payload before it feeds the error, as JAX's
+budget branch (`repro/core/cocoef.py:308-318`).
 
 mode="coco" is the paper's baseline without error feedback (JAX
-`cocoef.py:286-296`): acc_i = gamma*g_i, payload_i = budget_i(pack(acc_i)),
-the same decode, and e is neither read nor written.
+`cocoef.py:286-296`): acc_i = gamma*g_i, payload_i = budget_i(pack(acc_i))
+(the pack kernel takes the budget), the same decode, and e is neither read
+nor written.
 
 The flat order is part of the algorithm: sign groups straddle leaf
 boundaries, so the flat vector follows JAX's `tree.leaves` order (dict keys
@@ -193,40 +194,10 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor], e: torch.Tensor,
             if cfg.mode == "coco":
                 # one f32 rounding, as JAX's gamma * g_local; no c, no e
                 acc = g.mul_(ref.as_f32(gamma, g))
-                wire.apply_rank_budget(wire.fused_pack(acc, out=rows), i)
-            elif wire.has_rank_budgets():
-                _budget_local_step(wire, g, e[i], gamma, mask[i], rows, i)
+                wire.fused_pack(acc, out=rows, rank=i)
             else:
                 wire.fused_local_step(g, e[i], gamma, mask[i],
-                                      out=rows + (e[i],))
+                                      out=rows + (e[i],), rank=i)
     with spans:
         return coded_aggregate(wire, payload, mask, out=out)
 
-
-_BLOCKS_PER_CHUNK = 1 << 21     # bounds the index temporaries of the scatter
-
-
-def _budget_local_step(wire, g: torch.Tensor, e: torch.Tensor, gamma,
-                       mask_i: torch.Tensor, rows, rank: int) -> None:
-    """JAX's per-rank budget branch (`cocoef.py:308-318`) in place:
-      acc = gamma*g + e (into g);  payload = budget_i(topk_pack(acc))
-      e <- mask_i > 0 ? acc - unpack(payload) : e.
-    unpack(payload) is +0 off the kept positions and acc - (+0) == acc
-    there, so e' is formed as acc everywhere, then acc - val*scale at the
-    first k_i slots of every block: the same bits with no dense c."""
-    acc = ref.mul_add_(gamma, g, e)
-    idx, val, scales = wire.apply_rank_budget(wire.fused_pack(acc, out=rows),
-                                              rank)
-    keep = mask_i > 0
-    torch.where(keep, acc, e, out=e)
-    k_i = wire.for_rank(rank).k_max
-    B = wire.block_size
-    nb = scales.shape[0]
-    for b0 in range(0, nb, _BLOCKS_PER_CHUNK):
-        b1 = min(b0 + _BLOCKS_PER_CHUNK, nb)
-        base = torch.arange(b0, b1, dtype=torch.int64, device=g.device)
-        pos = (base[:, None] * B + idx[b0:b1, :k_i].to(torch.int64)
-               ).reshape(-1)
-        c = (val[b0:b1, :k_i].to(torch.float32)
-             * scales[b0:b1, None]).reshape(-1)
-        e[pos] = torch.where(keep, acc[pos] - c, e[pos])

@@ -92,20 +92,21 @@ class SignWire:
     def payload_n(self, payload: Payload) -> int:
         return payload[0].shape[-1] * 32
 
-    def fused_pack(self, x: torch.Tensor,
-                   out: Optional[Payload] = None) -> Payload:
+    def fused_pack(self, x: torch.Tensor, out: Optional[Payload] = None,
+                   rank: Optional[int] = None) -> Payload:
         """pack(x) through the kernel, written into `out` = (words, scales)
-        when given."""
+        when given.  `rank` is ignored: the sign wire has no budgets."""
         return ops.sign_pack(x, self.group_size, out=out)
 
     def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
                          mask_self, want_c: bool = False,
                          out: Optional[Tuple[torch.Tensor, torch.Tensor,
-                                             torch.Tensor]] = None):
+                                             torch.Tensor]] = None,
+                         rank: Optional[int] = None):
         """acc = gamma*g + e; payload = pack(acc); c = C(acc);
         e_new = mask_self ? acc - c : e, in one pass over g and e.
-        `out` = (words, scales, e_new) buffers; e_new may alias e.
-        Returns (payload, c or None, e_new)."""
+        `out` = (words, scales, e_new) buffers; e_new may alias e.  `rank`
+        is ignored.  Returns (payload, c or None, e_new)."""
         words, scales, c, e_new = ops.ef_sign_fused(
             g, e, gamma, mask_self, self.group_size, want_c=want_c, out=out)
         return (words, scales), c, e_new
@@ -128,8 +129,9 @@ class SparseWire:
       scales  (nb,) f32: the block max |x|, 1.0 for an all-zero block.
 
     `k_per_block` may be a per-rank tuple: the payload is shaped by k_max
-    on every rank and `apply_rank_budget` zeroes rank i's values beyond
-    its own budget; `rank_wire_bytes` charges each rank its own k."""
+    on every rank and rank i's values beyond its own budget are +0
+    (`apply_rank_budget` on a plain payload; the kernels, given the rank,
+    write them so); `rank_wire_bytes` charges each rank its own k."""
 
     k_per_block: Union[int, Tuple[int, ...]] = 8
     block_size: int = 256
@@ -177,6 +179,13 @@ class SparseWire:
             payload[1][..., self.k_per_block[rank]:] = 0
         return payload
 
+    def k_send(self, rank: Optional[int]) -> int:
+        """The slots rank `rank` fills with values (k_max when None or when
+        the wire has one budget)."""
+        if rank is None or not self.has_rank_budgets():
+            return self.k_max
+        return int(self.k_per_block[rank])
+
     def rank_wire_bytes(self, n: int, num_ranks: int) -> np.ndarray:
         if not self.has_rank_budgets():
             return np.full((num_ranks,), int(self.wire_bytes(n)), np.int64)
@@ -209,24 +218,30 @@ class SparseWire:
     def payload_n(self, payload: Payload) -> int:
         return payload[2].shape[-1] * self.block_size
 
-    def fused_pack(self, x: torch.Tensor,
-                   out: Optional[Payload] = None) -> Payload:
-        """pack(x) through the kernel (k_max slots; apply the rank budget
-        after), written into `out` = (idx, values, scales) when given."""
+    def fused_pack(self, x: torch.Tensor, out: Optional[Payload] = None,
+                   rank: Optional[int] = None) -> Payload:
+        """pack(x) through the kernel, k_max slots, with rank `rank`'s
+        budget applied (its values past k_i are +0; None: no budget),
+        written into `out` = (idx, values, scales) when given."""
         return ops.topk_pack(x, self.k_max, self.block_size,
-                             self.value_dtype, out=out)
+                             self.value_dtype, out=out,
+                             k_send=self.k_send(rank))
 
     def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
                          mask_self, want_c: bool = False,
-                         out: Optional[Tuple[torch.Tensor, ...]] = None):
-        """acc = gamma*g + e; payload = pack(acc); c = C(acc) (values
-        rounded to the wire dtype, times scale); e_new = mask_self ?
-        acc - c : e, in one pass over g and e.  `out` = (idx, values,
-        scales, e_new) buffers; e_new may alias e.  Returns (payload,
-        c or None, e_new)."""
+                         out: Optional[Tuple[torch.Tensor, ...]] = None,
+                         rank: Optional[int] = None):
+        """acc = gamma*g + e; payload = pack(acc) with rank `rank`'s
+        budget; c = unpack(payload) (values rounded to the wire dtype,
+        times scale); e_new = mask_self ? acc - c : e, in one pass over g
+        and e: with a budget, JAX's budget branch
+        (`repro/core/cocoef.py:308-318`).  `out` = (idx, values, scales,
+        e_new) buffers; e_new may alias e.  Returns (payload, c or None,
+        e_new)."""
         idx, val, scales, c, e_new = ops.ef_topk_fused(
             g, e, gamma, mask_self, self.k_max, self.block_size,
-            self.value_dtype, want_c=want_c, out=out)
+            self.value_dtype, want_c=want_c, out=out,
+            k_send=self.k_send(rank))
         return (idx, val, scales), c, e_new
 
     def decode_reduce(self, payloads: Payload, sender_mask: torch.Tensor,

@@ -47,25 +47,38 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
+def _nvcc_build(src: Path, target: Path) -> None:
+    """Compile `src` into the library `target` (into a temporary file
+    renamed atomically, so a reader never sees half a library; ptxas's
+    report is written beside it, before the rename)."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+                       capture_output=True, text=True)
+    if r.returncode != 0:
+        tmp.unlink(missing_ok=True)
+        raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}"
+                           f"{r.stderr}")
+    target.with_suffix(".log").write_text(r.stdout + r.stderr)
+    os.replace(tmp, target)
+
+
 def _compile(name: str) -> Path:
     """Path of the built library of `csrc/<name>.cu`, compiled first if
-    missing (into a temporary file renamed atomically, so a reader never
-    sees half a library; ptxas's report is written before the rename)."""
-    src = CSRC / f"{name}.cu"
+    missing."""
     target = _target(name)
     if not target.exists():
-        BUILD_DIR.mkdir(parents=True, exist_ok=True)
-        tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}"
-                                 f".tmp")
-        r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
-                           capture_output=True, text=True)
-        if r.returncode != 0:
-            tmp.unlink(missing_ok=True)
-            raise RuntimeError(f"nvcc failed for {src.name}:\n{r.stdout}"
-                               f"{r.stderr}")
-        target.with_suffix(".log").write_text(r.stdout + r.stderr)
-        os.replace(tmp, target)
+        _nvcc_build(CSRC / f"{name}.cu", target)
     return target
+
+
+def library_of_file(src: Path, name: str) -> ctypes.CDLL:
+    """Another CUDA source (such as an earlier version of a kernel, for a
+    comparison in one run) built with the same flags into
+    `build/kernels/lib<name>.so`, rebuilt on every call, and loaded."""
+    target = BUILD_DIR / f"lib{name}.so"
+    _nvcc_build(Path(src), target)
+    return ctypes.CDLL(str(target))
 
 
 def ptxas_report(name: str) -> str:

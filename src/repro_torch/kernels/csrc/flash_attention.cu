@@ -9,8 +9,9 @@
 // flash_attention — replaces repro/kernels/flash_attention.py::_flash_kernel
 //   (:34-55, pallas_call at :67) for f32 inputs.  For q (B, H, S, hd),
 //   pre-scaled, and k, v (B, H/groups, S, hd), with kv head h / groups:
-//     s[i][j] = sum_d q[i][d] * k[j][d]              (f32, from the widened
-//                                                      inputs)
+//     s[i][j] = sum_d q[i][d] * k[j][d]              (summed in f64 from the
+//                                                      widened inputs, then
+//                                                      rounded to f32)
 //     s = softcap > 0 ? softcap * tanh(s / softcap) : s
 //     s = (j <= i && j > i - window) ? s : -1e30
 //     o[i] = sum_j exp(s[i][j] - m_i) v[j] / max(sum_j exp(s[i][j] - m_i),
@@ -25,9 +26,10 @@
 //   division follow the JAX kernel's f32 arithmetic; the sums run in
 //   another order than XLA's, so the result agrees with the plain version
 //   within a stated tolerance, not bit for bit.
-//   Bound on the H100: operations, 4 * hd flops per unmasked (q, k) pair
-//   on the f32 pipe (67 TFLOP/s); bf16 tensor cores would round the
-//   inputs, so f32 stays on the CUDA cores.  It runs only where a caller
+//   Bound on the H100: operations, 4 * hd flops per unmasked (q, k) pair,
+//   half of them (q.k) on the f64 pipe (34 TFLOP/s) and half (p.v) on the
+//   f32 pipe (67 TFLOP/s); bf16 tensor cores would round the inputs, so
+//   f32 stays on the CUDA cores.  It runs only where a caller
 //   asks for f32 (the serve path's dtype is bf16).
 //   Design: one block of 256 threads per
 //   (b, q head, tile of 64 query rows), heavy tiles (late rows, which see
@@ -149,9 +151,13 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
     load_rows(Vs, vb + (int64_t)t0 * hd, k_rows, kBK, hd, LD);
     __syncthreads();
 
-    float s[4][2];
+    // the q.k sums in f64: each product of two f32 is exact there and the
+    // hd-term sum stays far below f32's rounding, so a score is its exact
+    // value rounded once (an f32 chain of up to 288 fmaf lost up to about
+    // 1.5 times JAX's f32 allowance on scores far past the softcap)
+    double sd[4][2];
 #pragma unroll
-    for (int i = 0; i < 4; ++i) s[i][0] = s[i][1] = 0.f;
+    for (int i = 0; i < 4; ++i) sd[i][0] = sd[i][1] = 0.0;
     for (int d = 0; d < hd4; d += 4) {
       float4 a[4], c[2];
 #pragma unroll
@@ -164,12 +170,17 @@ flash_fwd(const T* __restrict__ q, const T* __restrict__ k,
       for (int i = 0; i < 4; ++i)
 #pragma unroll
         for (int j = 0; j < 2; ++j) {
-          s[i][j] = fmaf(a[i].x, c[j].x, s[i][j]);
-          s[i][j] = fmaf(a[i].y, c[j].y, s[i][j]);
-          s[i][j] = fmaf(a[i].z, c[j].z, s[i][j]);
-          s[i][j] = fmaf(a[i].w, c[j].w, s[i][j]);
+          sd[i][j] = fma((double)a[i].x, (double)c[j].x, sd[i][j]);
+          sd[i][j] = fma((double)a[i].y, (double)c[j].y, sd[i][j]);
+          sd[i][j] = fma((double)a[i].z, (double)c[j].z, sd[i][j]);
+          sd[i][j] = fma((double)a[i].w, (double)c[j].w, sd[i][j]);
         }
     }
+    float s[4][2];
+#pragma unroll
+    for (int i = 0; i < 4; ++i)
+#pragma unroll
+      for (int j = 0; j < 2; ++j) s[i][j] = (float)sd[i][j];
 
 #pragma unroll
     for (int i = 0; i < 4; ++i) {

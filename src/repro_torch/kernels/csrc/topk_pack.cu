@@ -8,25 +8,59 @@
 // the value dtype, f32 scales), so no cast pass follows.  block_topk also
 // takes B = 128.
 //
-// Selection (warp_topk, shared by ef_topk_fused, topk_pack and block_topk)
-//   replaces repro/kernels/topk_block.py::block_select / block_select_mask.
-//   One warp holds one block in registers, lane j holding elements
-//   32w + j.  k rounds each take the largest remaining |x| bit pattern
-//   (non-negative floats order like their bits; -0.0 and +0.0 tie) and,
-//   among equal patterns, the smallest position: __reduce_max_sync over
-//   each lane's own largest remaining pattern, then __reduce_min_sync over
-//   the positions of the lanes holding it.  Round r fills output slot r,
-//   so the slots come out in lax.top_k's order (magnitude descending,
-//   first occurrence winning ties) with no threshold search, tie cut or
-//   sort.  Work: k rounds of two warp reductions and one shuffle, plus the
-//   winning lane's rescan of its B/32 values; about k*B compares per block.
-//
+// Selection (warp_select, shared by ef_topk_fused, topk_pack and
+//   block_topk) replaces repro/kernels/topk_block.py::block_select /
+//   block_select_mask.  One warp holds one block in registers, lane j
+//   holding the P = B/32 elements at positions 32w + j.  The output slots
+//   come in lax.top_k's order: |x| bit pattern descending (non-negative
+//   floats order like their bits; -0.0 and +0.0 tie), the smallest
+//   position first among equal patterns.  Each element gets one 64-bit
+//   key that orders exactly so: the high word is the |x| bit pattern, the
+//   low word bit 31 set, 511 - position in bits 1..9 and the sign of x in
+//   bit 0.  Keys are unique, so the selection is the k largest keys.
+//   1. Each lane orders its P keys once, descending, by Batcher's
+//      odd-even merge sort (sort_desc: 5, 19 and 63 compare-exchanges for
+//      P = 4, 8, 16, each one 64-bit compare and four selects), and writes
+//      them to the warp's slice of shared memory, column per lane, then a
+//      sentinel key 0 (below every key).  A lane's head is its largest key
+//      not yet taken.
+//   2. Round r fills output slot r: every lane loads its head, a
+//      __reduce_max_sync takes the largest high word, a second one the
+//      largest low word among the lanes holding it; the one lane whose
+//      head is that key moves its head on by one row.  No ballot, no
+//      branch: the rounds cost the same when lanes tie (all-zero and
+//      padding blocks tie in every round).  Lane 0 writes the slot's key.
+//   The kernels' outputs read the slots, the block max |x| is slot 0's
+//   high word, and an element is kept iff its key is at least that of the
+//   last slot kept (k_send - 1): the kept set needs no per-lane state.
+//   Instruction count (k = 8, B = 256, P = 8, reckoned from the source):
+//   the keys about 30 warp instructions, the sort 115 (in C++ the compiler
+//   split each compare-exchange into a max and a min, 8 instructions, so
+//   it is written in PTX), the list 9 stores, each round about 10, the
+//   slots' payload about 40: about 270 a block against the old design's
+//   550 (k rounds of two warp reductions and a shuffle, then the winning
+//   lane's rescan of its P values, issued by the whole warp: about 60 a
+//   round).  At 10,391,520 blocks on 132 SMs of four schedulers that is
+//   about 5.3 M issue cycles a scheduler, 3.0 ms at 1.755 GHz, under
+//   topk_pack's byte time of 3.34 ms.  On an H100 topk_pack takes 5.0 ms
+//   on random blocks and on all-zero ones alike, 4.2 ms at k = 1, and
+//   each round adds 0.13 ms (tools/topk_check.py --rounds): at k = 8 the
+//   serial rounds are about half of what is left above the byte time.
+//   k_send (1 <= k_send <= k, the coding rank's budget) cuts what the slots
+//   carry, not what is selected: slots >= k_send keep their index, carry a
+//   +0 value and do not enter c or e'.  The first k_send slots in
+//   lax.top_k's order are the top-k_send set with the same ties, so this is
+//   JAX's budget branch (repro/core/cocoef.py:308-318) bit for bit.
+
 // ef_topk_fused — replaces repro/kernels/topk_pack.py::_ef_topk_fused_kernel
 //   (:92-111, pallas_call at :137).  Per block of B coordinates:
 //     acc = gamma*g + e (two roundings, no FMA: __fmul_rn/__fadd_rn),
 //     select k; scale = block max |acc| (1.0 for an all-zero block);
-//     val = V(sv / scale) (__fdiv_rn; bf16 by __float2bfloat16_rn, RNE);
-//     c = f32(val) * scale at the kept positions, +0 elsewhere;
+//     val = V(sv / scale) (__fdiv_rn; bf16 by __float2bfloat16_rn, RNE) in
+//     slots < k_send, +0 in the others;
+//     c = f32(val) * scale at the positions of the first k_send slots, +0
+//     elsewhere (each computed once, by the slot's lane, and handed to the
+//     element's lane through shared memory);
 //     e' = mask > 0 ? acc - c : e.
 //   A kept -0.0 stays -0.0 in val and c, as in JAX's jnp reference (the
 //   Pallas kernel's masked sums make it +0.0: ROADMAP C7).  Every element
@@ -34,21 +68,23 @@
 //   alias e; a straggler (mask 0) writing in place stores nothing.
 //   Bound on the H100: device-memory bytes.  It reads g and e and writes e'
 //   (12 B/coordinate) plus (k*(2 + sizeof(V)) + 4) bytes of payload per
-//   block; the selection's k*B compares and about six flops per coordinate
+//   block; the selection's issue work and about six flops per coordinate
 //   stay below the byte time.
 //
 // topk_pack — replaces repro/kernels/topk_pack.py::_topk_pack_kernel
-//   (:43-49, pallas_call at :63).  Pack only: idx, V(sv / scale), scale.
-//   Bound: bytes (4 B/coordinate read plus the payload).
+//   (:43-49, pallas_call at :63).  Pack only: idx, V(sv / scale) (+0 in
+//   slots >= k_send), scale.
+//   Bound: bytes (4 B/coordinate read plus the payload); the selection's
+//   issue work is about the same time (see above).
 //
 // block_topk — replaces repro/kernels/topk_block.py::_topk_kernel (:136-140,
 //   pallas_call at :148) with block_select_mask (:57).  Sparsify: per block
-//   the k largest |x| (warp_topk's set, which is lax.top_k's) keep their
+//   the k largest |x| (warp_select's set, which is lax.top_k's) keep their
 //   value, bits and all (a kept -0.0 stays -0.0), everything else is +0.0;
 //   x and out f32 or bf16, selection on the f32 of x.  Each block is read
 //   into registers before any store, so out may alias x.
 //   Bound: bytes (read and write 2 * sizeof(T) B/coordinate); the
-//   selection's k*B compares per block are issue work under that stream.
+//   selection is issue work under that stream.
 //
 // topk_decode_reduce — replaces repro/kernels/topk_pack.py::
 //   _topk_decode_reduce_kernel (:165-171, pallas_call at :186).
@@ -90,57 +126,107 @@ __device__ __forceinline__ float from_wire(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 
-// The lane's largest |x| bit pattern among its elements not yet taken
-// (-1 when all are taken), the smallest such w, and x there.
-template <int P>
-__device__ __forceinline__ void lane_max(const float (&x)[P], unsigned taken,
-                                         int& bits, int& w_max,
-                                         float& v_max) {
-  bits = -1;
-  w_max = 0;
-  v_max = 0.f;
-#pragma unroll
-  for (int w = 0; w < P; ++w) {
-    const int b = __float_as_int(x[w]) & 0x7fffffff;
-    if (!(taken & (1u << w)) && b > bits) {
-      bits = b;
-      w_max = w;
-      v_max = x[w];
-    }
-  }
+using u64 = unsigned long long;
+constexpr u64 kSentinel = 0;  // below every key: real low words have bit 31
+
+// The key of the element at in-block position pos (see the file comment).
+__device__ __forceinline__ u64 cand_key(float x, int pos) {
+  const unsigned b = __float_as_uint(x);
+  return ((u64)(b & 0x7fffffffu) << 32) |
+         (0x80000000u | ((unsigned)(511 - pos) << 1) | (b >> 31));
 }
 
-// See the file comment.  On return lane r < k holds output slot r (its
-// in-block position and signed value), every lane holds the bit pattern of
-// the block max |x| and the bitmask of its own kept elements.
+// Compare-exchange: the larger key to a, the smaller to b.  One 64-bit
+// compare feeds both selects (in C++ the compiler splits them into a max
+// and a min with a compare each: eight instructions instead of six).
+__device__ __forceinline__ void ce(u64& a, u64& b) {
+  asm("{\n\t.reg .pred p;\n\t.reg .b64 t;\n\t"
+      "mov.b64 t, %0;\n\t"
+      "setp.gt.u64 p, %1, %0;\n\t"
+      "selp.b64 %0, %1, %0, p;\n\t"
+      "selp.b64 %1, t, %1, p;\n\t}"
+      : "+l"(a), "+l"(b));
+}
+
+// Batcher's odd-even merge sort of a lane's P keys, descending.  The
+// compare-exchange lists are read by the CPU twin of this selection
+// (tests/test_torch_select.py), which replays them step for step.
 template <int P>
-__device__ __forceinline__ void warp_topk(const float (&x)[P], int k,
-                                          int lane, int& slot_pos,
-                                          float& slot_val, unsigned& taken,
-                                          int& max_bits) {
-  taken = 0;
-  int bits, w_max;
-  float v_max;
-  lane_max(x, taken, bits, w_max, v_max);
-  slot_pos = 0;
-  slot_val = 0.f;
-  max_bits = 0;
+__device__ __forceinline__ void sort_desc(u64 (&v)[P]);
+#define CE(a, b) ce(v[a], v[b])
+template <>
+__device__ __forceinline__ void sort_desc<4>(u64 (&v)[4]) {
+  CE(0, 1); CE(2, 3); CE(0, 2); CE(1, 3); CE(1, 2);
+}
+template <>
+__device__ __forceinline__ void sort_desc<8>(u64 (&v)[8]) {
+  CE(0, 1); CE(2, 3); CE(4, 5); CE(6, 7); CE(0, 2); CE(1, 3); CE(4, 6);
+  CE(5, 7); CE(1, 2); CE(5, 6); CE(0, 4); CE(1, 5); CE(2, 6); CE(3, 7);
+  CE(2, 4); CE(3, 5); CE(1, 2); CE(3, 4); CE(5, 6);
+}
+template <>
+__device__ __forceinline__ void sort_desc<16>(u64 (&v)[16]) {
+  CE(0, 1); CE(2, 3); CE(4, 5); CE(6, 7); CE(8, 9); CE(10, 11); CE(12, 13);
+  CE(14, 15); CE(0, 2); CE(1, 3); CE(4, 6); CE(5, 7); CE(8, 10); CE(9, 11);
+  CE(12, 14); CE(13, 15); CE(1, 2); CE(5, 6); CE(9, 10); CE(13, 14);
+  CE(0, 4); CE(1, 5); CE(2, 6); CE(3, 7); CE(8, 12); CE(9, 13); CE(10, 14);
+  CE(11, 15); CE(2, 4); CE(3, 5); CE(10, 12); CE(11, 13); CE(1, 2);
+  CE(3, 4); CE(5, 6); CE(9, 10); CE(11, 12); CE(13, 14); CE(0, 8);
+  CE(1, 9); CE(2, 10); CE(3, 11); CE(4, 12); CE(5, 13); CE(6, 14);
+  CE(7, 15); CE(4, 8); CE(5, 9); CE(6, 10); CE(7, 11); CE(2, 4); CE(3, 5);
+  CE(6, 8); CE(7, 9); CE(10, 12); CE(11, 13); CE(1, 2); CE(3, 4); CE(5, 6);
+  CE(7, 8); CE(9, 10); CE(11, 12); CE(13, 14);
+}
+#undef CE
+
+// A warp's shared memory for the selection: each lane's sorted keys and a
+// sentinel (column per lane), then the k output slots.  ef_topk_fused
+// reuses `list` for c once the rounds are done.
+template <int P>
+struct Select {
+  u64 list[P + 1][32];
+  u64 slot[kMaxK];
+};
+
+// See the file comment.  x[w] is the element at in-block position
+// 32w + lane.  On return (after a __syncwarp) slot r < k of `s` holds the
+// key of output slot r (decode_slot).
+template <int P>
+__device__ __forceinline__ void warp_select(const float (&x)[P], int k,
+                                            int lane, Select<P>& s) {
+  u64 v[P];
+#pragma unroll
+  for (int w = 0; w < P; ++w) v[w] = cand_key(x[w], 32 * w + lane);
+  sort_desc<P>(v);
+#pragma unroll
+  for (int i = 0; i < P; ++i) s.list[i][lane] = v[i];
+  s.list[P][lane] = kSentinel;
+  const u64* head = &s.list[0][lane];
   for (int r = 0; r < k; ++r) {
-    const int m = __reduce_max_sync(kFull, bits);
-    if (r == 0) max_bits = m;
-    const unsigned cand = bits == m ? (unsigned)(w_max * 32 + lane) : ~0u;
-    const unsigned pos = __reduce_min_sync(kFull, cand);
-    const int src = (int)(pos & 31u);
-    const float v = __shfl_sync(kFull, v_max, src);
-    if (lane == r) {
-      slot_pos = (int)pos;
-      slot_val = v;
-    }
-    if (lane == src) {
-      taken |= 1u << w_max;
-      lane_max(x, taken, bits, w_max, v_max);
-    }
+    const u64 key = *head;
+    const int hi = (int)(key >> 32);
+    const int m_hi = __reduce_max_sync(kFull, hi);
+    const unsigned c = hi == m_hi ? (unsigned)key : 0u;
+    const unsigned m_lo = __reduce_max_sync(kFull, c);
+    head += c == m_lo ? 32 : 0;  // the one winner moves on
+    if (lane == 0) s.slot[r] = ((u64)(unsigned)m_hi << 32) | m_lo;
   }
+  __syncwarp();
+}
+
+// Output slot `key` as (in-block position, signed value).
+__device__ __forceinline__ void decode_slot(u64 key, int& pos, float& x) {
+  const unsigned hi = (unsigned)(key >> 32), lo = (unsigned)key;
+  pos = 511 - (int)((lo >> 1) & 511u);
+  x = __uint_as_float(hi | (lo << 31));
+}
+
+// sv / scale, rounded as IEEE division (__fdiv_rn).  A zero quotient is
+// sv itself (+-0 over a positive scale keeps its sign), and skipping the
+// division there keeps all-zero and padding blocks off its slow path for
+// special operands.
+__device__ __forceinline__ float scaled(float sv, float scale) {
+  return sv == 0.f ? sv : __fdiv_rn(sv, scale);
 }
 
 __device__ __forceinline__ float safe_scale(int max_bits) {
@@ -155,11 +241,12 @@ ef_topk_fused_kernel(const float* __restrict__ g, const float* e,
                      const float* __restrict__ mask_p,
                      uint16_t* __restrict__ idx, V* __restrict__ val,
                      float* __restrict__ scales, float* __restrict__ c,
-                     float* e_out, int k, int64_t n_blocks) {
+                     float* e_out, int k, int k_send, int64_t n_blocks) {
   constexpr int P = B / 32;  // elements per lane
+  __shared__ Select<P> sel[kWarpsPerBlock];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t blk =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (blk >= n_blocks) return;  // whole warp leaves together
   const float gamma = *gamma_p;
   const bool keep = *mask_p > 0.f;
@@ -174,24 +261,33 @@ ef_topk_fused_kernel(const float* __restrict__ g, const float* e,
     acc[w] = __fadd_rn(__fmul_rn(gamma, gv), ev[w]);
   }
 
-  int slot_pos, max_bits;
-  float slot_val;
-  unsigned taken;
-  warp_topk(acc, k, lane, slot_pos, slot_val, taken, max_bits);
-  const float safe = safe_scale(max_bits);
+  Select<P>& s = sel[warp];
+  warp_select(acc, k, lane, s);
+  const float safe = safe_scale((int)(s.slot[0] >> 32));
+  const u64 last_sent = s.slot[k_send - 1];  // kept: keys down to this one
+  float* cs = reinterpret_cast<float*>(&s.list[0][0]);  // B floats
   if (lane < k) {
-    idx[blk * k + lane] = (uint16_t)slot_pos;
-    val[blk * k + lane] = to_wire<V>(__fdiv_rn(slot_val, safe));
+    int pos;
+    float sv;
+    decode_slot(s.slot[lane], pos, sv);
+    V wv = to_wire<V>(0.f);
+    if (lane < k_send) {
+      wv = to_wire<V>(scaled(sv, safe));
+      cs[pos] = __fmul_rn(from_wire(wv), safe);
+    }
+    idx[blk * k + lane] = (uint16_t)pos;
+    val[blk * k + lane] = wv;
   }
   if (lane == 0) scales[blk] = safe;
+  __syncwarp();
 
   const bool store_e = keep || e_out != e;
 #pragma unroll
   for (int w = 0; w < P; ++w) {
     float cv = 0.f;
     float en = acc[w];  // acc - (+0.0) == acc, -0.0 included
-    if (taken & (1u << w)) {
-      cv = __fmul_rn(from_wire(to_wire<V>(__fdiv_rn(acc[w], safe))), safe);
+    if (cand_key(acc[w], 32 * w + lane) >= last_sent) {
+      cv = cs[32 * w + lane];
       en = __fsub_rn(acc[w], cv);
     }
     if (c != nullptr) c[base + 32 * w] = cv;
@@ -203,25 +299,28 @@ template <int B, typename V>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 topk_pack_kernel(const float* __restrict__ x, uint16_t* __restrict__ idx,
                  V* __restrict__ val, float* __restrict__ scales, int k,
-                 int64_t n_blocks) {
+                 int k_send, int64_t n_blocks) {
   constexpr int P = B / 32;
+  __shared__ Select<P> sel[kWarpsPerBlock];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t blk =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (blk >= n_blocks) return;
   const int64_t base = blk * B + lane;
   float xv[P];
 #pragma unroll
   for (int w = 0; w < P; ++w) xv[w] = x[base + 32 * w];
 
-  int slot_pos, max_bits;
-  float slot_val;
-  unsigned taken;
-  warp_topk(xv, k, lane, slot_pos, slot_val, taken, max_bits);
-  const float safe = safe_scale(max_bits);
+  Select<P>& s = sel[warp];
+  warp_select(xv, k, lane, s);
+  const float safe = safe_scale((int)(s.slot[0] >> 32));
   if (lane < k) {
-    idx[blk * k + lane] = (uint16_t)slot_pos;
-    val[blk * k + lane] = to_wire<V>(__fdiv_rn(slot_val, safe));
+    int pos;
+    float sv;
+    decode_slot(s.slot[lane], pos, sv);
+    idx[blk * k + lane] = (uint16_t)pos;
+    val[blk * k + lane] =
+        to_wire<V>(lane < k_send ? scaled(sv, safe) : 0.f);
   }
   if (lane == 0) scales[blk] = safe;
 }
@@ -230,9 +329,10 @@ template <int B, typename T>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
 block_topk_kernel(const T* x, T* out, int k, int64_t n_blocks) {
   constexpr int P = B / 32;
+  __shared__ Select<P> sel[kWarpsPerBlock];
+  const int warp = threadIdx.x >> 5;
   const int lane = threadIdx.x & 31;
-  const int64_t blk =
-      (int64_t)blockIdx.x * kWarpsPerBlock + (threadIdx.x >> 5);
+  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
   if (blk >= n_blocks) return;
   const int64_t base = blk * B + lane;
   T raw[P];
@@ -243,14 +343,13 @@ block_topk_kernel(const T* x, T* out, int k, int64_t n_blocks) {
     xv[w] = from_wire(raw[w]);
   }
 
-  int slot_pos, max_bits;
-  float slot_val;
-  unsigned taken;
-  warp_topk(xv, k, lane, slot_pos, slot_val, taken, max_bits);
+  warp_select(xv, k, lane, sel[warp]);
+  const u64 last = sel[warp].slot[k - 1];  // kept: keys down to this one
   const T zero = to_wire<T>(0.f);
 #pragma unroll
   for (int w = 0; w < P; ++w)
-    out[base + 32 * w] = (taken & (1u << w)) ? raw[w] : zero;
+    out[base + 32 * w] =
+        cand_key(xv[w], 32 * w + lane) >= last ? raw[w] : zero;
 }
 
 template <int B, typename V>
@@ -314,23 +413,24 @@ int grid_for(int64_t n_blocks, unsigned* grid) {
 template <int B, typename V>
 int launch_ef(const float* g, const float* e, const float* gamma,
               const float* mask, void* idx, void* val, float* scales,
-              float* c, float* e_out, int64_t n, int k, cudaStream_t st) {
+              float* c, float* e_out, int64_t n, int k, int k_send,
+              cudaStream_t st) {
   unsigned grid;
   if (int err = grid_for(n / B, &grid)) return err;
   ef_topk_fused_kernel<B, V><<<grid, kWarpsPerBlock * 32, 0, st>>>(
       g, e, gamma, mask, static_cast<uint16_t*>(idx), static_cast<V*>(val),
-      scales, c, e_out, k, n / B);
+      scales, c, e_out, k, k_send, n / B);
   return (int)cudaGetLastError();
 }
 
 template <int B, typename V>
 int launch_pack(const float* x, void* idx, void* val, float* scales,
-                int64_t n, int k, cudaStream_t st) {
+                int64_t n, int k, int k_send, cudaStream_t st) {
   unsigned grid;
   if (int err = grid_for(n / B, &grid)) return err;
   topk_pack_kernel<B, V><<<grid, kWarpsPerBlock * 32, 0, st>>>(
       x, static_cast<uint16_t*>(idx), static_cast<V*>(val), scales, k,
-      n / B);
+      k_send, n / B);
   return (int)cudaGetLastError();
 }
 
@@ -360,7 +460,7 @@ int launch_decode(const void* idx, const void* val, const float* scales,
 
 // Block sizes and value types with a compiled kernel; the wrapper checks
 // against the same lists (SUPPORTED_BLOCK_SIZES, SUPPORTED_K in
-// topk_pack.py).  value_bf16: 0 = f32 values, 1 = bf16.
+// topk_pack.py).  value_bf16: 0 = f32 values, 1 = bf16; 1 <= k_send <= k.
 #define TOPK_DISPATCH(B_, BF16_, K_, CALL)                          \
   if ((K_) < 1 || (K_) > kMaxK) return (int)cudaErrorInvalidValue; \
   switch ((B_) * 2 + ((BF16_) ? 1 : 0)) {                           \
@@ -375,21 +475,24 @@ extern "C" int ef_topk_fused_launch(const float* g, const float* e,
                                     const float* gamma, const float* mask,
                                     void* idx, void* val, float* scales,
                                     float* c, float* e_out, long long n,
-                                    int block_size, int k, int value_bf16,
-                                    void* stream) {
+                                    int block_size, int k, int k_send,
+                                    int value_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_send < 1 || k_send > k) return (int)cudaErrorInvalidValue;
 #define EF_CALL(B, V) launch_ef<B, V>(g, e, gamma, mask, idx, val, scales, \
-                                      c, e_out, (int64_t)n, k, st)
+                                      c, e_out, (int64_t)n, k, k_send, st)
   TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
 #undef EF_CALL
 }
 
 extern "C" int topk_pack_launch(const float* x, void* idx, void* val,
                                 float* scales, long long n, int block_size,
-                                int k, int value_bf16, void* stream) {
+                                int k, int k_send, int value_bf16,
+                                void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  if (k_send < 1 || k_send > k) return (int)cudaErrorInvalidValue;
 #define PACK_CALL(B, V) launch_pack<B, V>(x, idx, val, scales, (int64_t)n, \
-                                          k, st)
+                                          k, k_send, st)
   TOPK_DISPATCH(block_size, value_bf16, k, PACK_CALL)
 #undef PACK_CALL
 }

@@ -150,14 +150,23 @@ def _safe_scale(sv: torch.Tensor) -> torch.Tensor:
     return torch.where(scale == 0, torch.ones_like(scale), scale)
 
 
-def topk_pack_ref(x: torch.Tensor, k: int, block_size: int
+def _budget_(values: torch.Tensor, k_send) -> torch.Tensor:
+    """+0 in the slots past the first k_send (None: all k), in place: a
+    coding rank's budget (JAX's `SparseWire.apply_rank_budget`)."""
+    if k_send is not None:
+        values[:, k_send:] = 0.0
+    return values
+
+
+def topk_pack_ref(x: torch.Tensor, k: int, block_size: int, k_send=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
     """x (n,) -> (idx (n/B, k) i32, values (n/B, k) f32 = kept x / scale,
-    scales (n/B,) f32 = block max |x|, 1.0 for an all-zero block)."""
+    +0 past slot k_send (default k), scales (n/B,) f32 = block max |x|,
+    1.0 for an all-zero block)."""
     blocks = x.to(_F32).reshape(-1, block_size)
     idx, sv = topk_select(blocks, k)
     safe = _safe_scale(sv)
-    return idx.to(torch.int32), sv / safe[:, None], safe
+    return idx.to(torch.int32), _budget_(sv / safe[:, None], k_send), safe
 
 
 def _scatter_blocks(idx: torch.Tensor, sv: torch.Tensor,
@@ -173,17 +182,22 @@ def _scatter_blocks(idx: torch.Tensor, sv: torch.Tensor,
 
 def ef_topk_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                       k: int, block_size: int,
-                      value_dtype="float32"):
+                      value_dtype="float32", k_send=None):
     """Fused Algorithm-1 local step on the block top-K wire:
       acc = gamma * g + e;  (idx, sv) = top-k of |acc| per block
-      scale = block max |acc| (1.0 if 0);  val = value_dtype(sv / scale)
+      scale = block max |acc| (1.0 if 0);  val = value_dtype(sv / scale),
+      +0 past slot k_send (default k: none)
       c = scatter(val * scale);  e_new = mask_self > 0 ? acc - c : e
+    With k_send this is JAX's per-rank budget branch
+    (`repro/core/cocoef.py:308-318`): c is the unpacked budgeted payload,
+    +0 at the positions of the zeroed slots, where e_new = acc.
     Returns (idx i32, val f32 holding value_dtype-rounded numbers, scale,
     c, e_new).  A selected -0.0 stays -0.0 in val and c (ROADMAP C7)."""
     accb = mul_add(gamma, g, e).reshape(-1, block_size)
     idx, sv = topk_select(accb, k)
     safe = _safe_scale(sv)
-    val = (sv / safe[:, None]).to(wire_dtype(value_dtype)).to(_F32)
+    val = _budget_((sv / safe[:, None]).to(wire_dtype(value_dtype))
+                   .to(_F32), k_send)
     c = _scatter_blocks(idx, val * safe[:, None], block_size)
     keep = as_f32(mask_self, g) > 0
     e_new = torch.where(keep, accb.reshape(-1) - c, e.to(_F32))
@@ -241,10 +255,16 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     """Causal (+ sliding window, + tanh softcap) GQA attention, as JAX's
     `ref.flash_attention_ref`: q (B, H, S, hd) pre-scaled, k, v
     (B, H / groups, S, hd), query head h reading kv head h // groups.
-    Scores in f32 from the widened inputs, softcap * tanh(s / softcap),
-    masked to -1e30, softmax in f32, then p.v in f32, cast to q's dtype.
-    Runs one (batch, kv head) at a time, so only that group's (groups, S,
-    S) scores are ever live."""
+    Scores in f32 from the widened inputs: each q.k summed in f64 and
+    rounded once, so a score is its exact value to half an f32 ulp, as
+    the f32 kernel computes it.  An f32 product's own order can be much
+    worse: on an H100, cuBLAS sums the hd = 288 terms in one chain at
+    S = 4096, which put this function up to 1.24 times the kernel's
+    tolerance off the float64 answer and the kernel 0.24
+    (`tools/flash_check.py --conditioning`): too far off to hold a kernel
+    to.  Then softcap * tanh(s / softcap), masked to -1e30, softmax in
+    f32, p.v in f32, cast to q's dtype.  Runs one (batch, kv head) at a
+    time, so only that group's (groups, S, S) scores are ever live."""
     B, H, S, hd = q.shape
     w = window if window > 0 else BIG_WINDOW
     pos = torch.arange(S, device=q.device)
@@ -253,7 +273,7 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for b in range(B):
         for hk in range(H // groups):
             hs = slice(hk * groups, (hk + 1) * groups)
-            s = q[b, hs].to(_F32) @ k[b, hk].to(_F32).T      # (groups, S, S)
+            s = (q[b, hs].double() @ k[b, hk].double().T).to(_F32)
             if softcap > 0:
                 s = softcap * torch.tanh(s / softcap)
             s = torch.where(keep, s, NEG_INF)

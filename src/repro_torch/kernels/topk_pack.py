@@ -30,9 +30,9 @@ K_MAX = 32                             # one output slot per lane
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("topk_pack")
-    lib.ef_topk_fused_launch.argtypes = [VP] * 9 + [LL, I, I, I, VP]
+    lib.ef_topk_fused_launch.argtypes = [VP] * 9 + [LL, I, I, I, I, VP]
     lib.ef_topk_fused_launch.restype = I
-    lib.topk_pack_launch.argtypes = [VP] * 4 + [LL, I, I, I, VP]
+    lib.topk_pack_launch.argtypes = [VP] * 4 + [LL, I, I, I, I, VP]
     lib.topk_pack_launch.restype = I
     lib.topk_decode_reduce_launch.argtypes = [VP] * 5 + [I, LL, I, I, I, VP]
     lib.topk_decode_reduce_launch.restype = I
@@ -66,6 +66,16 @@ def _check_shape(n: int, k: int, block_size: int, vdt: torch.dtype,
         raise ValueError(f"unsupported device {device}")
 
 
+def _k_send(k_send: Optional[int], k: int) -> int:
+    """The budget k_send (default k): how many of the k slots carry a
+    value."""
+    if k_send is None:
+        return k
+    if not 0 < k_send <= k:
+        raise ValueError(f"need 0 < k_send <= k, got {k_send} / {k}")
+    return int(k_send)
+
+
 def _payload_out(out, nb: int, k: int, block_size: int, vdt, dev):
     if out is None:
         out = (torch.empty((nb, k), dtype=index_dtype(block_size), device=dev),
@@ -81,11 +91,18 @@ def _payload_out(out, nb: int, k: int, block_size: int, vdt, dev):
 def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                   k: int, block_size: int, value_dtype: str = "float32",
                   want_c: bool = False,
-                  out: Optional[Tuple[torch.Tensor, ...]] = None):
+                  out: Optional[Tuple[torch.Tensor, ...]] = None,
+                  k_send: Optional[int] = None):
     """Fused local COCO-EF step on the block top-K wire, one pass over g
     and e: acc = gamma*g + e; per block the k largest |acc| in `lax.top_k`
-    order; scale = block max |acc| (1.0 if 0); val = value_dtype(sv/scale);
-    c = scatter(val*scale); e_new = mask_self > 0 ? acc - c : e.
+    order; scale = block max |acc| (1.0 if 0); val = value_dtype(sv/scale)
+    in the first k_send slots, +0 in the others; c = scatter(val*scale);
+    e_new = mask_self > 0 ? acc - c : e.
+
+    k_send (default k): a coding rank's budget on a wire shaped by the
+    largest budget k.  The first k_send slots are the top-k_send set, so
+    this is JAX's per-rank budget branch (pack, zero the values past the
+    budget, unpack into c) in one pass.
 
     g, e: (n,) f32; gamma, mask_self: scalars (device tensors cost no host
     copy, see `sign_pack.ef_sign_fused`).  `out` = (idx (n/B, k) index
@@ -95,6 +112,7 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     n, dev = g.numel(), g.device
     vdt = ref.wire_dtype(value_dtype)
     _check_shape(n, k, block_size, vdt, dev)
+    k_send = _k_send(k_send, k)
     check(g, "g", torch.float32, (n,), dev)
     check(e, "e", torch.float32, (n,), dev)
     nb = n // block_size
@@ -107,7 +125,8 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
 
     if dev.type == "cpu":
         i, v, s, c, en = ref.ef_topk_fused_ref(g, e, gamma_t, mask_t, k,
-                                               block_size, value_dtype)
+                                               block_size, value_dtype,
+                                               k_send)
         idx.copy_(i)
         val.copy_(v)
         scales.copy_(s)
@@ -119,7 +138,7 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         idx.data_ptr(), val.data_ptr(), scales.data_ptr(),
         c.data_ptr() if c is not None else None, e_new.data_ptr(),
-        n, block_size, k, int(vdt == torch.bfloat16), stream(dev))
+        n, block_size, k, k_send, int(vdt == torch.bfloat16), stream(dev))
     raise_if(err, "ef_topk_fused")
     launches["ef_topk_fused"] += 1
     return idx, val, scales, c, e_new
@@ -127,24 +146,27 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
 
 def topk_pack(x: torch.Tensor, k: int, block_size: int,
               value_dtype: str = "float32",
-              out: Optional[Tuple[torch.Tensor, ...]] = None):
+              out: Optional[Tuple[torch.Tensor, ...]] = None,
+              k_send: Optional[int] = None):
     """Pack only: x (n,) f32 -> (idx (n/B, k), val = value_dtype(sv/scale)
-    (n/B, k), scales (n/B,) f32), written into `out` when given."""
+    (n/B, k), +0 past slot k_send (default k), scales (n/B,) f32), written
+    into `out` when given."""
     n, dev = x.numel(), x.device
     vdt = ref.wire_dtype(value_dtype)
     _check_shape(n, k, block_size, vdt, dev)
+    k_send = _k_send(k_send, k)
     check(x, "x", torch.float32, (n,), dev)
     idx, val, scales = _payload_out(out, n // block_size, k, block_size,
                                     vdt, dev)
     if dev.type == "cpu":
-        i, v, s = ref.topk_pack_ref(x, k, block_size)
+        i, v, s = ref.topk_pack_ref(x, k, block_size, k_send)
         idx.copy_(i)
         val.copy_(v)
         scales.copy_(s)
         return idx, val, scales
     err = _lib().topk_pack_launch(
         x.data_ptr(), idx.data_ptr(), val.data_ptr(), scales.data_ptr(), n,
-        block_size, k, int(vdt == torch.bfloat16), stream(dev))
+        block_size, k, k_send, int(vdt == torch.bfloat16), stream(dev))
     raise_if(err, "topk_pack")
     launches["topk_pack"] += 1
     return idx, val, scales

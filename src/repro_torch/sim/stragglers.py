@@ -1,9 +1,9 @@
 """Straggler processes (port of `repro.sim.stragglers`: the iid Bernoulli
 process of eq. 8 only).
 
-`mask(seed, step)` is pure in (seed, step): it draws from a generator
-seeded with both, so every caller derives the same mask.  The bits differ
-from `jax.random`'s; tests that compare with JAX pass JAX's masks in.
+`mask(seed, step)` is pure in (seed, step) and equals JAX's
+`coding.straggler_mask(PRNGKey(seed), step, N, p)` bit for bit: the
+uniforms come from `core/prng.py`'s copy of `jax.random`.
 """
 from __future__ import annotations
 
@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.data.pipeline import generator_for
+from repro_torch.core import prng
 
 __all__ = ["IIDBernoulli"]
 
@@ -29,10 +29,12 @@ class IIDBernoulli:
             raise ValueError(f"straggle probability p={self.p} not in [0, 1)")
 
     def mask(self, seed: int, step: int) -> torch.Tensor:
-        """(N,) f32 in {0, 1} on the CPU; 1 = the rank participates."""
-        u = torch.rand(self.num_devices,
-                       generator=generator_for(seed, 0x5A5A, step))
-        return (u >= self.p).to(torch.float32)
+        """(N,) f32 in {0, 1} on the CPU; 1 = the rank participates:
+        uniform(fold_in(PRNGKey(seed), step), (N,)) >= p."""
+        u = prng.uniform(prng.fold_in(prng.PRNGKey(seed), step),
+                         (self.num_devices,))
+        return torch.from_numpy((u >= np.float32(self.p))
+                                .astype(np.float32))
 
     def rates(self) -> np.ndarray:
         """(N,) participation probability per rank (1 - p)."""

@@ -3,6 +3,7 @@ tests.  Nothing here imports JAX (the harness runs it in a subprocess), so
 the GPU tests, which run without JAX, can use this module too."""
 import dataclasses
 import json
+import math
 import os
 import subprocess
 import sys
@@ -13,6 +14,7 @@ import numpy as np
 import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
+from repro_torch.core import prng
 from repro_torch.launch.train import TrainRun, build_train_setup
 
 
@@ -272,3 +274,30 @@ def _normal_blocks(acc: np.ndarray, e_new: np.ndarray) -> np.ndarray:
     def denormal(x):
         return ((x != 0) & (np.abs(x) < tiny)).reshape(N, -1, 256).any(-1)
     return ~(denormal(acc) | denormal(e_new))
+
+
+def exp_flips(got, want, seed, step, alloc, per_subset, seq_len, vocab):
+    """Tokens of one coded batch, the port's (`got`) against JAX's (`want`),
+    both (N, b_loc, L+1) of the same seed and step.  The uniforms are
+    equal, so they can differ only where the f32 exp of the token map
+    floor(exp(u * log V)) - 1 does (torch's against XLA's): each such token
+    must be off by one, and u * log V at its source position (the copy
+    perturbation's roll included) within 1 ulp of the log of the integer
+    between the two.  Returns the number of such tokens."""
+    log_v = np.float32(math.log(vocab))
+    bad = np.argwhere(got != want)
+    for i, b, j in bad:
+        sid = alloc.subsets_of(int(i))[b // per_subset]
+        row = b % per_subset
+        k = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), int(sid)), step)
+        shape = (per_subset, seq_len + 1)
+        u = prng.uniform(k, shape, 1e-6, 1.0)[row]
+        copy = prng.uniform(prng.fold_in(k, 1), shape)[row] < 0.25
+        src = (j - 1) % (seq_len + 1) if copy[j] else j   # the roll
+        t = np.float32(u[src] * log_v)
+        lo, hi = sorted((int(got[i, b, j]), int(want[i, b, j])))
+        assert hi == lo + 1, (got[i, b, j], want[i, b, j])
+        boundary = math.log(hi + 1)        # floor(exp(t)) - 1 flips here
+        assert abs(float(t) - boundary) <= float(np.spacing(t)), \
+            (t, boundary)
+    return len(bad)

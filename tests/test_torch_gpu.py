@@ -140,6 +140,43 @@ def test_ef_topk_fused_kernel_matches_plain(cuda, block_size, k,
 
 
 @pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("k,k_send", [(8, 1), (8, 4), (32, 7), (32, 31)])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_budgeted_topk_kernels_match_plain(cuda, block_size, k, k_send,
+                                           value_dtype, mask):
+    """ef_topk_fused and topk_pack with a rank's budget k_send < k (values
+    past slot k_send +0, c and e' from the first k_send slots) against
+    their plain versions, every output bit for bit, e' in place too."""
+    n = block_size * 8 * 37
+    g, e = topk_inputs(n, block_size, k, seed=block_size + k_send)
+    gt, et = torch.from_numpy(g).to(cuda), torch.from_numpy(e).to(cuda)
+    got = tp.ef_topk_fused(gt, et, float(GAMMA), mask, k, block_size,
+                           value_dtype, want_c=True, k_send=k_send)
+    torch.cuda.synchronize()
+    want = ref.ef_topk_fused_ref(gt, et, float(GAMMA), mask, k, block_size,
+                                 value_dtype, k_send)
+    assert torch.equal(got[0].to(torch.int32), want[0])
+    assert _same(got[1].float(), want[1])
+    for a, b in zip(got[2:], want[2:]):
+        assert _same(a, b)
+    e2 = et.clone()
+    tp.ef_topk_fused(gt, e2, float(GAMMA), mask, k, block_size, value_dtype,
+                     out=tuple(torch.empty_like(t) for t in got[:3]) + (e2,),
+                     k_send=k_send)
+    torch.cuda.synchronize()
+    assert _same(e2, got[4])
+    x = gt + et
+    idx, val, scales = tp.topk_pack(x, k, block_size, value_dtype,
+                                    k_send=k_send)
+    torch.cuda.synchronize()
+    i0, v0, s0 = ref.topk_pack_ref(x, k, block_size, k_send)
+    assert torch.equal(idx.to(torch.int32), i0)
+    assert _same(val, v0.to(val.dtype))
+    assert _same(scales, s0)
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
 @pytest.mark.parametrize("k", [1, 8, 32])
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
 def test_topk_pack_kernel_matches_plain(cuda, block_size, k, value_dtype):

@@ -102,6 +102,36 @@ def test_topk_pack_matches_jax(block_size, k, value_dtype):
     np.testing.assert_array_equal(_np(scales), np.asarray(ps))
 
 
+@pytest.mark.parametrize("block_size,k,k_send", [(256, 8, 1), (256, 8, 2),
+                                                  (256, 8, 4), (512, 32, 7),
+                                                  (64, 8, 8)])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_budgeted_fused_step_is_jax_budget_branch(block_size, k, k_send,
+                                                   value_dtype, mask):
+    """The fused step with a rank's budget k_send (`ef_topk_fused`'s plain
+    version, which the kernel matches bit for bit) against JAX's budget
+    branch on one chunk (`repro/core/cocoef.py:308-318`): pack k slots,
+    zero the values past the budget, c = unpack, e' = mask ? acc - c : e.
+    Every output bit for bit; the pack with the same budget too."""
+    n = block_size * 8 * 2
+    g, e = topk_inputs(n, block_size, k, seed=block_size + k_send,
+                       denormals=False)
+    port = ops.ef_topk_fused(_t(g), _t(e), GAMMA, mask, k, block_size,
+                             value_dtype, want_c=True, k_send=k_send)
+    jw = JaxSparseWire((k_send, k), block_size, value_dtype)
+    acc = jref.mul_add(GAMMA, jnp.asarray(g), jnp.asarray(e))
+    payload = jw.apply_rank_budget(jw.pack(acc), 0)
+    c = jw.unpack(payload)
+    e_new = jnp.where(jnp.float32(mask) > 0, acc - c, jnp.asarray(e))
+    for a, b in zip(port, (*payload, c, e_new)):
+        _bits_equal(a, b)
+    packed = ops.topk_pack(_t(np.asarray(acc)), k, block_size, value_dtype,
+                           k_send=k_send)
+    for a, b in zip(packed, payload):
+        _bits_equal(a, b)
+
+
 @pytest.mark.parametrize("block_size,k", [(64, 8), (256, 1), (256, 8),
                                           (512, 32)])
 @pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
@@ -297,6 +327,10 @@ def test_bad_inputs_raise():
         ops.topk_pack(x.double(), 8, 64)
     with pytest.raises(ValueError):
         ops.topk_pack(x, 8, 64, value_dtype="float16")
+    with pytest.raises(ValueError):                       # k_send > k
+        ops.topk_pack(x, 8, 64, k_send=9)
+    with pytest.raises(ValueError):                       # k_send < 1
+        ops.ef_topk_fused(x, x, 0.5, 1.0, 8, 64, k_send=0)
     with pytest.raises(ValueError):
         SparseWire(0, 256)
     with pytest.raises(ValueError):

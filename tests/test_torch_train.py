@@ -18,7 +18,7 @@ import pytest
 import torch
 
 from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
-                          _port_setup, _state_dict)
+                          _port_setup, _state_dict, exp_flips)
 from repro.core import coding as jcoding
 from repro.core.collectives import SparseWire as JaxSparseWire
 from repro.kernels import ref as jref
@@ -58,6 +58,22 @@ def test_setup_matches_jax(ref_run):
     np.testing.assert_array_equal(s.model.theta.numpy(), ref_run["theta0"])
     assert s.b_loc == ref_run["tokens0"].shape[1]
     assert ref_run["mask1"].tolist() == [0.0, 0.0, 1.0, 1.0]  # stragglers
+
+
+def test_port_draws_jax_batches_and_masks(ref_run):
+    """With the same seed (0) the port's batches and straggler masks are
+    JAX's: weights and masks bit for bit, tokens up to the f32 exp flips
+    that `exp_flips` explains (ROADMAP C11)."""
+    s = _port_setup()
+    flips = 0
+    for t in range(STEPS):
+        toks, wts = s.make_batch(t)
+        np.testing.assert_array_equal(wts.numpy(), ref_run[f"weights{t}"])
+        np.testing.assert_array_equal(s.mask(t).numpy(), ref_run[f"mask{t}"])
+        flips += exp_flips(toks.numpy(), ref_run[f"tokens{t}"], 0, t,
+                           s.allocation, s.per_subset, s.seq_len,
+                           s.model.cfg.vocab_size)
+    print(f"tokens off by one through the f32 exp: {flips}")
 
 
 def test_stage2_with_jax_gradients(ref_run):

@@ -6,7 +6,7 @@ the CUDA cores) against the plain version at the edges of the bf16
 kernel's tiles (128 query rows, 64 keys), and times on request.
 
     PYTHONPATH=src python tools/flash_check.py [--time] [--library]
-        [--profile] [--conditioning]
+        [--profile] [--conditioning [--baseline FILE.cu]]
 
 --time          the bf16 kernel at the serve slice's global and local layer
                 shapes (gemma2-2b: B 32, H 8, Hkv 4, S 8192, hd 288,
@@ -15,8 +15,14 @@ kernel's tiles (128 query rows, 64 keys), and times on request.
 --library       beside it, compiled flex_attention (as chip_smoke.py)
 --profile       the bf16 kernel at hd 96/192/288 and window 64, softcap 0:
                 the MMA work scales with hd, the softmax does not
---conditioning  f32 cases with scores far past the softcap (hd 288,
-                q_scale 100): kernel and plain version against float64
+--conditioning  every f32 case of tests/test_torch_gpu.py's flash sweep
+                (the same inputs; hd 16/64/288, softcap and q_scale up to
+                scores far past the softcap): kernel and plain version
+                against float64 and against each other, in units of
+                `allowed_error`; the rows past it and the worst of each
+                column per hd, softcap and q_scale
+--baseline      another f32 flash_attention.cu (the same launch
+                interface), built beside it and held to the same cases
 
 Exits 1 if a case is beyond `flash_attention.allowed_error`.  Much shorter
 than chip_smoke.py: the tool for iterating on the kernel.
@@ -41,7 +47,8 @@ def ptxas_lines(report: str) -> list:
             if ln.strip() and "Function properties" not in ln]
 
 
-def f64_attention(torch, q, k, v, softcap: float, groups: int):
+def f64_attention(torch, q, k, v, softcap: float, groups: int,
+                  window: int = 0):
     """Causal softcapped attention in float64 (the exact answer the f32
     versions round towards)."""
     q, k, v = q.double(), k.double(), v.double()
@@ -49,9 +56,65 @@ def f64_attention(torch, q, k, v, softcap: float, groups: int):
     v = v.repeat_interleave(groups, 1)
     pos = torch.arange(q.shape[2], device=q.device)
     s = q @ k.transpose(-1, -2)
-    s = softcap * torch.tanh(s / softcap)
-    s = torch.where(pos[None, :] <= pos[:, None], s, -1e30)
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
+    keep = pos[None, :] <= pos[:, None]
+    if window > 0:
+        keep &= pos[None, :] > pos[:, None] - window
+    s = torch.where(keep, s, -1e30)
     return torch.softmax(s, -1) @ v
+
+
+def baseline_flash(path: Path):
+    """The f32 launcher of another flash_attention.cu, built with the
+    port's flags: fn(q, k, v, softcap, window, groups) -> o."""
+    import ctypes
+    import torch
+    from repro_torch.kernels import build
+    from repro_torch.kernels.common import I, VP, stream
+    fn = build.library_of_file(path, "flash_attention-baseline") \
+        .flash_attention_launch
+    fn.argtypes = [VP] * 4 + [I] * 5 + [ctypes.c_float, I, VP]
+    fn.restype = I
+
+    def run(q, k, v, softcap, window, groups):
+        B, H, S, hd = q.shape
+        o = torch.empty_like(q)
+        err = fn(q.data_ptr(), k.data_ptr(), v.data_ptr(), o.data_ptr(), B,
+                 H, S, hd, groups, float(softcap),
+                 window if window > 0 else 1 << 30, stream(q.device))
+        if err:
+            sys.exit(f"baseline flash_attention: launch error {err}")
+        return o
+    return run
+
+
+def conditioning_row(torch, fa, ref, base, flash_inputs, dev, hd, cap, qs,
+                     S, window, groups) -> dict:
+    """One f32 case of tests/test_torch_gpu.py (the same inputs): the
+    kernel, the plain version and (given) the baseline against float64
+    and against each other, as shares of `allowed_error`."""
+    q, k, v = (t.to(dev) for t in flash_inputs(2, 2, groups, S, hd,
+                                                "float32", seed=hd + S,
+                                                q_scale=qs))
+    outs = {"kernel": fa.flash_attention(q, k, v, softcap=cap,
+                                         window=window, groups=groups),
+            "plain": ref.flash_attention_ref(q, k, v, cap, window, groups)}
+    if base is not None:
+        outs["baseline"] = base(q, k, v, cap, window, groups)
+    exact = f64_attention(torch, q, k, v, cap, groups, window)
+    row = {"hd": hd, "softcap": cap, "q_scale": qs, "S": S,
+           "window": window, "groups": groups}
+    pairs = [("kernel", "plain"), ("kernel", "f64"), ("plain", "f64")]
+    if base is not None:
+        pairs += [("baseline", "plain"), ("baseline", "f64")]
+    for a, b in pairs:
+        x = outs[a]
+        y = exact if b == "f64" else outs[b]
+        err = (x.double() - y.double()).abs()
+        row[f"{a}_vs_{b}"] = (err / fa.allowed_error(x, y.float()).double()
+                              ).max().item()
+    return row
 
 
 def main() -> None:
@@ -62,10 +125,13 @@ def main() -> None:
                     help="also time the bf16 kernel at hd 96/192/288 and "
                     "window 64 (softcap 0), to split MMA from fixed costs")
     ap.add_argument("--conditioning", action="store_true",
-                    help="for f32 cases with scores far past the softcap "
-                    "(hd 288, q_scale 100), the error of the kernel and of "
-                    "the plain version against float64, in units of "
-                    "`allowed_error`")
+                    help="for the GPU tests' f32 cases with scores far past "
+                    "the softcap (hd 288, q_scale 100), the error of the "
+                    "kernel and of the plain version against float64, in "
+                    "units of `allowed_error`")
+    ap.add_argument("--baseline", type=Path,
+                    help="with --conditioning: another f32 "
+                    "flash_attention.cu held to the same cases")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
@@ -137,21 +203,29 @@ def main() -> None:
     if args.conditioning:
         sys.path.insert(0, str(ROOT / "tests"))
         from _torch_cases import flash_inputs
-        for S, groups in ((64, 2), (127, 1), (129, 4), (1000, 1)):
-            q, k, v = (t.to(dev) for t in flash_inputs(
-                2, 2, groups, S, 288, "float32", seed=288 + S,
-                q_scale=100.0))
-            got = fa.flash_attention(q, k, v, softcap=50.0, groups=groups)
-            plain = ref.flash_attention_ref(q, k, v, 50.0, 0, groups)
-            exact = f64_attention(torch, q, k, v, 50.0, groups)
-            row = {"S": S, "groups": groups}
-            for name, a, b in (("kernel_vs_plain", got, plain),
-                               ("kernel_vs_f64", got, exact),
-                               ("plain_vs_f64", plain, exact)):
-                err = (a.double() - b.double()).abs()
-                row[name] = (err / fa.allowed_error(a, b.float()).double()
-                             ).max().item()
-            print(json.dumps(row), flush=True)
+        base = baseline_flash(args.baseline) if args.baseline else None
+        worst = {}
+        for hd in (16, 64, 288):
+            for cap, qs in ((0.0, 1.0), (50.0, 1.0), (50.0, 100.0)):
+                for S in (1, 63, 64, 65, 127, 128, 129, 1000, 4096):
+                    for window in (0, 1, 64, 5000):
+                        for groups in (1, 2, 4):
+                            row = conditioning_row(
+                                torch, fa, ref, base, flash_inputs, dev, hd,
+                                cap, qs, S, window, groups)
+                            w = worst.setdefault(f"hd {hd} softcap {cap} "
+                                                 f"q_scale {qs}", {})
+                            for col, v in row.items():
+                                if col.endswith(("plain", "f64")):
+                                    w[col] = max(w.get(col, 0.0), v)
+                            if row["kernel_vs_plain"] > 1.0 or \
+                                    row["plain_vs_f64"] > 1.0:
+                                print(json.dumps(row), flush=True)
+        print("conditioning, worst of each column over the GPU tests' f32 "
+              "cases (the rows above: kernel_vs_plain or plain_vs_f64 past "
+              "the allowance):", flush=True)
+        for key, w in worst.items():
+            print(f"  {key}: {json.dumps(w)}", flush=True)
     if args.profile:
         B, S, H, Hkv = cs.SERVE_BATCH, cs.SERVE_SEQ, 8, 4
         for hd, w in ((96, 0), (192, 0), (288, 0), (288, 64)):
