@@ -31,13 +31,21 @@ Phases (any failure exits non-zero and prints no result line):
                 (batch, kv head), and timed there, beside one library
                 call of the same function (flex_attention, compiled; never
                 called by the port); ptxas's registers and spills of the
-                tensor-core kernel are printed, and a spill fails
+                tensor-core kernel are printed, and a spill fails.  The
+                global top-K route (rounds of topk_pack, one block of n / 4
+                per chunk, k = 16) at the slice's n on adversarial chunks
+                (a tie at the k-th split across far-apart blocks, an
+                all-zero chunk, fewer than k nonzeros, -0.0, denormals)
+                against the stable sort of whole chunks, bit for bit, then
+                timed against one pass over g, e and e' (12 B/coord)
   4. reference  the f32 smoke-size train step on the card against the CPU
                 (repro_torch/launch/device_parity.py) on the sign wire, the
                 block top-K wire and the block top-K wire with per-rank
-                budgets, in cocoef and in coco mode: the full step within
-                stated tolerances, stage 2 on injected gradients bit for
-                bit (in coco mode e untouched); the smoke-size serving
+                budgets, in cocoef and in coco mode, then the dense wire
+                (f32, bf16, coco), global top-K (cocoef, coco) and dense
+                mode: the full step within stated tolerances, stage 2 on
+                injected gradients bit for bit (in the coco and dense modes
+                e untouched); the smoke-size serving
                 path (prefill + 4 decode steps, f32 and bf16) on the card
                 against the CPU (`serve_parity`)
   5. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
@@ -46,13 +54,21 @@ Phases (any failure exits non-zero and prints no result line):
                 setup; then, with that setup freed, the block top-K wire
                 (k = 8, B = 256, f32 values): 5 COCO-EF steps, 2 with the
                 per-rank budgets k = (8, 8, 4, 2), 5 COCO steps and 2 COCO
-                steps with the budgets, on the same buffers.  The kernel
-                launch counts are reset just before each path and read just
-                after: 4 x steps local steps (or packs) and one decode per
-                step, through the path's kernels only (the budgets ride
-                ef_topk_fused in COCO-EF mode, topk_pack in COCO mode); a
-                COCO path must leave the error vectors' bits as they were,
-                and no path launches flash_attention
+                steps with the budgets, on the same buffers.  Then, each
+                setup freed before the next, 3 steps of each path of: the
+                dense wire (compressor "identity": f32, bf16, and coco),
+                global top-K (compressor "topk": cocoef and coco) and dense
+                mode (the SGC baseline, no error vectors allocated).  The
+                kernel launch counts are reset just before each path and
+                read just after: 4 x steps local steps (or packs) and one
+                decode per step, through the path's kernels only (the
+                budgets ride ef_topk_fused in COCO-EF mode, topk_pack in
+                COCO mode; global top-K launches topk_pack once a round of
+                its selection, 4 x rounds a step; the dense wire and dense
+                mode launch none: JAX has no kernel for them); a COCO path
+                must leave the error vectors' bits as they were, and no
+                path launches flash_attention.  Each step prints its
+                seconds, kernel ms and launches, each path its peak memory
   6. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
@@ -82,10 +98,12 @@ SRC = ROOT / "src"
 
 STEPS = 5
 BUDGET_STEPS = 2
+NEW_STEPS = 3             # each path of the identity, topk and dense setups
 N_CODE = 4
 SEQ_LEN, GLOBAL_BATCH = 512, 4
 GROUP = 512
 BLOCK, K = 256, 8                 # the block top-K wire of CodingPlan
+TOPK_K = 64               # CodingPlan.topk_k: global top-K's budget
 K_BUDGETS = (8, 8, 4, 2)
 TOPK_BLOCKS = (128, 256, 512)     # block_topk's kernel block sizes
 CHECK_N = 1 << 28
@@ -595,6 +613,129 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     return res
 
 
+def global_adversarial_(g, e, B: int, k: int) -> None:
+    """The chunks of the global top-K wire (one block of B each, acc =
+    gamma*g + e), first four: 0 a tie at the k-th largest |acc| between
+    two far-apart 256-blocks (k - 1 larger entries before them); 1 all
+    zero, +0 and -0.0 mixed; 2 fewer than k nonzeros, a denormal and a
+    -0.0 among them; 3 random but for one block of denormals."""
+    c = [slice(j * B, (j + 1) * B) for j in range(4)]
+    g[c[0]].clamp_(-1.0, 1.0)
+    e[c[0]].mul_(1e-3)
+    sets = [(256 * 11 + 7 + 1000 * i, 100.0) for i in range(k - 1)]
+    sets += [(256 * 5 + 3, 50.0), (B - 256 * 3 - 9, -50.0)]   # the tie
+    for p, v in sets:
+        g[p], e[p] = v, 0.0
+    g[c[1]] = 0.0
+    g[c[1]][::2] = -0.0
+    e[c[1]] = -0.0
+    g[c[2]] = 0.0
+    e[c[2]] = 0.0
+    few = [2 * B + 4096 + 100_003 * i for i in range(k // 2)]
+    for p, v in zip(few, [1e-40, -0.0] + [1.25] * (k // 2 - 2)):
+        g[p] = v
+    g[c[3]][1 << 20:(1 << 20) + 256] = 3e-41
+    e[c[3]][1 << 20:(1 << 20) + 256] = 0.0
+
+
+def global_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
+    """Global top-K's route (one block of B = n / N per chunk, k =
+    ceil(TOPK_K / N)) at the slice's n: ef_topk_fused on the train step's
+    buffers (g is consumed: acc is left in it; e' in place in a row of
+    `e`, payload rows of (N, N, k) u32 indices, values and (N, N)
+    scales), straggler and live, then topk_pack, then the decode of the
+    rows; each held against its plain version (the stable sort of whole
+    chunks) chunk by chunk, bit for bit, then timed.  The bound is one
+    pass: read g and e, write e', 12 B a coordinate."""
+    B, k = n // N_CODE, -(-TOPK_K // N_CODE)
+    gamma = 5e-3
+    g0, e = topk_inputs(torch, gen, dev, n, rows=2)
+    global_adversarial_(g0, e[0], B, k)
+    gw = torch.empty_like(g0)
+    gamma_t = torch.tensor(gamma, device=dev)
+    idx = torch.zeros((N_CODE, N_CODE, k), dtype=torch.uint32, device=dev)
+    val = torch.zeros((N_CODE, N_CODE, k), device=dev)
+    sc = torch.zeros((N_CODE, N_CODE), device=dev)
+    masks = torch.tensor([1.0, 0.0], device=dev)
+
+    def row(r):
+        return idx[r], val[r], sc[r]
+
+    def check_chunks(r, got_e, x, m, what):
+        for j in range(N_CODE):
+            cj = slice(j * B, (j + 1) * B)
+            if x is None:
+                if not same(gw[cj], ref.mul_add(gamma_t, g0[cj], e[0, cj])):
+                    fail(f"{what}: chunk {j}: g does not hold acc")
+                want = ref.ef_topk_fused_ref(g0[cj], e[0, cj], gamma_t, m,
+                                             k, B)
+            else:
+                want = ref.topk_pack_ref(x[cj], k, B)
+            if not torch.equal(idx[r, j].to(torch.int64),
+                               want[0][0].to(torch.int64)):
+                fail(f"{what}: chunk {j}'s indices differ")
+            if not (same(val[r, j], want[1][0]) and same(sc[r, j:j + 1],
+                                                         want[2])):
+                fail(f"{what}: chunk {j}'s values or scale differ")
+            if got_e is not None and not same(got_e[cj], want[4]):
+                fail(f"{what}: chunk {j}'s e' differs")
+            del want
+
+    per_call = {}
+    for r, m in ((2, masks[1]), (1, masks[0])):
+        gw.copy_(g0)
+        e[1].copy_(e[0])
+        before = tp.launches["topk_pack"]
+        tp.ef_topk_fused(gw, e[1], gamma_t, m, k, B, out=row(r) + (e[1],))
+        torch.cuda.synchronize()
+        per_call["ef_topk_fused"] = tp.launches["topk_pack"] - before
+        what = f"global ef_topk_fused at n={n} (mask={m.item()})"
+        if m.item() == 0.0 and not same(e[1], e[0]):
+            fail(f"{what}: a straggler's e changed")
+        check_chunks(r, e[1], None, m, what)
+    if idx[1, 0, k - 1].item() != 256 * 5 + 3:
+        fail("global ef_topk_fused: the tie's first position not kept last")
+    ms = cuda_ms(lambda: tp.ef_topk_fused(gw, e[1], gamma_t, masks[0], k, B,
+                                          out=row(1) + (e[1],)), 5)
+
+    def plain_ef():
+        for j in range(N_CODE):
+            cj = slice(j * B, (j + 1) * B)
+            ref.ef_topk_fused_ref(g0[cj], e[0, cj], gamma_t, masks[0], k, B)
+    plain_ms = cuda_ms(plain_ef, 1)
+    tp.topk_pack(e[0], k, B, out=row(0))        # a fourth sender
+    check_chunks(0, None, e[0], None, f"global topk_pack at n={n} (e)")
+    del gw, e
+    before = tp.launches["topk_pack"]
+    tp.topk_pack(g0, k, B, out=row(3))
+    torch.cuda.synchronize()
+    per_call["topk_pack"] = tp.launches["topk_pack"] - before
+    check_chunks(3, None, g0, None, f"global topk_pack at n={n}")
+    pack_ms = cuda_ms(lambda: tp.topk_pack(g0, k, B, out=row(3)), 5)
+    del g0
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    ghat = torch.empty(n, device=dev)
+    tp.topk_decode_reduce(idx, val, sc, mask, B, out=ghat)
+    torch.cuda.synchronize()
+    for j in range(N_CODE):
+        want = ref.topk_decode_reduce_ref(idx[:, j:j + 1], val[:, j:j + 1],
+                                          sc[:, j:j + 1], mask, B)
+        if not same(ghat[j * B:(j + 1) * B], want):
+            fail(f"global topk_decode_reduce at n={n}: chunk {j} differs "
+                 f"from the sender-order sum")
+        del want
+    decode_ms = cuda_ms(lambda: tp.topk_decode_reduce(idx, val, sc, mask, B,
+                                                      out=ghat), 5)
+    rounds = tp.global_rounds(B, k)
+    if per_call != {"ef_topk_fused": rounds, "topk_pack": rounds}:
+        fail(f"global route: B6 launches per call {per_call}, want {rounds}")
+    bound_ms, by = bound(12 * n, 2 * n)
+    return {"block": B, "k": k, "ms": ms, "plain_ms": plain_ms,
+            "bound_ms": bound_ms, "bound_by": by,
+            "b6_launches_per_call": rounds, "topk_pack_ms": pack_ms,
+            "decode_ms": decode_ms}
+
+
 def pack_adversarial_(x, L: int, k: int) -> None:
     """Blocks of length L at the start of x: +0, -0.0, mixed signed zeros,
     denormals, all |x| equal, k equal maxima of mixed sign before a larger
@@ -883,6 +1024,7 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
         launches[k] = 0
     for t, batch in enumerate(batches, first):
         spans = []
+        before = dict(launches)
         t_start = time.perf_counter()
         m = setup.train_step(setup.model, e, batch, t, kernel_spans=spans)
         loss = m["loss"].item()
@@ -891,53 +1033,84 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
         kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
         print(json.dumps({"path": label, "step": t, "loss": loss,
                           "step_s": step_s, "kernel_ms": kernel_ms,
-                          "mask": m["mask"].tolist()}), flush=True)
+                          "mask": m["mask"].tolist(),
+                          "launches": {k: v - before[k]
+                                       for k, v in launches.items()
+                                       if v != before[k]}}), flush=True)
         if not math.isfinite(loss):
             fail(f"{label} step {t}: loss {loss}")
     got = dict(launches)
     if any(got[k] != want.get(k, 0) for k in got):
         fail(f"{label}: launch counts {got}, want {want}")
-    for name, rows in (("theta", [setup.model.theta]), ("e", list(e))):
+    for name, rows in (("theta", [setup.model.theta]),
+                       ("e", [] if e is None else list(e))):
         if not all_finite(torch, rows):
             fail(f"{label}: non-finite {name} after training")
     return got
 
 
+def setup_paths(wire: str, rounds: int) -> tuple:
+    """(compressor and mode of the setup, its paths): each path is (label,
+    mode, k budgets, wire dtype, steps, launches wanted per step).
+    `rounds`: the B6 launches of one global top-K selection."""
+    if wire == "sign":
+        return ("sign", "cocoef"), [
+            ("sign", "cocoef", None, "float32", STEPS,
+             {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}),
+            ("sign coco", "coco", None, "float32", STEPS,
+             {"sign_pack": N_CODE, "sign_decode_reduce": 1})]
+    if wire == "block_topk":
+        return ("block_topk", "cocoef"), [
+            ("block_topk", "cocoef", None, "float32", STEPS,
+             {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
+            ("block_topk budgets", "cocoef", K_BUDGETS, "float32",
+             BUDGET_STEPS, {"ef_topk_fused": N_CODE,
+                            "topk_decode_reduce": 1}),
+            ("block_topk coco", "coco", None, "float32", STEPS,
+             {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
+            ("block_topk coco budgets", "coco", K_BUDGETS, "float32",
+             BUDGET_STEPS, {"topk_pack": N_CODE, "topk_decode_reduce": 1})]
+    if wire == "identity":        # no kernel: JAX has none for the wire
+        return ("identity", "cocoef"), [
+            ("identity", "cocoef", None, "float32", NEW_STEPS, {}),
+            ("identity bf16", "cocoef", None, "bfloat16", NEW_STEPS, {}),
+            ("identity coco", "coco", None, "float32", NEW_STEPS, {})]
+    if wire == "topk":            # B6's rounds; the union decode is plain
+        return ("topk", "cocoef"), [
+            ("topk", "cocoef", None, "float32", NEW_STEPS,
+             {"topk_pack": N_CODE * rounds}),
+            ("topk coco", "coco", None, "float32", NEW_STEPS,
+             {"topk_pack": N_CODE * rounds})]
+    return ("sign", "dense"), [
+        ("dense", "dense", None, "float32", NEW_STEPS, {})]
+
+
 def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
-               smoke: bool = False) -> dict:
-    """Every path of one wire in turn on one setup (the same model, error
-    and payload buffers; the block top-K payload is shaped by max k = K
-    either way): COCO-EF, then (block top-K) COCO-EF with the per-rank
-    budgets, COCO, and (block top-K) COCO with the budgets.  Returns the
-    launch counts of each path by label; prints each path's peak memory."""
+               smoke: bool = False, rounds: int = 0) -> dict:
+    """Every path of one setup in turn on the same model, error and
+    payload buffers (`setup_paths`; the block top-K payload is shaped by
+    max k = K either way, the dense wire's is the ghat accumulator).  A
+    coco path shares the COCO-EF path's error vectors and must leave their
+    bits alone; the dense setup allocates none.  Returns the launch counts
+    of each path by label; prints each path's peak memory."""
     from repro_torch.launch.train import TrainRun, build_train_setup
     torch.cuda.reset_peak_memory_stats()
-    base = TrainRun(base_lr=5e-3, compressor=wire)
+    (compressor, mode), paths = setup_paths(wire, rounds)
+    base = TrainRun(base_lr=5e-3, compressor=compressor, mode=mode)
     setup = build_train_setup(spec, shape, base, smoke=smoke, n_code=N_CODE,
                               device=dev)
     if setup.flat_pad != n:
         fail(f"{wire}: flat size {setup.flat_pad} != {n}")
     e = setup.init_state()
-    # (label, mode, k budgets, steps, launches wanted per step)
-    if wire == "sign":
-        paths = [("sign", "cocoef", None, STEPS,
-                  {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}),
-                 ("sign coco", "coco", None, STEPS,
-                  {"sign_pack": N_CODE, "sign_decode_reduce": 1})]
-    else:
-        paths = [("block_topk", "cocoef", None, STEPS,
-                  {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
-                 ("block_topk budgets", "cocoef", K_BUDGETS, BUDGET_STEPS,
-                  {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}),
-                 ("block_topk coco", "coco", None, STEPS,
-                  {"topk_pack": N_CODE, "topk_decode_reduce": 1}),
-                 ("block_topk coco budgets", "coco", K_BUDGETS, BUDGET_STEPS,
-                  {"topk_pack": N_CODE, "topk_decode_reduce": 1})]
+    if (e is None) != (mode != "cocoef"):
+        fail(f"{wire}: error vectors {'not ' if e is None else ''}allocated "
+             f"in {mode} mode")
     counts, first = {}, 0
-    for label, mode, kb, steps, per_step in paths:
+    for label, mode, kb, wd, steps, per_step in paths:
         run = dataclasses.replace(base, mode=mode, k_budgets=kb)
+        plan = dataclasses.replace(spec.coding, wire_dtype=wd)
         path = dataclasses.replace(
-            setup, run=run, cocoef_cfg=run.coding_config(spec.coding, N_CODE))
+            setup, run=run, cocoef_cfg=run.coding_config(plan, N_CODE))
         sums = e_checksums(torch, e) if mode == "coco" else None
         counts[label] = train_path(
             torch, path, e, first, steps, label,
@@ -949,7 +1122,9 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
             fail(f"{label}: the error vectors changed in coco mode")
         print(f"train ({label}): gemma2-2b "
               f"{setup.model.cfg.num_layers} layers, flat {n}, peak "
-              f"memory {peak} B ({peak / 1e9:.2f} GB)", flush=True)
+              f"memory {peak} B ({peak / 1e9:.2f} GB) of "
+              f"{torch.cuda.get_device_properties(0).total_memory} B",
+              flush=True)
         torch.cuda.reset_peak_memory_stats()
         first += steps
     return counts
@@ -1124,18 +1299,30 @@ def main() -> None:
     settle(torch, "sign_pack and block_topk at the slice's n")
     print(f"kernels vs plain and times at n={n}, train layout: "
           f"{json.dumps(at_slice)}", flush=True)
+    route = global_at_slice(torch, ref, tp, gen, dev, n)
+    settle(torch, "the global top-K route at the slice's n")
+    print(f"global top-K route (rounds of topk_pack) vs plain at n={n}, "
+          f"bit for bit on the adversarial chunks: {json.dumps(route)}",
+          flush=True)
 
-    for mode in ("cocoef", "coco"):
-        for comp, kb in (("sign", None), ("block_topk", None),
-                         ("block_topk", K_BUDGETS)):
-            try:
-                parity = step_parity("cuda", compressor=comp, k_budgets=kb,
-                                     mode=mode)
-            except AssertionError as err:
-                fail(f"smoke-size step on the card vs the CPU ({mode}, "
-                     f"{comp}, budgets {kb}): {err}")
-            print(f"reference ({mode}, {comp}, budgets {kb}): "
-                  f"{json.dumps(parity)}", flush=True)
+    cases = [(mode, comp, kb, "float32") for mode in ("cocoef", "coco")
+             for comp, kb in (("sign", None), ("block_topk", None),
+                              ("block_topk", K_BUDGETS))]
+    cases += [("cocoef", "identity", None, "float32"),
+              ("cocoef", "identity", None, "bfloat16"),
+              ("coco", "identity", None, "float32"),
+              ("cocoef", "topk", None, "float32"),
+              ("coco", "topk", None, "float32"),
+              ("dense", "sign", None, "float32")]
+    for mode, comp, kb, wd in cases:
+        try:
+            parity = step_parity("cuda", compressor=comp, k_budgets=kb,
+                                 mode=mode, wire_dtype=wd)
+        except AssertionError as err:
+            fail(f"smoke-size step on the card vs the CPU ({mode}, {comp} "
+                 f"{wd}, budgets {kb}): {err}")
+        print(f"reference ({mode}, {comp} {wd}, budgets {kb}): "
+              f"{json.dumps(parity)}", flush=True)
     try:
         gaps = serve_parity("cuda")
     except AssertionError as err:
@@ -1145,12 +1332,13 @@ def main() -> None:
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     counts = {}
-    for wire in ("sign", "block_topk"):
+    for wire in ("sign", "block_topk", "identity", "topk", "dense"):
         if settle(torch, f"the phases before the {wire} paths") > 1 << 30:
-            fail("over 1 GiB still allocated before a train path: the two "
-                 "wires' setups must not share the card")
+            fail("over 1 GiB still allocated before a train path: two "
+                 "setups must not share the card")
         counts.update(train_wire(torch, spec, shape, wire, n, dev,
-                                 launches))
+                                 launches, rounds=route[
+                                     "b6_launches_per_call"]))
     if settle(torch, "the train paths") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
@@ -1162,7 +1350,8 @@ def main() -> None:
         "ef_topk_fused": ("topk_pack", "topk_pack.py:137", "block_topk"),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
                                "block_topk"),
-        "topk_pack": ("topk_pack", "topk_pack.py:63", "block_topk coco"),
+        "topk_pack": ("topk_pack", "topk_pack.py:63",
+                      ("block_topk coco", "topk", "topk coco")),
         "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
@@ -1173,11 +1362,16 @@ def main() -> None:
     kernels = []
     for name, (src, replaces, path) in meta.items():
         r = at_slice[name]
+        paths = path if isinstance(path, tuple) else (path,)
+        if name == "topk_pack":       # its rounds in the global route
+            r = {**r, "more": {**r.get("more", {}), **{
+                f"global_route_{k}": v for k, v in route.items()}}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
-            "replaces": f"src/repro/kernels/{replaces}", "path": path,
-            "launches": counts.get(path, {}).get(name, 0),
+            "replaces": f"src/repro/kernels/{replaces}",
+            "path": " + ".join(paths),
+            "launches": sum(counts.get(p, {}).get(name, 0) for p in paths),
             "max_abs_err": max(checks.get(name, r)["max_abs_err"],
                                r["max_abs_err"]),
             "max_ulp": (max(checks.get(name, r)["max_ulp"], r["max_ulp"])

@@ -1,11 +1,16 @@
-"""The wires and the coded aggregate of COCO-EF (port of the sign-wire and
-block top-K parts of `repro.core.collectives`, with the name -> wire
-mapping of `repro.core.plan.build_wire`).
+"""The wires and the coded aggregate of COCO-EF (port of the wires of
+`repro.core.collectives`, with the name -> wire mapping of
+`repro.core.plan.build_wire`).
 
-SignWire and SparseWire are the wire contract: `pack`/`unpack` are the
-plain semantics, `fused_pack`, `fused_local_step` and `decode_reduce` route
-through the kernels (`repro_torch.kernels.ops`: the Hopper kernels for CUDA
-tensors, the plain versions for CPU tensors).
+SignWire, SparseWire and DenseWire are the wire contract: `pack`/`unpack`
+are the plain semantics, `fused_pack`, `fused_local_step` and
+`decode_reduce` route through the kernels (`repro_torch.kernels.ops`: the
+Hopper kernels for CUDA tensors, the plain versions for CPU tensors).
+Global top-K (compressor "topk") is a SparseWire with one block per
+all_to_all chunk, which the kernels' wrappers take through the global
+route of `kernels/topk_pack.py`.  DenseWire (the identity compressor, f32
+or bf16 on the wire) has no kernel in JAX either: plain PyTorch on both
+devices.
 
 On one device the coded collective is a single decode
 ----------------------------------------------------
@@ -23,8 +28,11 @@ values and scales of whole blocks), and the all_gather concatenates the
 chunk sums in chunk order without touching their bits.  With every coding
 rank on one device the three parts together are therefore one
 `decode_reduce` over the full payloads — bit for bit, on either wire.
-`coded_aggregate` is that form.  The multi-process NCCL collective is a
-later step.
+`coded_aggregate` is that form.  The dense wire goes one step further:
+the ranks run one after another, so each rank's m_i * C(acc_i) is added
+into one f32 accumulator as soon as it is made (`DenseWire.fold_`), which
+is the sender-order sum bit for bit without an (N, n) payload.  The
+multi-process NCCL collective is a later step.
 """
 from __future__ import annotations
 
@@ -37,8 +45,11 @@ import torch
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.topk_pack import index_dtype
 
-__all__ = ["SignWire", "SparseWire", "WIRES", "build_wire",
+__all__ = ["SignWire", "SparseWire", "DenseWire", "WIRES", "build_wire",
            "wire_bytes_sign", "coded_aggregate"]
+
+CHUNK = 1 << 28      # the dense wire's plain passes bound their temporaries
+#                      to this many elements
 
 
 def wire_bytes_sign(n: int, group_size: int) -> int:
@@ -47,8 +58,9 @@ def wire_bytes_sign(n: int, group_size: int) -> int:
 
 
 Payload = Tuple[torch.Tensor, ...]   # sign: (words, scales); sparse: (idx,
-#                                      values, scales); leading dim N when
-#                                      stacked over senders
+#                                      values, scales); dense: (values,);
+#                                      leading dim N when stacked over
+#                                      senders
 
 
 def _check_flat(wire, n: int, nd: int) -> None:
@@ -252,23 +264,107 @@ class SparseWire:
                                       self.block_size, out=out)
 
 
-Wire = Union[SignWire, SparseWire]
-WIRES = ("sign", "block_topk")
+@dataclasses.dataclass(frozen=True)
+class DenseWire:
+    """Uncompressed: the flat vector, in f32 (the SGC baseline's wire,
+    C = identity) or narrowed to bf16 (C(x) = f32(bf16(x))).
+
+    JAX has no kernel for it (`repro/kernels/ops.py::dense_decode_reduce`),
+    so every method is plain PyTorch, on either device.  The one-device
+    step runs the in-place methods: `fused_local_step_` (cocoef) or
+    `roundtrip_` (coco), then `fold_` into the ghat accumulator; that is
+    JAX's base `fused_local_step` (`repro/core/collectives.py:185-207`)
+    and its sender-order `decode_reduce`, rank by rank."""
+
+    value_dtype: str = "float32"
+
+    def __post_init__(self):
+        ref.wire_dtype(self.value_dtype)
+
+    @property
+    def vdt(self) -> torch.dtype:
+        return ref.wire_dtype(self.value_dtype)
+
+    def pack(self, x: torch.Tensor) -> Payload:
+        return (x.to(self.vdt),)
+
+    def unpack(self, payload: Payload) -> torch.Tensor:
+        return payload[0].to(torch.float32)
+
+    def wire_bytes(self, n: int) -> int:
+        return n * self.vdt.itemsize
+
+    def alignment(self) -> int:
+        return 1
+
+    def check(self, n: int, nd: int = 1) -> None:
+        _check_flat(self, n, nd)
+
+    def roundtrip_(self, x: torch.Tensor) -> torch.Tensor:
+        """x <- C(x) = f32(vdt(x)) in place (nothing to do on f32)."""
+        if self.vdt != torch.float32:
+            for i in range(0, x.numel(), CHUNK):
+                xc = x[i:i + CHUNK]
+                xc.copy_(xc.to(self.vdt))
+        return x
+
+    def fused_local_step_(self, g: torch.Tensor, e: torch.Tensor, gamma,
+                          mask_self) -> torch.Tensor:
+        """The Algorithm-1 local step in place: g <- c = C(acc) with acc =
+        gamma*g + e (two roundings), and e <- mask_self ? acc - c : e,
+        chunk by chunk (a CHUNK of temporaries).  Returns g, now c."""
+        ref.mul_add_(gamma, g, e)                           # g = acc
+        keep = ref.as_f32(mask_self, g) > 0
+        for i in range(0, g.numel(), CHUNK):
+            acc, ei = g[i:i + CHUNK], e[i:i + CHUNK]
+            c = self.unpack(self.pack(acc))
+            torch.where(keep, acc - c, ei, out=ei)
+            if c is not acc:
+                acc.copy_(c)
+        return g
+
+    @staticmethod
+    def fold_(ghat: torch.Tensor, c: torch.Tensor, mask_i) -> torch.Tensor:
+        """ghat <- ghat + mask_i * c, the product rounded on its own (one
+        step of the sender-order scan); c is overwritten with mask_i * c."""
+        return ghat.add_(c.mul_(ref.as_f32(mask_i, c)))
+
+    def decode_reduce(self, payloads: Payload, sender_mask: torch.Tensor,
+                      out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """sum_i sender_mask_i * f32(values_i) over stacked payloads, in
+        sender order from +0.0 (JAX's `dense_decode_reduce_scan`), written
+        into `out` when given."""
+        ghat = ref.dense_decode_reduce_ref(payloads[0], sender_mask)
+        return ghat if out is None else out.copy_(ghat)
+
+
+Wire = Union[SignWire, SparseWire, DenseWire]
+WIRES = ("sign", "block_topk", "topk", "identity")
 
 
 def build_wire(compressor: str, *, group_size: int = 512,
                k_per_block: Union[int, Tuple[int, ...]] = 8,
-               block_size: int = 256,
-               value_dtype: str = "float32") -> Wire:
-    """The wire of a compressor name and its knobs (the mapping of
-    `repro.core.plan.build_wire`, for the wires the port carries)."""
+               block_size: int = 256, topk_k: int = 64,
+               value_dtype: str = "float32", n: int = 0, nd: int = 1,
+               num_buckets: int = 1) -> Wire:
+    """The wire of a compressor name and its knobs for one bucket of `n`
+    coordinates over `nd` all_to_all chunks (the mapping of
+    `repro.core.plan.build_wire`).  Global top-K is one block per chunk
+    with the global budget topk_k split over the chunks and buckets."""
     if compressor == "sign":
         return SignWire(group_size=group_size)
     if compressor == "block_topk":
         return SparseWire(k_per_block=k_per_block, block_size=block_size,
                           value_dtype=value_dtype)
-    raise ValueError(f"unknown or unported compressor {compressor!r}; the "
-                     f"port carries {WIRES}")
+    if compressor == "topk":
+        block = n // nd
+        kb = -(-topk_k // (nd * num_buckets))
+        return SparseWire(k_per_block=min(block, kb), block_size=block,
+                          value_dtype=value_dtype)
+    if compressor == "identity":
+        return DenseWire(value_dtype=value_dtype)
+    raise ValueError(f"unknown compressor {compressor!r}; the port carries "
+                     f"{WIRES}")
 
 
 def coded_aggregate(wire: Wire, payloads: Payload, mask: torch.Tensor,

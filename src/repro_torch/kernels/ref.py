@@ -1,6 +1,6 @@
 """Plain PyTorch versions of the port's kernels (mirror of
-`repro/kernels/ref.py`: the sign and the block top-K wires, and flash
-attention).
+`repro/kernels/ref.py`: the sign, the block top-K and the dense wires,
+and flash attention).
 
 They define the semantics: the CUDA kernels in `csrc/` must match them
 bit for bit (the group sum follows the kernel's order), and the wrappers
@@ -117,6 +117,18 @@ def sign_decode_reduce_ref(words: torch.Tensor, scales: torch.Tensor,
     for i in range(words.shape[0]):
         acc = acc + mask[i].to(_F32) * sign_unpack_ref(words[i], scales[i],
                                                        group_size)
+    return acc
+
+
+def dense_decode_reduce_ref(values: torch.Tensor, mask: torch.Tensor
+                            ) -> torch.Tensor:
+    """sum_i mask_i * f32(values_i), over senders in order from +0.0, each
+    product rounded on its own: JAX's `dense_decode_reduce_scan` (the
+    dense wire has no kernel).  values (N, n) f32 or bf16, mask (N,) f32
+    -> (n,) f32."""
+    acc = torch.zeros(values.shape[1], dtype=_F32, device=values.device)
+    for i in range(values.shape[0]):
+        acc = acc + mask[i].to(_F32) * values[i].to(_F32)
     return acc
 
 

@@ -10,6 +10,40 @@ anything else raises ValueError on CUDA.  Payloads are in the wire's
 dtypes: in-block indices u16 (u32 when B > 65536), values in the value
 dtype, scales f32.  Each kernel launch adds
 one to `launches[<name>]` (`common.py`).
+
+The global route
+----------------
+Global top-K (compressor "topk") is one block per all_to_all chunk: B =
+n / nd, 665,057,280 on the train slice.  For a B larger than any kernel
+block (`is_global`), `ef_topk_fused`, `topk_pack` and `topk_decode_reduce`
+take the global route on CUDA, which computes the plain versions at that B
+exactly (the stable-sort selection, `lax.top_k`'s order):
+
+  select  `topk_pack`'s kernel (B6) on blocks of ROUND_BLOCK keeps each
+          block's top k; the kept entries' exact values are gathered, in
+          (block, slot) order, and B6 runs again on them, until a chunk has
+          at most FINAL_SORT candidates, which one stable sort orders.  An
+          entry of the chunk's top k under (|x| desc, position asc) has
+          fewer than k predecessors in its own block, so it is in that
+          block's top k; and (block, slot) order is position order among
+          equal magnitudes, so every round sees the chunk's own order.
+          Each chunk's candidates are padded with +0 at their end, which
+          sorts after every real entry.  B6 runs at least once, so no
+          chunk is ever sorted whole.
+  pack    scale = the first kept |x| (1.0 if 0), values = vdt(x / scale).
+  e'      (ef_topk_fused) acc = gamma*g + e is written into g (which the
+          step consumes); e' = mask ? acc : e everywhere (acc - (+0) is
+          acc, -0.0 included), then mask ? acc - c : e at the nd * k kept
+          positions.
+  decode  a zeroed output, and the sender-order sum at the union of the
+          N * nd * k kept positions (a sender that did not keep a position
+          adds mask * +0 there, as JAX's scan does).
+
+The glue between the B6 launches is plain PyTorch, as JAX's is jnp (its
+global route is `lax.top_k`, no Pallas kernel); B6's launches count under
+"topk_pack".  On the CPU the wrappers run the plain versions (and leave
+acc in g on the global route, as the card does); the `*_global` functions
+run the route itself on either device.
 """
 from __future__ import annotations
 
@@ -25,6 +59,8 @@ from .common import LL, VP, I, check, launches, raise_if, scalar, stream
 SUPPORTED_BLOCK_SIZES = (256, 512)     # see TOPK_DISPATCH
 BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
 K_MAX = 32                             # one output slot per lane
+ROUND_BLOCK = 256          # B6's block in the global route's rounds
+FINAL_SORT = 1024          # a chunk's candidates are sorted at this many
 
 
 @functools.cache
@@ -46,16 +82,24 @@ def index_dtype(block_size: int) -> torch.dtype:
     return torch.uint16 if block_size <= (1 << 16) else torch.uint32
 
 
+def is_global(block_size: int) -> bool:
+    """Whether the wrappers take the global route for this block size on
+    CUDA: blocks larger than any kernel block (global top-K's n / nd)."""
+    return block_size > max(SUPPORTED_BLOCK_SIZES)
+
+
 def _check_shape(n: int, k: int, block_size: int, vdt: torch.dtype,
                  device: torch.device,
-                 sizes: Tuple[int, ...] = SUPPORTED_BLOCK_SIZES) -> None:
+                 sizes: Tuple[int, ...] = SUPPORTED_BLOCK_SIZES,
+                 global_route: bool = False) -> None:
     if block_size <= 0 or n <= 0 or n % block_size:
         raise ValueError(f"need n a positive multiple of block_size (n={n}, "
                          f"B={block_size})")
     if not 0 < k <= block_size:
         raise ValueError(f"need 0 < k <= block_size, got {k} / {block_size}")
     if device.type == "cuda":
-        if block_size not in sizes:
+        if block_size not in sizes and not (global_route and
+                                            is_global(block_size)):
             raise ValueError(f"no CUDA kernel for block_size={block_size}; "
                              f"have {sizes}")
         if k > K_MAX:
@@ -108,11 +152,17 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     copy, see `sign_pack.ef_sign_fused`).  `out` = (idx (n/B, k) index
     dtype, val (n/B, k) value dtype, scales (n/B,) f32, e_new (n,) f32) to
     write into; e_new may be `e` itself.  Returns (idx, val, scales,
-    c or None, e_new)."""
+    c or None, e_new).
+
+    On the global route (`is_global(block_size)`) g is overwritten with
+    acc, on either device, and there are no budgets (k_send = k)."""
     n, dev = g.numel(), g.device
     vdt = ref.wire_dtype(value_dtype)
-    _check_shape(n, k, block_size, vdt, dev)
+    _check_shape(n, k, block_size, vdt, dev, global_route=True)
     k_send = _k_send(k_send, k)
+    glob = is_global(block_size)
+    if glob and k_send != k:
+        raise ValueError("the global route takes no per-rank budget")
     check(g, "g", torch.float32, (n,), dev)
     check(e, "e", torch.float32, (n,), dev)
     nb = n // block_size
@@ -127,11 +177,16 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         i, v, s, c, en = ref.ef_topk_fused_ref(g, e, gamma_t, mask_t, k,
                                                block_size, value_dtype,
                                                k_send)
+        if glob:
+            ref.mul_add_(gamma_t, g, e)
         idx.copy_(i)
         val.copy_(v)
         scales.copy_(s)
         e_new.copy_(en)
         return idx, val, scales, (c if want_c else None), e_new
+    if glob:
+        return ef_topk_global(g, e, gamma_t, mask_t, k, block_size,
+                              value_dtype, want_c, (idx, val, scales, e_new))
 
     c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
     err = _lib().ef_topk_fused_launch(
@@ -153,11 +208,16 @@ def topk_pack(x: torch.Tensor, k: int, block_size: int,
     into `out` when given."""
     n, dev = x.numel(), x.device
     vdt = ref.wire_dtype(value_dtype)
-    _check_shape(n, k, block_size, vdt, dev)
+    _check_shape(n, k, block_size, vdt, dev, global_route=True)
     k_send = _k_send(k_send, k)
     check(x, "x", torch.float32, (n,), dev)
     idx, val, scales = _payload_out(out, n // block_size, k, block_size,
                                     vdt, dev)
+    if dev.type == "cuda" and is_global(block_size):
+        if k_send != k:
+            raise ValueError("the global route takes no per-rank budget")
+        return topk_pack_global(x, k, block_size, value_dtype,
+                                (idx, val, scales))
     if dev.type == "cpu":
         i, v, s = ref.topk_pack_ref(x, k, block_size, k_send)
         idx.copy_(i)
@@ -185,7 +245,7 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
         raise ValueError(f"idx: need (N, n/B, k), got {tuple(idx.shape)}")
     N, nb, k = idx.shape
     n = nb * block_size
-    _check_shape(n, k, block_size, val.dtype, dev)
+    _check_shape(n, k, block_size, val.dtype, dev, global_route=True)
     check(idx, "idx", index_dtype(block_size), (N, nb, k), dev)
     check(val, "val", val.dtype, (N, nb, k), dev)
     check(scales, "scales", torch.float32, (N, nb), dev)
@@ -197,6 +257,8 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
     if dev.type == "cpu":
         return out.copy_(ref.topk_decode_reduce_ref(idx, val, scales, mask,
                                                     block_size))
+    if is_global(block_size):
+        return topk_decode_global(idx, val, scales, mask, block_size, out)
     if out.data_ptr() % 16:
         raise ValueError("out: the kernel stores float4, need 16-byte "
                          "alignment")
@@ -229,3 +291,120 @@ def block_topk(x: torch.Tensor, k: int, block_size: int,
     raise_if(err, "block_topk")
     launches["block_topk"] += 1
     return out
+
+
+# --- the global route (see the module docstring) ---------------------------
+
+def global_rounds(block_size: int, k: int) -> int:
+    """The B6 launches of one `global_select` over chunks of block_size
+    (one launch a round, all chunks together)."""
+    m, rounds = block_size, 0
+    while rounds == 0 or m > FINAL_SORT:
+        m = -(-m // ROUND_BLOCK) * k
+        rounds += 1
+    return rounds
+
+
+def global_select(x: torch.Tensor, k: int, nd: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The k largest |x| of each of the nd equal chunks of x (n,) f32, in
+    `lax.top_k` order: (positions in the chunk (nd, k) int64, the entries
+    themselves (nd, k) f32).  Rounds of B6 (`topk_pack` on blocks of
+    ROUND_BLOCK: the kernel on CUDA, its plain version on the CPU), then
+    one stable sort of at most FINAL_SORT candidates per chunk."""
+    X, P = x.view(nd, -1), None
+    while P is None or X.shape[1] > FINAL_SORT:
+        m = X.shape[1]
+        mp = -(-m // ROUND_BLOCK) * ROUND_BLOCK
+        if mp != m:                      # +0 after the chunk's candidates
+            X = torch.cat([X, X.new_zeros((nd, mp - m))], 1)
+            if P is not None:
+                P = torch.cat([P, P.new_full((nd, mp - m), -1)], 1)
+        idx, _, _ = topk_pack(X.reshape(-1), k, ROUND_BLOCK)
+        base = torch.arange(0, mp, ROUND_BLOCK, device=x.device)
+        cand = (base.view(1, -1, 1) + idx.view(nd, -1, k).to(torch.int64)
+                ).view(nd, -1)           # (block, slot) order
+        P = cand if P is None else torch.gather(P, 1, cand)
+        X = torch.gather(X, 1, cand)
+    order = torch.sort(X.abs(), dim=1, descending=True,
+                       stable=True).indices[:, :k]
+    return torch.gather(P, 1, order), torch.gather(X, 1, order)
+
+
+def _pack_global(x, k, nd, out):
+    """Select and write the payload (idx, val, scales) into `out`; returns
+    (positions in the chunk (nd, k) int64, c at them (nd, k) f32)."""
+    idx, val, scales = out
+    pos, sv = global_select(x, k, nd)
+    safe = ref._safe_scale(sv)
+    val.copy_(sv / safe[:, None])
+    scales.copy_(safe)
+    idx.copy_(pos)
+    return pos, val.to(torch.float32) * safe[:, None]
+
+
+def topk_pack_global(x: torch.Tensor, k: int, block_size: int,
+                     value_dtype: str = "float32",
+                     out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """`topk_pack` at a block of n / nd by the global route, on either
+    device: the plain version's payload bit for bit."""
+    n, dev = x.numel(), x.device
+    vdt = ref.wire_dtype(value_dtype)
+    out = _payload_out(out, n // block_size, k, block_size, vdt, dev)
+    _pack_global(x, k, n // block_size, out)
+    return out
+
+
+def ef_topk_global(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
+                   k: int, block_size: int, value_dtype: str = "float32",
+                   want_c: bool = False,
+                   out: Optional[Tuple[torch.Tensor, ...]] = None):
+    """`ef_topk_fused` at a block of n / nd by the global route, on either
+    device: the plain version's payload, c and e' bit for bit; g is
+    overwritten with acc = gamma*g + e.  `out` = (idx, val, scales, e_new),
+    e_new may be e.  Returns (idx, val, scales, c or None, e_new)."""
+    n, dev = g.numel(), g.device
+    vdt = ref.wire_dtype(value_dtype)
+    if out is None:
+        out = _payload_out(None, n // block_size, k, block_size, vdt,
+                           dev) + (torch.empty_like(e),)
+    nd, e_new = n // block_size, out[3]
+    acc = ref.mul_add_(gamma, g, e)
+    pos, c_kept = _pack_global(acc, k, nd, out[:3])
+    keep = ref.as_f32(mask_self, g) > 0
+    torch.where(keep, acc, e, out=e_new)       # acc - (+0) off the kept set
+    rows = e_new.view(nd, block_size)
+    rows.scatter_(1, pos, torch.where(
+        keep, acc.view(nd, block_size).gather(1, pos) - c_kept,
+        rows.gather(1, pos)))
+    c = None
+    if want_c:
+        c = torch.zeros(n, dtype=torch.float32, device=dev)
+        c.view(nd, block_size).scatter_(1, pos, c_kept)
+    return out[0], out[1], out[2], c, e_new
+
+
+def topk_decode_global(idx: torch.Tensor, val: torch.Tensor,
+                       scales: torch.Tensor, mask: torch.Tensor,
+                       block_size: int,
+                       out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """`topk_decode_reduce` at a block of n / nd, on either device: +0
+    everywhere but the union of the senders' kept positions, and there the
+    sender-order sum of mask_i * (val * scale, or +0 where sender i kept
+    nothing), as JAX's `topk_decode_reduce_scan`."""
+    N, nd, k = idx.shape
+    dev = idx.device
+    if out is None:
+        out = torch.empty(nd * block_size, dtype=torch.float32, device=dev)
+    base = torch.arange(nd, device=dev).view(1, -1, 1) * block_size
+    P = (base + idx.to(torch.int64)).view(N, nd * k)
+    SV = (val.to(torch.float32) * scales[..., None]).view(N, nd * k)
+    union = P.view(-1)                 # with repeats: each gets one value
+    slot = torch.arange(nd * k, device=dev)
+    acc = torch.zeros(union.numel(), dtype=torch.float32, device=dev)
+    for i in range(N):
+        eq = union[:, None] == P[i][None, :]
+        term = torch.where(eq.any(1), SV[i][(eq * slot).amax(1)], 0.0)
+        acc = acc + mask[i] * term
+    out.zero_()
+    return out.scatter_(0, union, acc)

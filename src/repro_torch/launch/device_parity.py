@@ -1,11 +1,12 @@
 """The train step, and the serving path, on one device against the same
 on the CPU.
 
-`step_parity(device, compressor, k_budgets, mode)` builds the f32
-smoke-size gemma2-2b slice (g = 32, N = 4; sign wire, or block top-K with
-k = 8, B = 256, f32 values, uniform or with one k budget per rank; cocoef
-or coco mode) on the CPU and on `device`, from the same parameters, and
-checks two things:
+`step_parity(device, compressor, k_budgets, mode, wire_dtype)` builds the
+f32 smoke-size gemma2-2b slice (g = 32, N = 4; sign wire, block top-K with
+k = 8, B = 256, uniform or with one k budget per rank, global top-K (one
+block of n / 4 per chunk, k = 16) or the dense wire; values in
+`wire_dtype`; cocoef, coco or dense mode) on the CPU and on `device`, from
+the same parameters, and checks two things:
 
   full step   one `train_step` from the same batch and mask (rank 1 a
               straggler).  Stage 1 sums in another order on each device, so
@@ -17,8 +18,9 @@ checks two things:
               accumulator moves c by 2 * (group scale), so TOL = 2 on the
               sign wire; a top-K selection flipped at a near-tie swaps one
               kept coordinate for another, each |c| <= |acc| <= the block
-              scale, so TOL = 1 on the block top-K wire (summed over the N
-              ranks, whose payloads add into ghat).
+              scale, so TOL = 1 on the top-K wires (summed over the N
+              ranks, whose payloads add into ghat).  The dense wire and
+              dense mode flip nothing: TOL = 0, theta within 1e-6.
   stage 2     `coded_update` fed the same injected gradients and error
               vectors on both devices.  The kernels equal their plain
               versions bit for bit, so the payload rows, the error vectors
@@ -27,8 +29,11 @@ checks two things:
               payload rows or buffers cannot hide in a tolerance.  The
               injected blocks include a zero block, a -0.0 block and, on
               the block top-K wire, k + 1 equal maxima of mixed sign and a
-              block of exactly k nonzeros.  In coco mode every error
-              vector must keep the bits it had before the step.
+              block of exactly k nonzeros; on the global top-K wire an
+              all-zero chunk, a chunk of fewer than k nonzeros (one of them
+              denormal) and a tie at the k-th largest |acc| between two
+              far-apart positions.  In the coco and dense modes every
+              error vector must keep the bits it had before the step.
 
 `serve_parity(device)` builds the smoke-size gemma2-2b serving setup
 (B = 4 prompts of S = 32 tokens, longer than the local window of 8) on
@@ -71,18 +76,20 @@ __all__ = ["serve_parity", "step_parity"]
 MASK = (1.0, 0.0, 1.0, 1.0)
 
 
-FLIP = {"sign": 2.0, "block_topk": 1.0}     # TOL of the docstring
+FLIP = {"sign": 2.0, "block_topk": 1.0, "topk": 1.0}   # TOL of the docstring
 PAYLOAD = {"sign": ("words", "scales"),
-           "block_topk": ("idx", "values", "scales")}
+           "block_topk": ("idx", "values", "scales"),
+           "topk": ("idx", "values", "scales")}
 
 
 def _setups(device, compressor: str, k_budgets: Optional[Tuple[int, ...]],
-            mode: str) -> List[TrainSetup]:
+            mode: str, wire_dtype: str) -> List[TrainSetup]:
     """Two separate setups, one on the CPU and one on `device`."""
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
-        coding=dataclasses.replace(spec.coding, group_size=32))
+        coding=dataclasses.replace(spec.coding, group_size=32,
+                                   wire_dtype=wire_dtype))
     run = TrainRun(base_lr=5e-3, compressor=compressor, k_budgets=k_budgets,
                    mode=mode)
     return [build_train_setup(spec, ShapeCfg("train", 32, 8), run,
@@ -117,12 +124,36 @@ def _adversarial_(grads: torch.Tensor, e0: torch.Tensor, L: int,
     e0[:, 3 * L:4 * L] = 0.0
 
 
+def _adversarial_chunks_(grads: torch.Tensor, e0: torch.Tensor, nd: int,
+                         k: int) -> None:
+    """Global top-K's chunks (acc = gamma*g + e, one chunk per block):
+    chunk 0 holds a tie at its k-th largest |acc| between two far-apart
+    positions (k - 1 larger entries, then 3.0 and -3.0 at its two ends);
+    chunk 1 fewer than k nonzeros, one of them denormal; chunk 2 is all
+    zero (-0.0 in e)."""
+    B = grads.shape[1] // nd
+    grads[:, :B].mul_(1e-3)
+    e0[:, :B].mul_(1e-3)
+    grads[:, 100:100 + k - 1] = 7.0
+    e0[:, 100:100 + k - 1] = 0.0
+    grads[:, [1, B - 2]] = torch.tensor([3.0, -3.0])
+    e0[:, [1, B - 2]] = 0.0
+    grads[:, B:2 * B] = 0.0
+    e0[:, B:2 * B] = 0.0
+    grads[:, B + 9:B + 9 + 3 * (k // 2):3] = -1.25
+    grads[:, B + 5] = 1e-40
+    grads[:, 2 * B:3 * B] = 0.0
+    e0[:, 2 * B:3 * B] = -0.0
+
+
 def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
                 k_budgets: Optional[Tuple[int, ...]] = None,
-                mode: str = "cocoef") -> Dict[str, float]:
+                mode: str = "cocoef", wire_dtype: str = "float32"
+                ) -> Dict[str, float]:
     """Run both checks (see the module docstring); returns the measured
     gaps of the full step."""
-    cpu, dev = _setups(device, compressor, k_budgets, mode)
+    cpu, dev = _setups(device, compressor, k_budgets, mode, wire_dtype)
+    folds = cpu.cocoef_cfg.folds
     n_code, n = cpu.n_code, cpu.flat_pad
     cpu.init_state()
     theta0 = cpu.model.theta.clone()
@@ -141,8 +172,8 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
            "max_abs_dtheta": d.max().item(),
            "frac_dtheta_over_1e-6": (d > 1e-6).float().mean().item()}
     assert np.isfinite(l1) and abs(l0 - l1) <= 1e-4 * abs(l0), out
-    assert out["max_abs_dtheta"] <= \
-        FLIP[compressor] * n_code * max(s0, s1) + 1e-6, out
+    flip = 0.0 if folds else FLIP[compressor]
+    assert out["max_abs_dtheta"] <= flip * n_code * max(s0, s1) + 1e-6, out
     assert out["frac_dtheta_over_1e-6"] < 0.01, out
 
     rng = np.random.default_rng(seed)
@@ -154,7 +185,10 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     e0 = torch.from_numpy((rng.standard_normal((n_code, n)) * mag * 1e-2)
                           .astype(np.float32))
     _adversarial_(grads, e0, L, ccfg.wire.k_max
-                  if compressor == "block_topk" else None)
+                  if compressor == "block_topk" and not folds else None)
+    if compressor == "topk" and not folds:
+        _adversarial_chunks_(grads, e0, n_code,
+                             ccfg.wire_format(n, n_code).k_max)
     got = []
     for s in (cpu, dev):
         s.model.theta.copy_(theta0)
@@ -164,17 +198,19 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
         def grad_of(i, s=s, g=g):
             s.model.grad.copy_(g[i])
             return s.model.grad
-        s.coded_update(s.model, grad_of, e, mask.to(s.device), 1)
-        got.append({**dict(zip(PAYLOAD[compressor], s.payload)), "e": e,
-                    "ghat": s.model.grad, "theta": s.model.theta})
+        ghat = s.coded_update(s.model, grad_of, e, mask.to(s.device), 1)
+        names = ("ghat",) if folds else PAYLOAD[compressor]
+        got.append({**dict(zip(names, s.payload)), "e": e,
+                    "ghat": ghat, "theta": s.model.theta})
     for k in got[0]:
         a, b = _bits(got[0][k]), _bits(got[1][k])
         assert torch.equal(a, b), (
             f"stage 2 on {device} ({mode}, {compressor}, budgets "
             f"{k_budgets}): {k} differs from the CPU in "
             f"{int((a != b).sum())} of {a.numel()} entries")
-    # cocoef leaves the straggler's error alone, coco every rank's
-    for i in (range(n_code) if mode == "coco" else [1]):
+    # cocoef leaves the straggler's error alone, coco and dense every
+    # rank's
+    for i in (range(n_code) if mode != "cocoef" else [1]):
         assert torch.equal(_bits(got[0]["e"][i]), _bits(e0[i])), \
             f"{mode}: rank {i}'s error vector changed"
     return out

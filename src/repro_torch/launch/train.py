@@ -13,7 +13,13 @@
            the server update theta <- theta - ghat runs in place.
            In coco mode (no error feedback) the local step is gamma*g_i
            in place and the pack only (sign_pack or topk_pack); e stays
-           as it is.
+           as it is.  Global top-K (compressor "topk", one block per
+           chunk) runs the same steps through the kernels' global route
+           (rounds of topk_pack).  On the dense wire (compressor
+           "identity", f32 or bf16) and in dense mode (the SGC baseline:
+           gamma*g_i, no compression, no error feedback) each rank's
+           mask_i * C(acc_i) is added into an f32 accumulator as it is
+           made, and the accumulator is ghat.
 
 The coding ranks share the card, so the JAX collective's all_to_all /
 decode / all_gather is one decode here (`core.collectives`).
@@ -46,9 +52,11 @@ class TrainRun:
     batches and the straggler masks, the mode, and JAX's wire overrides
     (the other wire knobs come from the spec's CodingPlan).
 
-    mode: "cocoef" (the paper's method) or "coco" (its baseline without
-      error feedback); JAX's "dense" is not ported yet.
-    compressor: overrides spec.coding.compressor ("sign" | "block_topk").
+    mode: "cocoef" (the paper's method), "coco" (its baseline without
+      error feedback) or "dense" (stochastic gradient coding, no
+      compression).
+    compressor: overrides spec.coding.compressor ("sign" | "block_topk" |
+      "topk" | "identity").
     k_budgets: one block top-K budget per coding rank; overrides
       spec.coding.k_per_block and needs the block_topk wire."""
 
@@ -85,7 +93,7 @@ class TrainRun:
                                  f"ranks")
             k_per_block = tuple(self.k_budgets)
         return CocoEFConfig(group_size=plan.group_size, mode=self.mode,
-                            compressor=comp,
+                            compressor=comp, topk_k=plan.topk_k,
                             k_per_block=k_per_block,
                             block_size=plan.block_size,
                             wire_dtype=plan.wire_dtype)
@@ -120,11 +128,13 @@ class TrainSetup:
     def flat_pad(self) -> int:
         return self.model.layout.padded
 
-    def init_state(self) -> torch.Tensor:
+    def init_state(self) -> Optional[torch.Tensor]:
         """Random parameters from `run.seed`; returns the zero (N, n) error
-        vectors (in coco mode too, which never touches them: the state has
-        JAX's shape)."""
+        vectors, or None in the coco and dense modes, which never read
+        them (42.6 GB at the slice's n)."""
         self.model.init_(self.run.seed)
+        if self.cocoef_cfg.mode != "cocoef":
+            return None
         return torch.zeros((self.n_code, self.flat_pad), dtype=torch.float32,
                            device=self.device)
 
@@ -139,14 +149,16 @@ class TrainSetup:
             return torch.ones(self.n_code, dtype=torch.float32)
         return self.straggler_process.mask(self.run.seed, step)
 
-    def train_step(self, params: Model, e: torch.Tensor, batch: Batch,
-                   step: int, masks: Optional[torch.Tensor] = None,
+    def train_step(self, params: Model, e: Optional[torch.Tensor],
+                   batch: Batch, step: int,
+                   masks: Optional[torch.Tensor] = None,
                    kernel_spans: Optional[List] = None
                    ) -> Dict[str, torch.Tensor]:
-        """One COCO-EF step (or COCO step, in coco mode); updates
-        params.theta, e (not in coco mode) and the optimizer state in
-        place.  masks: (N,) participation for this step (default:
-        the setup's straggler process at `step`).  kernel_spans: see
+        """One COCO-EF step (or COCO or SGC step, in the coco and dense
+        modes); updates params.theta, e (only in cocoef mode; None is fine
+        in the others) and the optimizer state in place.  masks: (N,)
+        participation for this step (default: the setup's straggler
+        process at `step`).  kernel_spans: see
         `cocoef_update`.  Returns {"loss": mean rank loss, "losses": (N,),
         "mask": (N,)}."""
         tokens, weights = batch
@@ -166,13 +178,14 @@ class TrainSetup:
         ls = torch.stack(losses)
         return {"loss": ls.mean(), "losses": ls, "mask": mask}
 
-    def coded_update(self, params: Model, grad_of, e: torch.Tensor,
-                     mask: torch.Tensor, step: int,
+    def coded_update(self, params: Model, grad_of,
+                     e: Optional[torch.Tensor], mask: torch.Tensor, step: int,
                      kernel_spans: Optional[List] = None) -> torch.Tensor:
         """Stage 2 and the server update of one step: `cocoef_update` over
         the ranks' gradients grad_of(i), with ghat written into
-        params.grad, then theta <- theta - ghat in place.  mask: (N,) f32 on
-        the setup's device.  Returns ghat (a view of params.grad)."""
+        params.grad (on the dense wire and in dense mode ghat is the
+        accumulator, payload[0]), then theta <- theta - ghat in place.
+        mask: (N,) f32 on the setup's device.  Returns ghat."""
         gamma = lr_schedule("constant", self.run.base_lr)(step)
         # one copy to the device per step, made before stage 1 is queued,
         # instead of one per rank that would block the host between ranks
@@ -192,7 +205,9 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
     (data=n_code, model=1) mesh: cyclic allocation with M = n_code subsets
     and d = spec.coding.redundancy, rate-aware encode weights (eq. 3 for
     the iid process), flat size padded to n_code * pad_multiple (the sign
-    group, joined with the block on the block top-K wire)."""
+    group, joined with the block on the block top-K wire).  With
+    compressor "topk" the wire is one block of n / n_code per chunk, as on
+    JAX's (data=n_code, model=1) mesh."""
     cfg = spec.smoke if smoke else spec.config
     if n_code < 2:
         raise ValueError("the coded step needs at least 2 coding ranks")
@@ -222,13 +237,17 @@ def _payload_buffers(ccfg: CocoEFConfig, n_code: int, n: int,
                     device) -> Tuple[torch.Tensor, ...]:
     """Zeroed payload buffers of the run's wire for n_code ranks, in the
     wire's dtypes: sign (words (N, n/32) u32, scales (N, n/g) f32); block
-    top-K (idx (N, n/B, k_max), values (N, n/B, k_max), scales (N, n/B))."""
-    wire = ccfg.wire
+    or global top-K (idx (N, n/B, k_max), values (N, n/B, k_max), scales
+    (N, n/B)); the dense wire and dense mode (the ghat accumulator (n,)
+    f32,), since each rank's payload is folded into it as it is made."""
+    if ccfg.folds:
+        return (torch.zeros(n, dtype=torch.float32, device=device),)
     if ccfg.compressor == "sign":
         return (torch.zeros((n_code, n // 32), dtype=torch.uint32,
                             device=device),
                 torch.zeros((n_code, n // ccfg.group_size),
                             dtype=torch.float32, device=device))
+    wire = ccfg.wire_format(n, n_code)
     nb = n // wire.block_size
     return (torch.zeros((n_code, nb, wire.k_max), dtype=wire.index_dtype,
                         device=device),

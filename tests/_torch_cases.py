@@ -139,6 +139,33 @@ def topk_inputs(n: int, block_size: int, k: int, seed: int,
     return g, e
 
 
+KB = 16            # global top-K's k: ceil(topk_k / nd) = ceil(64 / 4)
+
+
+def topk_chunks(nd, B, seed, denormals=True):
+    """(nd * B,) f32 of global top-K chunks of widely varying scale, with
+    adversarial chunks first: a tie at the KB-th largest |x| between two
+    far-apart positions; fewer than KB nonzeros with a -0.0 and a denormal
+    (with denormals=False a small normal: XLA:CPU flushes denormals,
+    ROADMAP C6); all zero."""
+    rng = np.random.default_rng(seed)
+    x = rng.standard_normal(nd * B).astype(np.float32)
+    x *= np.repeat(np.exp(rng.uniform(-10, 10, nd)), B).astype(np.float32)
+    c0 = x[:B]
+    c0 *= np.float32(1e-3) / np.abs(c0).max()
+    c0[300:300 + KB - 1] = 7.0
+    c0[[1, B - 2]] = [3.0, -3.0]          # only position 1 can be kept
+    if nd > 1:
+        c1 = x[B:2 * B]
+        c1[:] = 0.0
+        c1[7:7 + 3 * (KB // 2):3] = -1.25
+        c1[5] = 1e-40 if denormals else 1e-30
+        c1[4] = -0.0
+    if nd > 2:
+        x[2 * B:3 * B] = 0.0
+    return x
+
+
 def topk_rows(B: int, seed: int, denormals: bool = False) -> np.ndarray:
     """(16 * B,) f32, 16 blocks of B for `block_topk`: the adversarial row
     families of tests/test_topk_select.py (ties, all equal, tiny,
@@ -206,8 +233,12 @@ JAX_RUN = textwrap.dedent(f"""
     kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
     if "k_budgets" in kw:
         kw["k_budgets"] = tuple(kw["k_budgets"])
-    pad = ({G} if kw.get("compressor", "sign") == "sign"
-           else math.lcm({G}, spec.coding.block_size))
+    if "wire_dtype" in kw:
+        spec = dataclasses.replace(spec, coding=dataclasses.replace(
+            spec.coding, wire_dtype=kw.pop("wire_dtype")))
+    mesh_stage2 = kw.pop("mesh_stage2", False)
+    pad = (math.lcm({G}, spec.coding.block_size)
+           if kw.get("compressor") == "block_topk" else {G})
     setup = build_train_setup(spec, mesh, shape,
                               TrainRun(base_lr={LR}, backend="pallas", **kw),
                               smoke=True)
@@ -235,6 +266,27 @@ JAX_RUN = textwrap.dedent(f"""
         out[f"loss{{t}}"] = np.asarray(m["loss"])
         out[f"theta{{t+1}}"] = flat(jax.tree.leaves(params))
         out[f"e{{t+1}}"] = np.asarray(e).reshape(4, -1)
+    if mesh_stage2:
+        # JAX's stage 2 alone on the mesh (cocoef_update in a shard_map
+        # over the 4 devices), fed the dumped gradients, state and masks
+        from jax.sharding import PartitionSpec as P
+        from repro.compat import shard_map
+        from repro.core.cocoef import cocoef_update
+
+        def s2(g, e, mask):
+            gh, en = cocoef_update(g.reshape(-1), e.reshape(-1), mask,
+                                   jnp.float32({LR}), setup.cocoef_cfg)
+            return gh.reshape(1, -1), en.reshape(1, -1)
+        s2 = jax.jit(shard_map(s2, mesh, in_specs=(P("data"), P("data"),
+                                                   P()),
+                               out_specs=(P("data"), P("data")),
+                               check=False))
+        for t in range(3):
+            e_in = (np.zeros_like(out["g0"]) if t == 0
+                    else out[f"e{{t}}"])
+            gh, en = s2(out[f"g{{t}}"], e_in, out[f"mask{{t}}"])
+            out[f"s2_ghat{{t}}"] = np.asarray(gh)
+            out[f"s2_e{{t}}"] = np.asarray(en)
     np.savez(sys.argv[1], **out)
 """)
 
@@ -250,11 +302,12 @@ def _jax_run(tmp_path_factory, run_kw=None):
     return dict(np.load(path))
 
 
-def _port_setup(**run_kw):
+def _port_setup(wire_dtype="float32", **run_kw):
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
-        coding=dataclasses.replace(spec.coding, group_size=G))
+        coding=dataclasses.replace(spec.coding, group_size=G,
+                                   wire_dtype=wire_dtype))
     return build_train_setup(spec, ShapeCfg("train", 32, 8),
                              TrainRun(base_lr=LR, **run_kw), smoke=True,
                              n_code=N, device="cpu")

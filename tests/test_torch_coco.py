@@ -277,9 +277,9 @@ def test_coco_step_parity_cpu_against_cpu(compressor, k_budgets):
 
 def test_modes_are_validated():
     assert TrainRun().mode == CocoEFConfig().mode == "cocoef"
-    for bad in ("dense", "ef21"):
-        with pytest.raises(ValueError, match="not ported" if bad == "dense"
-                           else "unknown mode"):
+    assert TrainRun(mode="dense").mode == CocoEFConfig(mode="dense").mode
+    for bad in ("ef21", "Dense"):
+        with pytest.raises(ValueError, match="unknown mode"):
             TrainRun(mode=bad)
         with pytest.raises(ValueError):
             CocoEFConfig(mode=bad)

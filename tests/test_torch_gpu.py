@@ -380,3 +380,103 @@ def test_serve_cuda_matches_cpu(cuda):
     the CPU (`launch/device_parity.serve_parity`), f32 and bf16."""
     from repro_torch.launch.device_parity import serve_parity
     serve_parity("cuda")
+
+
+# --- global top-K and the dense wire ---------------------------------------
+
+@pytest.mark.parametrize("nd,B", [(4, 4_096), (4, 41_120), (3, 70_000),
+                                  (2, 256 * 1_000)])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [1.0, 0.0])
+def test_global_topk_route_matches_plain(cuda, nd, B, value_dtype, mask):
+    """The global route on the card (rounds of the topk_pack kernel) against
+    the plain stable sort of whole chunks on the CPU, bit for bit: payload,
+    c, e' (in place) and acc left in g; topk_pack and the union decode
+    too.  B > 65,536 gets u32 indices; the adversarial chunks of
+    `topk_chunks` (a far-apart tie at the k-th, fewer than k nonzeros with
+    -0.0 and a denormal, all zero) come first."""
+    from _torch_cases import KB, topk_chunks
+    g = topk_chunks(nd, B, seed=B)
+    e = (np.random.default_rng(nd).standard_normal(nd * B) * 1e-3).astype(
+        np.float32)
+    e[B:3 * B] = -0.0
+    e[[1, B - 2]] = 0.0
+    e[300:300 + KB - 1] = 0.0
+    gt, et = torch.from_numpy(g).to(cuda), torch.from_numpy(e).to(cuda)
+    before = dict(tp.launches)
+    got = tp.ef_topk_fused(gt, et, 1.0, mask, KB, B, value_dtype,
+                           want_c=True,
+                           out=tp._payload_out(None, nd, KB, B,
+                                               ref.wire_dtype(value_dtype),
+                                               gt.device) + (et,))
+    torch.cuda.synchronize()
+    assert tp.launches["topk_pack"] - before["topk_pack"] == \
+        tp.global_rounds(B, KB)                   # the rounds, one launch
+    assert tp.launches["ef_topk_fused"] == before["ef_topk_fused"]
+    want = ref.ef_topk_fused_ref(torch.from_numpy(g), torch.from_numpy(e),
+                                 1.0, mask, KB, B, value_dtype)
+    assert got[0].dtype == tp.index_dtype(B)
+    assert torch.equal(got[0].cpu().to(torch.int64), want[0].to(torch.int64))
+    assert _same(got[1].float(), want[1])
+    for a, b in zip(got[2:], want[2:]):
+        assert _same(a, b)
+    assert _same(gt, ref.mul_add(1.0, torch.from_numpy(g),
+                                 torch.from_numpy(e)))
+    x = torch.from_numpy(g).to(cuda)
+    packed = tp.topk_pack(x, KB, B, value_dtype)
+    wp = ref.topk_pack_ref(torch.from_numpy(g), KB, B)
+    assert torch.equal(packed[0].cpu().to(torch.int64), wp[0].to(torch.int64))
+    assert _same(packed[1].float(), wp[1].to(packed[1].dtype).float())
+    assert _same(packed[2], wp[2])
+    senders = [got[:3], packed, got[:3]]
+    idx = torch.stack([p[0].to(torch.int64) for p in senders])
+    val = torch.stack([p[1] for p in senders])
+    sc = torch.stack([p[2] for p in senders])
+    m = torch.tensor([1.0, 0.0, 1.0], device=cuda)
+    dec = tp.topk_decode_reduce(idx.to(tp.index_dtype(B)), val, sc, m, B)
+    assert _same(dec, ref.topk_decode_reduce_ref(idx.cpu(), val.cpu(),
+                                                 sc.cpu(), m.cpu(), B))
+
+
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [1.0, 0.0])
+def test_dense_wire_on_card_matches_cpu(cuda, value_dtype, mask,
+                                        monkeypatch):
+    """The dense wire's in-place local step (chunked: CHUNK made small),
+    roundtrip, fold and stacked decode on the card against the CPU, bit
+    for bit."""
+    from repro_torch.core import collectives
+    monkeypatch.setattr(collectives, "CHUNK", 1000)
+    w = collectives.DenseWire(value_dtype)
+    g, e = ef_inputs(32 * 8 * 37, 32, seed=7)
+    out = []
+    for dev in ("cpu", cuda):
+        gt = torch.from_numpy(g.copy()).to(dev)
+        et = torch.from_numpy(e.copy()).to(dev)
+        ghat = torch.zeros_like(gt)
+        c = w.fused_local_step_(gt, et, torch.tensor(GAMMA, device=dev),
+                                torch.tensor(mask, device=dev))
+        w.fold_(ghat, c, torch.tensor(0.5, device=dev))
+        x = w.roundtrip_(torch.from_numpy(g * np.float32(3.3)).to(dev))
+        w.fold_(ghat, x, torch.tensor(1.0, device=dev))
+        stacked = torch.stack([et, ghat, et]).to(w.vdt)
+        dec = w.decode_reduce((stacked,), torch.tensor([1.0, 0.0, 1.0],
+                                                       device=dev))
+        out.append((gt, et, ghat, x, dec))
+    for a, b in zip(*out):
+        assert _same(a, b)
+
+
+@pytest.mark.parametrize("name", ["identity", "identity_bf16",
+                                  "identity_coco", "topk", "topk_coco",
+                                  "dense"])
+def test_new_paths_train_step_cuda_matches_cpu(cuda, name):
+    from repro_torch.launch.device_parity import step_parity
+    kw = {"identity": {"compressor": "identity"},
+          "identity_bf16": {"compressor": "identity",
+                            "wire_dtype": "bfloat16"},
+          "identity_coco": {"compressor": "identity", "mode": "coco"},
+          "topk": {"compressor": "topk"},
+          "topk_coco": {"compressor": "topk", "mode": "coco"},
+          "dense": {"mode": "dense"}}[name]
+    step_parity("cuda", **kw)

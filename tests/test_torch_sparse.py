@@ -334,7 +334,7 @@ def test_bad_inputs_raise():
     with pytest.raises(ValueError):
         SparseWire(0, 256)
     with pytest.raises(ValueError):
-        CocoEFConfig(compressor="topk")
+        CocoEFConfig(compressor="randk")
     short = CocoEFConfig(compressor="block_topk", k_per_block=(8, 4),
                          block_size=64)
     with pytest.raises(ValueError):                       # 2 budgets, 4 ranks

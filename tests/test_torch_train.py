@@ -275,8 +275,8 @@ def test_train_run_validates_the_wire_overrides():
     with pytest.raises(ValueError):          # one budget per rank
         TrainRun(compressor="block_topk",
                  k_budgets=(8, 4)).coding_config(spec.coding, 4)
-    with pytest.raises(ValueError):
-        TrainRun(compressor="topk").coding_config(spec.coding, 4)
+    with pytest.raises(ValueError):          # no such compressor
+        TrainRun(compressor="randk").coding_config(spec.coding, 4)
     cfg = TrainRun(compressor="block_topk", k_budgets=(8, 8, 4, 2)
                    ).coding_config(spec.coding, 4)
     assert cfg.k_per_block == (8, 8, 4, 2) and cfg.pad_multiple == 512
