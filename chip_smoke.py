@@ -45,10 +45,22 @@ Phases (any failure exits non-zero and prints no result line):
                 (f32, bf16, coco), global top-K (cocoef, coco) and dense
                 mode: the full step within stated tolerances, stage 2 on
                 injected gradients bit for bit (in the coco and dense modes
-                e untouched); the smoke-size serving
+                e untouched), and the configurations of phase 7 (two
+                buckets in both schedules, phase 2 in bf16 and re-packed
+                on the sign wire); the smoke-size serving
                 path (prefill + 4 decode steps, f32 and bf16) on the card
                 against the CPU (`serve_parity`)
-  5. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
+  5. parity     the parity gate (`launch/parity.py`) on the card: at JAX's
+                parity sizes (linreg dim 1024, group 32, block 64, k 4,
+                N = 4, d = 2, p = 0.25, 2 shards, T = 20) and at dim
+                2**22 with the slice's wire (group 512; k 8 of 256;
+                gamma scaled by 1024 / dim), for sign, block top-K and
+                identity: the reference loop on the card equals the same
+                loop on the CPU bit for bit, and `run_parity` (the loop
+                against the one-device step) is bit-exact for buckets
+                {1, 2} x {serial, pipelined}, with exactly the step's
+                kernel launches
+  6. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
                 the card, d = 2.  Sign wire g = 512: 5 COCO-EF steps, then
                 5 COCO steps (mode "coco", no error feedback) on the same
                 setup; then, with that setup freed, the block top-K wire
@@ -69,7 +81,22 @@ Phases (any failure exits non-zero and prints no result line):
                 must leave the error vectors' bits as they were, and no
                 path launches flash_attention.  Each step prints its
                 seconds, kernel ms and launches, each path its peak memory
-  6. serve      with the train setups freed: gemma2-2b at full width and
+  7. buckets    gemma2-2b at full width and depth, N = 4 on the card, one
+                setup at a time: the sign wire in two buckets (stage 2 on
+                seeded injected gradients in both schedules must give the
+                same ghat and e bits, then 3 pipelined and 2 serial
+                steps), block top-K in two buckets (2 pipelined steps),
+                the sign wire with phase 2 in bf16 and re-packed on the
+                sign wire (2 steps each); exact launch counts per path
+                (phase 2's re-pack is one sign_pack a bucket), stage-2 ms
+                per step, and a peak no higher than the wire's path in
+                phase 6 (but for the wider padding)
+  8. nccl       one `nccl` process group of world size 1 (file:// init
+                under build/): the process-group update on CUDA tensors
+                (sign, block top-K, two buckets, pipelined) equals the
+                one-device update bit for bit.  N = 4 over NCCL needs
+                four cards
+  9. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
                 layer, all on the tensor-core route) then 32 greedy
@@ -87,6 +114,7 @@ import dataclasses
 import gc
 import json
 import math
+import os
 import re
 import subprocess
 import sys
@@ -122,6 +150,18 @@ SERVE_SEED = 0
 FLEX_OPTIONS = {"BLOCK_M": 64, "BLOCK_N": 64, "num_stages": 1,
                 "num_warps": 8}
 LIBRARY_MAX_ABS_ERR = 0.0625  # flex_attention rounds p to bf16 for p.v
+PARITY_T = 20
+# run_parity at JAX's parity sizes, then at the Notes' n per rank with the
+# slice's wire knobs and gamma scaled by 1024 / dim: the curvature of the
+# linear regression grows with dim, and at JAX's 2e-6 the loop overflows
+# to NaN within 20 steps at dim 2**22
+PARITY_SIZES = ((1024, {}), (1 << 22, {"group_size": GROUP,
+                                        "block_size": BLOCK,
+                                        "k_per_block": K,
+                                        "gamma": 2e-6 * 1024 / (1 << 22)}))
+BUCKETS = 2
+HASH_CHUNK = 1 << 26      # position-weighted bit hashes, this many at once
+NCCL_N = 1 << 26
 
 
 def ptxas_summary(report: str) -> list:
@@ -1015,9 +1055,10 @@ def e_checksums(torch, e) -> list:
 
 
 def train_path(torch, setup, e, first: int, steps: int, label: str,
-               want: dict, launches: dict) -> dict:
+               want: dict, launches: dict, stats: dict = None) -> dict:
     """`steps` train steps from step `first`, with the launch counts reset
-    just before and read just after; fails unless they equal `want`."""
+    just before and read just after; fails unless they equal `want`.
+    `stats`, when given, gets each step's kernel ms and seconds."""
     batches = [setup.make_batch(t) for t in range(first, first + steps)]
     torch.cuda.synchronize()
     for k in launches:
@@ -1031,6 +1072,9 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
         torch.cuda.synchronize()
         step_s = time.perf_counter() - t_start
         kernel_ms = sum(a.elapsed_time(b) for a, b in spans)
+        if stats is not None:
+            stats.setdefault("kernel_ms", []).append(kernel_ms)
+            stats.setdefault("step_s", []).append(step_s)
         print(json.dumps({"path": label, "step": t, "loss": loss,
                           "step_s": step_s, "kernel_ms": kernel_ms,
                           "mask": m["mask"].tolist(),
@@ -1047,6 +1091,11 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
         if not all_finite(torch, rows):
             fail(f"{label}: non-finite {name} after training")
     return got
+
+
+PEAKS = {}                # peak bytes allocated by train path
+SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
+              "sign phase2 bf16", "sign phase2 sign")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -1118,6 +1167,7 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
         # the peak over the path's steps (the first path's includes
         # building the setup)
         peak = torch.cuda.max_memory_allocated()
+        PEAKS[label] = peak
         if sums is not None and e_checksums(torch, e) != sums:
             fail(f"{label}: the error vectors changed in coco mode")
         print(f"train ({label}): gemma2-2b "
@@ -1128,6 +1178,261 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
         torch.cuda.reset_peak_memory_stats()
         first += steps
     return counts
+
+
+def parity_phase(torch, launches) -> dict:
+    """The parity gate on the card (`launch/parity.py`): at each of
+    PARITY_SIZES, for each wire, the reference loop on the card must equal
+    the same loop on the CPU bit for bit, and `run_parity` (the loop
+    against the one-device step) must be bit-exact for buckets {1, 2} x
+    both schedules, with exactly the step's kernel launches (the loop
+    launches none: its compressor is the wire's plain roundtrip)."""
+    from repro_torch.launch.parity import (PARITY_COMPRESSORS,
+                                           reference_loop, run_parity)
+    kernel = {"sign": ("ef_sign_fused", "sign_decode_reduce"),
+              "block_topk": ("ef_topk_fused", "topk_decode_reduce")}
+    out = {}
+    for dim, knobs in PARITY_SIZES:
+        for comp in PARITY_COMPRESSORS:
+            t0 = time.perf_counter()
+            on_card, on_cpu = (reference_loop(comp, PARITY_T, dim=dim,
+                                              device=d, **knobs)
+                               for d in ("cuda", "cpu"))
+            for a, b in zip(on_card, on_cpu):
+                if not same(a.cpu(), b):
+                    fail(f"parity: the reference loop ({comp}, dim {dim}) "
+                         f"on the card differs from the CPU")
+            loop_s = time.perf_counter() - t0
+            for buckets in (1, BUCKETS):
+                for sched in ("serial", "pipelined"):
+                    torch.cuda.synchronize()
+                    for k in launches:
+                        launches[k] = 0
+                    t0 = time.perf_counter()
+                    r = run_parity(comp, T=PARITY_T, dim=dim,
+                                   num_buckets=buckets,
+                                   bucket_schedule=sched, device="cuda",
+                                   **knobs)
+                    torch.cuda.synchronize()
+                    got = {k: v for k, v in launches.items() if v}
+                    steps = PARITY_T * r["shards"]
+                    want = ({} if comp not in kernel else
+                            {kernel[comp][0]: steps * r["N"] * buckets,
+                             kernel[comp][1]: steps * buckets})
+                    if not (r["bitexact"] and math.isfinite(r["loss_ref"])
+                            and r["loss_ref"] < r["loss_start"]):
+                        fail(f"parity: {json.dumps(r)}")
+                    if got != want:
+                        fail(f"parity ({comp}, dim {dim}, {buckets} "
+                             f"buckets, {sched}): launches {got}, want "
+                             f"{want}")
+                    out[f"{dim}/{comp}/{buckets}/{sched}"] = {
+                        "bitexact": True, "launches": got,
+                        "loss_ref": r["loss_ref"], "loss_step": r["loss_step"],
+                        "s": time.perf_counter() - t0}
+            out[f"{dim}/{comp}/loop card == cpu"] = {"T": PARITY_T,
+                                                     "s": loop_s}
+    print("parity: " + json.dumps(out), flush=True)
+    return out
+
+
+def bits_hash(torch, rows) -> list:
+    """Position-weighted int64 sums of the bits of each HASH_CHUNK of each
+    row: equal lists mean equal bits (short of a collision), at a fraction
+    of a copy's memory."""
+    out = []
+    for r in rows:
+        for i in range(0, r.numel(), HASH_CHUNK):
+            b = r[i:i + HASH_CHUNK].view(torch.int32).to(torch.int64)
+            w = torch.arange(1, b.numel() + 1, dtype=torch.int64,
+                             device=b.device)
+            out.append(int((b * w).sum()))
+    return out
+
+
+def injected_stage2(torch, setup, e, schedule: str) -> tuple:
+    """Stage 2 of `setup` on seeded gradients and errors (the same for
+    every call), in `schedule`: (hashes of ghat and e, kernel ms)."""
+    cfg = dataclasses.replace(setup.cocoef_cfg, bucket_schedule=schedule)
+    path = dataclasses.replace(setup, cocoef_cfg=cfg)
+    gen = torch.Generator(device=setup.device)
+    gen.manual_seed(1)
+    for row in e:
+        for i in range(0, row.numel(), CHUNK):
+            row[i:i + CHUNK].normal_(generator=gen).mul_(0.01)
+
+    def grad_of(i):
+        gen.manual_seed(100 + i)
+        gbuf = setup.model.grad
+        for j in range(0, gbuf.numel(), CHUNK):
+            gbuf[j:j + CHUNK].normal_(generator=gen)
+        return gbuf
+    spans = []
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=setup.device)
+    ghat = path.coded_update(path.model, grad_of, e, mask, 1,
+                             kernel_spans=spans)
+    torch.cuda.synchronize()
+    return (bits_hash(torch, [ghat]), bits_hash(torch, e),
+            sum(a.elapsed_time(b) for a, b in spans))
+
+
+def bucket_setups() -> list:
+    """(setup knobs, paths) of the buckets phase; a path is (label, run
+    knobs, steps, launches per step)."""
+    n2 = {"ef_sign_fused": N_CODE * BUCKETS, "sign_decode_reduce": BUCKETS}
+    one = {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}
+    return [
+        ({"compressor": "sign", "num_buckets": BUCKETS}, [
+            ("sign b2 pipelined", {}, 3, n2),
+            ("sign b2 serial", {"bucket_schedule": "serial"}, 2, n2)]),
+        ({"compressor": "block_topk", "num_buckets": BUCKETS}, [
+            ("block_topk b2 pipelined", {}, 2,
+             {"ef_topk_fused": N_CODE * BUCKETS,
+              "topk_decode_reduce": BUCKETS})]),
+        ({"compressor": "sign"}, [
+            ("sign phase2 bf16", {"phase2_dtype": "bfloat16"}, 2, one),
+            ("sign phase2 sign", {"phase2_sign": True}, 2,
+             {**one, "sign_pack": 1})])]
+
+
+def buckets_phase(torch, spec, shape, dev, launches) -> dict:
+    """gemma2-2b at full width and depth, N = 4 on the card, with buckets
+    and phase 2 (`bucket_setups`): each setup freed before the next; on
+    the bucketed sign setup, stage 2 on the same seeded inputs in both
+    schedules must give the same ghat and e bits; then real steps of each
+    path with exact launch counts, a peak no higher than its wire's
+    unbucketed path in phase 6 (but for the wider padding), and the
+    stage-2 kernel ms per step."""
+    from repro_torch.core.cocoef import padded_size
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    from repro_torch.nn.transformer import num_params
+    counts, summary = {}, {}
+    first = 100
+    for knobs, paths in bucket_setups():
+        if settle(torch, f"the paths before {paths[0][0]}") > 1 << 30:
+            fail("over 1 GiB still allocated before a buckets setup")
+        torch.cuda.reset_peak_memory_stats()
+        base = TrainRun(base_lr=5e-3, **knobs)
+        setup = build_train_setup(spec, shape, base, n_code=N_CODE,
+                                  device=dev)
+        cfg = setup.cocoef_cfg
+        want_n = padded_size(num_params(spec.config), N_CODE,
+                             cfg.pad_multiple, cfg.num_buckets)
+        if setup.flat_pad != want_n:
+            fail(f"buckets: flat size {setup.flat_pad} != {want_n}")
+        e = setup.init_state()
+        if knobs.get("num_buckets", 1) > 1 and knobs["compressor"] == "sign":
+            hp, hs = (injected_stage2(torch, setup, e, sched)
+                      for sched in ("pipelined", "serial"))
+            if hp[:2] != hs[:2]:
+                fail("buckets: the serial schedule's ghat or e differs "
+                     "from the pipelined one on the same inputs")
+            summary["sign b2 injected"] = {
+                "ghat_e_bit_equal": True, "kernel_ms_pipelined": hp[2],
+                "kernel_ms_serial": hs[2]}
+            summary["sign b2 injected"]["peak_B"] = \
+                torch.cuda.max_memory_allocated()
+            setup.model.init_(0)
+            e.zero_()
+            torch.cuda.reset_peak_memory_stats()
+        for label, run_knobs, steps, per_step in paths:
+            run = dataclasses.replace(base, **run_knobs)
+            path = dataclasses.replace(setup, run=run,
+                                       cocoef_cfg=run.coding_config(
+                                           spec.coding, N_CODE))
+            stats = {}
+            counts[label] = train_path(
+                torch, path, e, first, steps, label,
+                {k: v * steps for k, v in per_step.items()}, launches,
+                stats)
+            peak = torch.cuda.max_memory_allocated()
+            PEAKS[label] = peak
+            # no higher than the same wire's unbucketed path (phase 6),
+            # but for a flat size padded for two buckets: up to
+            # pad_multiple * N more coordinates in theta, the gradient and
+            # each error row
+            one = knobs["compressor"]
+            slack = (setup.flat_pad - padded_size(
+                num_params(spec.config), N_CODE, cfg.pad_multiple)) * 4 * (
+                    2 + N_CODE) + (2 << 20)
+            if peak > PEAKS[one] + slack:
+                fail(f"buckets ({label}): peak {peak} B over the {one} "
+                     f"path's {PEAKS[one]} B (+ {slack} B)")
+            summary[label] = {"flat": setup.flat_pad,
+                              "kernel_ms": stats["kernel_ms"],
+                              "step_s": stats["step_s"], "peak_B": peak,
+                              f"{one}_peak_B": PEAKS[one],
+                              "launches": {k: v for k, v in
+                                           counts[label].items() if v}}
+            torch.cuda.reset_peak_memory_stats()
+            first += steps
+        del setup, path, e
+    print("buckets: " + json.dumps(summary), flush=True)
+    return counts
+
+
+def nccl_phase(torch, dev, launches) -> dict:
+    """One `nccl` process group of world size 1 (a file:// init under
+    build/, no network): the group update (`group_cocoef_update`) on CUDA
+    tensors, sign and block top-K, 2 buckets pipelined, must equal the
+    one-device update bit for bit, with exact launch counts.  It shows the
+    payload's byte views and the async handles work under NCCL; N = 4 over
+    NCCL needs four cards (NCCL puts one rank on a card)."""
+    import torch.distributed as dist
+    from repro_torch.core.cocoef import (CocoEFConfig, cocoef_update,
+                                         group_buffers, group_cocoef_update)
+    from repro_torch.launch.mesh import coding_grid
+    from repro_torch.launch.train import _payload_buffers
+    init = ROOT / "build" / f"nccl_init_{os.getpid()}"
+    init.parent.mkdir(parents=True, exist_ok=True)
+    if init.exists():
+        init.unlink()
+    torch.cuda.set_device(dev)
+    dist.init_process_group("nccl", init_method=f"file://{init}", rank=0,
+                            world_size=1)
+    out = {}
+    try:
+        grid = coding_grid((1,))
+        gen = torch.Generator(device=dev).manual_seed(7)
+        mask = torch.ones(1, device=dev)
+        for comp, kern in (("sign", ("ef_sign_fused", "sign_decode_reduce")),
+                           ("block_topk", ("ef_topk_fused",
+                                           "topk_decode_reduce"))):
+            cfg = CocoEFConfig(group_size=GROUP, compressor=comp,
+                               block_size=BLOCK, k_per_block=K,
+                               num_buckets=BUCKETS)
+            g = torch.randn(NCCL_N, generator=gen, device=dev)
+            e0 = torch.randn(NCCL_N, generator=gen, device=dev) * 0.01
+            e1 = e0.clone()[None]
+            want = cocoef_update(lambda i: g.clone(), e1, mask, 5e-3, cfg,
+                                 _payload_buffers(cfg, 1, NCCL_N, dev))
+            bufs = group_buffers(cfg, grid.nd, NCCL_N, dev)
+            e2 = e0.clone()
+            torch.cuda.synchronize()
+            for k in launches:
+                launches[k] = 0
+            got = group_cocoef_update(g.clone(), e2, mask, 5e-3, cfg, grid,
+                                      bufs)
+            torch.cuda.synchronize()
+            n_l = {k: v for k, v in launches.items() if v}
+            if n_l != {kern[0]: BUCKETS, kern[1]: BUCKETS}:
+                fail(f"nccl ({comp}): launches {n_l}")
+            if not (same(got, want) and same(e2, e1[0])):
+                fail(f"nccl ({comp}): the group update over NCCL differs "
+                     f"from the one-device update")
+            ms = cuda_ms(lambda: group_cocoef_update(
+                g.clone(), e0.clone(), mask, 5e-3, cfg, grid, bufs), 3)
+            out[comp] = {"n": NCCL_N, "buckets": BUCKETS,
+                         "schedule": "pipelined", "bit_equal": True,
+                         "launches": n_l, "ms": ms}
+    finally:
+        dist.destroy_process_group()
+        if init.exists():
+            init.unlink()
+    print("nccl: " + json.dumps(out) + "; world size 1 on this card: N = 4 "
+          "over NCCL needs four cards", flush=True)
+    return out
+
 
 
 def serve_request(torch, setup, prompts, launches, n_layers: int):
@@ -1180,7 +1485,7 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
 
 
 def serve(torch, spec, dev, launches) -> int:
-    """The serve phase (6 in the module docstring); returns the
+    """The serve phase (9 in the module docstring); returns the
     flash_attention launches of the whole phase."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.launch.serve import build_serve_setup
@@ -1314,15 +1619,23 @@ def main() -> None:
               ("cocoef", "topk", None, "float32"),
               ("coco", "topk", None, "float32"),
               ("dense", "sign", None, "float32")]
-    for mode, comp, kb, wd in cases:
+    cases = [c + ({},) for c in cases]
+    for knobs, paths in bucket_setups():     # the buckets phase's configs
+        setup_knobs = dict(knobs)
+        comp = setup_knobs.pop("compressor")
+        cases += [("cocoef", comp, None, "float32", {**setup_knobs, **rk})
+                  for _, rk, _, _ in paths]
+    for mode, comp, kb, wd, knobs in cases:
         try:
             parity = step_parity("cuda", compressor=comp, k_budgets=kb,
-                                 mode=mode, wire_dtype=wd)
+                                 mode=mode, wire_dtype=wd, **knobs)
         except AssertionError as err:
             fail(f"smoke-size step on the card vs the CPU ({mode}, {comp} "
-                 f"{wd}, budgets {kb}): {err}")
-        print(f"reference ({mode}, {comp} {wd}, budgets {kb}): "
+                 f"{wd}, budgets {kb}, {knobs}): {err}")
+        print(f"reference ({mode}, {comp} {wd}, budgets {kb}"
+              f"{', ' + json.dumps(knobs) if knobs else ''}): "
               f"{json.dumps(parity)}", flush=True)
+    parity_phase(torch, launches)
     try:
         gaps = serve_parity("cuda")
     except AssertionError as err:
@@ -1339,20 +1652,26 @@ def main() -> None:
         counts.update(train_wire(torch, spec, shape, wire, n, dev,
                                  launches, rounds=route[
                                      "b6_launches_per_call"]))
+    counts.update(buckets_phase(torch, spec, shape, dev, launches))
+    if settle(torch, "the buckets phase") > 1 << 30:
+        fail("over 1 GiB still allocated before the nccl phase")
+    nccl_phase(torch, dev, launches)
     if settle(torch, "the train paths") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
                                                         launches)}
 
     meta = {
-        "ef_sign_fused": ("sign_pack", "sign_pack.py:112", "sign"),
-        "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", "sign"),
-        "ef_topk_fused": ("topk_pack", "topk_pack.py:137", "block_topk"),
+        "ef_sign_fused": ("sign_pack", "sign_pack.py:112", SIGN_PATHS),
+        "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", SIGN_PATHS),
+        "ef_topk_fused": ("topk_pack", "topk_pack.py:137",
+                          ("block_topk", "block_topk b2 pipelined")),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
-                               "block_topk"),
+                               ("block_topk", "block_topk b2 pipelined")),
         "topk_pack": ("topk_pack", "topk_pack.py:63",
                       ("block_topk coco", "topk", "topk coco")),
-        "sign_pack": ("sign_pack", "sign_pack.py:60", "sign coco"),
+        "sign_pack": ("sign_pack", "sign_pack.py:60",
+                      ("sign coco", "sign phase2 sign")),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
         # the serve path's bf16 kernel (f32 runs flash_attention.cu)

@@ -1,8 +1,10 @@
-"""COCO-EF over flat state on one device (port of `repro.core.cocoef`:
-the cocoef, coco and dense modes, on the sign, block top-K, global top-K
-and dense wires).
+"""COCO-EF over flat state (port of `repro.core.cocoef`: the cocoef, coco
+and dense modes, on the sign, block top-K, global top-K and dense wires,
+with buckets and phase 2), in two forms: every coding rank on one device
+(`cocoef_update`), or one process per coding rank over `torch.distributed`
+(`group_cocoef_update`).
 
-All N coding ranks share the device.  Each rank's error vector is one row
+On one device all N coding ranks share it.  Each rank's error vector is one row
 of an (N, n) tensor, the rank gradients come one at a time through a single
 flat gradient buffer, and the step is Algorithm 1:
 
@@ -36,6 +38,28 @@ boundaries, so the flat vector follows JAX's `tree.leaves` order (dict keys
 sorted at every level) and shapes, padded with zeros to `padded_size`.
 Parameters and gradients are views into flat buffers (`FlatLayout.views`),
 never concatenated copies.
+
+Buckets.  `num_buckets` splits the flat vector into equal parts (the flat
+size is padded to a multiple of chunk_ranks * pad_multiple * buckets),
+each with its own wire, payload and collective: global top-K's k per
+bucket is ceil(topk_k / (nd * buckets)).  Every value is elementwise in
+the bucket, so the split changes no bit on the sign and block top-K wires
+(groups and blocks never straddle a bucket).  `bucket_schedule` orders the
+issue (JAX's `_BucketSchedule`): "serial" finishes bucket b (decode and
+phase 2) before bucket b+1's local step; "pipelined" finishes it only
+after bucket b+1's local step and all_to_all were issued, so a transfer
+can overlap the next bucket's compute.  The same operations run on the
+same data, so both give the same bits.  On one device the rank loop is
+outermost (the ranks share one gradient buffer), and the schedule orders
+the decodes against the last rank's local steps.
+
+Phase 2 (`phase2_dtype`, `phase2_sign`) is what the all_gather returns to
+every rank: the aggregate in f32, rounded through bf16, or re-packed on
+the sign wire (group_size) and unpacked.  Dense mode has no phase 2, as in
+JAX (its psum returns f32).  On one device phase 2 runs in place on each
+bucket of ghat after its decode (`collectives.phase2_local_`); the sign
+re-pack writes into row 0 of the bucket's sign payload, which the decode
+has finished reading.
 """
 from __future__ import annotations
 
@@ -47,12 +71,16 @@ import torch
 
 from repro_torch.kernels import ref
 
-from .collectives import DenseWire, Wire, build_wire, coded_aggregate
+from .collectives import (CodingCollectiveConfig, DenseWire, SignWire, Wire,
+                          build_wire, coded_aggregate, coded_allreduce_start,
+                          dense_allreduce, phase2_local_)
 
 __all__ = ["CocoEFConfig", "FlatLayout", "flat_layout", "padded_size",
-           "cocoef_update", "MODES", "check_mode"]
+           "cocoef_update", "group_cocoef_update", "group_buffers",
+           "bucket_payload", "payload_specs", "MODES", "SCHEDULES", "check_mode"]
 
 MODES = ("cocoef", "coco", "dense")
+SCHEDULES = ("serial", "pipelined")
 
 
 def check_mode(mode: str) -> None:
@@ -72,7 +100,10 @@ class CocoEFConfig:
     topk_k: the global top-K budget, split evenly over the chunks.
     k_per_block / block_size: the block top-K wire's kept coordinates per
       block (an int, or one budget per coding rank) and block length.
-    wire_dtype: the sparse wires' value dtype, the dense wire's dtype."""
+    wire_dtype: the sparse wires' value dtype, the dense wire's dtype.
+    phase2_dtype / phase2_sign: phase 2 (see the module docstring).
+    num_buckets / bucket_schedule: buckets and their issue order
+      ("pipelined" | "serial"; the same bits)."""
 
     group_size: int = 512
     mode: str = "cocoef"
@@ -81,9 +112,19 @@ class CocoEFConfig:
     k_per_block: Union[int, Tuple[int, ...]] = 8
     block_size: int = 256
     wire_dtype: str = "float32"
+    phase2_dtype: str = "float32"
+    phase2_sign: bool = False
+    num_buckets: int = 1
+    bucket_schedule: str = "pipelined"
 
     def __post_init__(self):
         check_mode(self.mode)
+        if self.bucket_schedule not in SCHEDULES:
+            raise ValueError(f"unknown bucket_schedule "
+                             f"{self.bucket_schedule!r}; have {SCHEDULES}")
+        if self.num_buckets < 1:
+            raise ValueError(f"num_buckets={self.num_buckets} must be >= 1")
+        self.collective()     # validates phase2_dtype
         if self.topk_k < 1:
             raise ValueError(f"need topk_k >= 1, got {self.topk_k}")
         if self.compressor != "topk":
@@ -91,13 +132,20 @@ class CocoEFConfig:
         else:
             ref.wire_dtype(self.wire_dtype)
 
+    def collective(self) -> CodingCollectiveConfig:
+        return CodingCollectiveConfig(group_size=self.group_size,
+                                      phase2_dtype=self.phase2_dtype,
+                                      phase2_sign=self.phase2_sign)
+
     def wire_format(self, n: int = 0, nd: int = 1) -> Wire:
-        """The wire for `n` coordinates over `nd` all_to_all chunks (only
-        global top-K depends on them: one block per chunk)."""
+        """The wire for one bucket of `n` coordinates over `nd` all_to_all
+        chunks (only global top-K depends on them: one block per chunk,
+        its budget split over the chunks and buckets)."""
         return build_wire(self.compressor, group_size=self.group_size,
                           k_per_block=self.k_per_block,
                           block_size=self.block_size, topk_k=self.topk_k,
-                          value_dtype=self.wire_dtype, n=n, nd=nd)
+                          value_dtype=self.wire_dtype, n=n, nd=nd,
+                          num_buckets=self.num_buckets)
 
     @property
     def wire(self) -> Wire:
@@ -185,6 +233,74 @@ class _KernelSpans:
         return False
 
 
+def bucket_payload(payload: Tuple[torch.Tensor, ...], b: int,
+                   num_buckets: int) -> Tuple[torch.Tensor, ...]:
+    """Bucket b's leaves of payload buffers that carry a leading bucket
+    dimension when num_buckets > 1 (and none when it is 1)."""
+    return payload if num_buckets == 1 else tuple(p[b] for p in payload)
+
+
+def payload_specs(cfg: CocoEFConfig, n_bucket: int, nd: int
+                  ) -> List[Tuple[Tuple[int, ...], torch.dtype]]:
+    """(shape, dtype) of each payload leaf of one rank's bucket of
+    `n_bucket` coordinates over `nd` chunks: sign (words (n/32,) u32,
+    scales (n/g,) f32); block or global top-K (idx (n/B, k_max), values
+    (n/B, k_max), scales (n/B,) f32); the dense wire (values (n,))."""
+    wire = cfg.wire_format(n_bucket, nd)
+    if isinstance(wire, DenseWire):
+        return [((n_bucket,), wire.vdt)]
+    if cfg.compressor == "sign":
+        return [((n_bucket // 32,), torch.uint32),
+                ((n_bucket // cfg.group_size,), torch.float32)]
+    nb = n_bucket // wire.block_size
+    return [((nb, wire.k_max), wire.index_dtype),
+            ((nb, wire.k_max), ref.wire_dtype(wire.value_dtype)),
+            ((nb,), torch.float32)]
+
+
+def _check_budgets(wire: Wire, n_code: int) -> None:
+    if wire.has_rank_budgets() and len(wire.k_per_block) != n_code:
+        raise ValueError(
+            f"wire has {len(wire.k_per_block)} per-rank budgets, the "
+            f"coding collective has {n_code} ranks")
+
+
+def _buckets(n: int, num_buckets: int) -> List[slice]:
+    if n % num_buckets:
+        raise ValueError(f"flat size {n} is not a multiple of num_buckets="
+                         f"{num_buckets}; pad with padded_size")
+    nb = n // num_buckets
+    return [slice(b * nb, (b + 1) * nb) for b in range(num_buckets)]
+
+
+class _BucketSchedule:
+    """The issue order of the buckets' collectives (JAX's
+    `_BucketSchedule`, `repro/core/cocoef.py:187-223`).  submit(start,
+    finish) issues bucket b (start() returns its handle) and
+      serial:     finishes it at once;
+      pipelined:  finishes the previous bucket only now, after this one's
+                  local step and start were issued, and holds this one.
+    The same work runs either way, so the values are the same."""
+
+    def __init__(self, schedule: str):
+        self.pipelined = schedule == "pipelined"
+        self._pending: Optional[Callable[[], None]] = None
+
+    def submit(self, start: Callable, finish: Callable) -> None:
+        handle = start()
+        if not self.pipelined:
+            finish(handle)
+            return
+        if self._pending is not None:
+            self._pending()
+        self._pending = lambda: finish(handle)
+
+    def collect(self) -> None:
+        if self._pending is not None:
+            self._pending()
+            self._pending = None
+
+
 def cocoef_update(grad_of: Callable[[int], torch.Tensor],
                   e: Optional[torch.Tensor], mask: torch.Tensor, gamma,
                   cfg: CocoEFConfig, payload: Tuple[torch.Tensor, ...],
@@ -204,43 +320,70 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
       and dense modes (may be None there).
     mask: (N,) f32 straggler indicators I_i^t.
     gamma: the learning rate (already inside ghat, eq. 4).
-    payload: the wire's payload buffers stacked over ranks: sign (words
-      (N, n/32) u32, scales (N, n/g) f32); block or global top-K (idx
-      (N, n/B, k), values (N, n/B, k), scales (N, n/B) f32); the dense
-      wire and dense mode (ghat (n,) f32,): the accumulator.
-    out: where to write ghat; may be the gradient buffer, which is free
-      once the last rank's local step has run.  Not used where ghat is
-      the accumulator (the dense wire, dense mode).
+    payload: the wire's payload buffers stacked over ranks, with a leading
+      bucket dimension when cfg.num_buckets > 1 (`payload_specs` per rank
+      and bucket): sign (words (N, n/32) u32, scales (N, n/g) f32); block
+      or global top-K (idx (N, n/B, k), values (N, n/B, k), scales
+      (N, n/B) f32); the dense wire and dense mode (ghat (n,) f32,): the
+      accumulator.
+    out: where to write ghat; may be the gradient buffer, whose bucket b
+      is free once the last rank's local step on it has run.  Not used
+      where ghat is the accumulator (the dense wire, dense mode).
     kernel_spans: when a list and on CUDA, gets a (start, end) event pair
-      around every rank's local step (in coco mode its gamma*g and pack)
-      and around the decode.
+      around every rank's local step on every bucket (in coco mode its
+      gamma*g and pack) and around every bucket's decode and phase 2.
     Returns ghat (n,) f32: apply as  params -= ghat."""
-    N = mask.shape[0]
+    N, B = mask.shape[0], cfg.num_buckets
     spans = _KernelSpans(kernel_spans, mask.device)
+    coll = cfg.collective()
     if cfg.folds:
-        return _folded_update(grad_of, e, mask, gamma, cfg, payload[0],
+        ghat = _folded_update(grad_of, e, mask, gamma, cfg, payload[0],
                               spans)
-    wire = None
+        if cfg.mode != "dense":               # JAX's dense psum: no phase 2
+            for sl in _buckets(ghat.numel(), B):
+                with spans:
+                    phase2_local_(ghat[sl], coll)
+        return ghat
+    sched = _BucketSchedule(cfg.bucket_schedule)
+    wire = ghat = None
     for i in range(N):
         g = grad_of(i)
-        if wire is None:          # global top-K's block is n / N
-            wire = cfg.wire_format(g.numel(), N)
-            wire.check(g.numel(), N)
-            if wire.has_rank_budgets() and len(wire.k_per_block) != N:
-                raise ValueError(
-                    f"wire has {len(wire.k_per_block)} per-rank budgets, "
-                    f"the coding collective has {N} ranks")
-        rows = tuple(p[i] for p in payload)
-        with spans:
-            if cfg.mode == "coco":
-                # one f32 rounding, as JAX's gamma * g_local; no c, no e
-                acc = g.mul_(ref.as_f32(gamma, g))
-                wire.fused_pack(acc, out=rows, rank=i)
-            else:
-                wire.fused_local_step(g, e[i], gamma, mask[i],
-                                      out=rows + (e[i],), rank=i)
+        if wire is None:
+            slices = _buckets(g.numel(), B)
+            n_b = g.numel() // B      # global top-K's block is n_b / N
+            wire = cfg.wire_format(n_b, N)
+            wire.check(n_b, N)
+            _check_budgets(wire, N)
+            ghat = torch.empty_like(g) if out is None else out
+        for b, sl in enumerate(slices):
+            pb = bucket_payload(payload, b, B)
+            rows = tuple(p[i] for p in pb)
+            with spans:
+                if cfg.mode == "coco":
+                    # one f32 rounding, as JAX's gamma * g; no c, no e
+                    acc = g[sl].mul_(ref.as_f32(gamma, g))
+                    wire.fused_pack(acc, out=rows, rank=i)
+                else:
+                    e_b = e[i, sl]
+                    wire.fused_local_step(g[sl], e_b, gamma, mask[i],
+                                          out=rows + (e_b,), rank=i)
+            if i == N - 1:
+                sched.submit(lambda: None,
+                             lambda _, pb=pb, sl=sl: _decode_one(
+                                 wire, pb, mask, ghat[sl], coll, spans))
+    sched.collect()
+    return ghat
+
+
+def _decode_one(wire: Wire, pb: Tuple[torch.Tensor, ...], mask, out,
+                coll: CodingCollectiveConfig, spans) -> None:
+    """One bucket's decode into `out`, then its phase 2 (the sign re-pack
+    into row 0 of the bucket's sign payload, free after the decode)."""
     with spans:
-        return coded_aggregate(wire, payload, mask, out=out)
+        coded_aggregate(wire, pb, mask, out=out)
+        rows0 = (pb[0][0], pb[1][0]) if (
+            coll.phase2_sign and isinstance(wire, SignWire)) else None
+        phase2_local_(out, coll, rows0)
 
 
 def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
@@ -248,7 +391,8 @@ def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
     """`cocoef_update` where ghat is one accumulator: rank by rank, C(acc_i)
     is made in the gradient buffer and mask_i * C(acc_i) added into ghat,
     from +0.0 in rank order.  Dense mode is the f32 identity without error
-    feedback: acc_i = gamma*g_i (one rounding) is C(acc_i)."""
+    feedback: acc_i = gamma*g_i (one rounding) is C(acc_i).  Buckets change
+    no value here (everything is elementwise)."""
     wire = cfg.wire if cfg.mode != "dense" else DenseWire()
     with spans:
         ghat.zero_()
@@ -260,4 +404,76 @@ def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
             else:
                 c = wire.roundtrip_(g.mul_(ref.as_f32(gamma, g)))
             wire.fold_(ghat, c, mask[i])
+    return ghat
+
+
+def group_buffers(cfg: CocoEFConfig, nd: int, n: int, device
+                  ) -> List[Tuple[Tuple[torch.Tensor, ...],
+                                  Tuple[torch.Tensor, ...]]]:
+    """One (send, receive) pair of payload buffers per bucket for
+    `group_cocoef_update` on a grid of `nd` chunk ranks (none in dense
+    mode, whose collective makes its own)."""
+    if cfg.mode == "dense":
+        return []
+    specs = payload_specs(cfg, n // cfg.num_buckets, nd)
+
+    def leaves():
+        return tuple(torch.zeros(s, dtype=dt, device=device)
+                     for s, dt in specs)
+    return [(leaves(), leaves()) for _ in range(cfg.num_buckets)]
+
+
+def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
+                        mask: torch.Tensor, gamma, cfg: CocoEFConfig, grid,
+                        buffers, out: Optional[torch.Tensor] = None,
+                        kernel_spans: Optional[List] = None
+                        ) -> torch.Tensor:
+    """`cocoef_update` with one process per coding rank: this process is
+    rank grid.rank (`launch.mesh.CodingGrid`) and runs its own local step,
+    then the two-phase collective across the grid, bucket by bucket in
+    cfg.bucket_schedule's order.
+
+    g: this rank's (n,) coded gradient (overwritten, as on one device);
+    e: its (n,) error row, updated in place (None in the coco and dense
+    modes); mask: (N,) f32 over the grid, on g's device; buffers:
+    `group_buffers(cfg, grid.nd, n, device)`; out: where ghat goes (may be
+    g).  On a 1-D grid the result is `cocoef_update`'s bit for bit (see
+    `core.collectives`).  Returns ghat (n,), the same on every rank."""
+    me, B = grid.rank, cfg.num_buckets
+    spans = _KernelSpans(kernel_spans, g.device)
+    ghat = torch.empty_like(g) if out is None else out
+    gam = ref.as_f32(gamma, g)
+    if cfg.mode == "dense":
+        with spans:
+            acc = g.mul_(gam)
+        return dense_allreduce(acc, grid, mask, out=ghat)
+    coll = cfg.collective()
+    slices = _buckets(g.numel(), B)
+    n_b = g.numel() // B
+    wire = cfg.wire_format(n_b, grid.nd)
+    wire.check(n_b, grid.nd)
+    _check_budgets(wire, grid.size)
+    sched = _BucketSchedule(cfg.bucket_schedule)
+    for sl, (send, recv) in zip(slices, buffers):
+        g_b = g[sl]
+        with spans:
+            if cfg.mode == "coco":
+                acc = g_b.mul_(gam)
+                if isinstance(wire, DenseWire):
+                    send[0].copy_(acc)
+                else:
+                    wire.fused_pack(acc, out=send, rank=me)
+            elif isinstance(wire, DenseWire):
+                send[0].copy_(wire.fused_local_step_(g_b, e[sl], gam,
+                                                     mask[me]))
+            else:
+                wire.fused_local_step(g_b, e[sl], gam, mask[me],
+                                      out=send + (e[sl],), rank=me)
+
+        def finish(handle, sl=sl):
+            with spans:
+                handle.finish(ghat[sl])
+        sched.submit(lambda send=send, recv=recv: coded_allreduce_start(
+            wire, coll, grid, mask, send, recv), finish)
+    sched.collect()
     return ghat

@@ -1,8 +1,10 @@
-"""Stochastic gradient coding: data allocation and encode weights (port of
-`repro.core.coding`, the parts the slice uses).
+"""Stochastic gradient coding: data allocation, encode weights and the
+straggler masks (port of `repro.core.coding`).
 
 Host-side numpy in float64, cast to f32 at the end: the same arithmetic as
-the JAX package, so W is bit-identical.
+the JAX package, so W is bit-identical.  `random_allocation` draws from
+the same `np.random.default_rng` stream as JAX's, and `straggler_mask`
+from `core/prng.py`'s copy of `jax.random`.
 """
 from __future__ import annotations
 
@@ -10,8 +12,12 @@ import dataclasses
 from typing import Optional, Sequence
 
 import numpy as np
+import torch
 
-__all__ = ["Allocation", "cyclic_allocation", "encode_weights"]
+from repro_torch.core import prng
+
+__all__ = ["Allocation", "cyclic_allocation", "random_allocation",
+           "encode_weights", "straggler_mask", "redundancy_theta"]
 
 
 @dataclasses.dataclass(frozen=True)
@@ -39,6 +45,21 @@ class Allocation:
     def validate(self) -> None:
         if (self.d == 0).any():
             raise ValueError("every subset must be allocated to >=1 device")
+
+
+def random_allocation(seed: int, num_devices: int, num_subsets: int,
+                      d: int) -> Allocation:
+    """Subset k on d distinct ranks drawn uniformly (the paper's
+    approximation of the pairwise-balanced scheme, Sec. V.A)."""
+    rng = np.random.default_rng(seed)
+    S = np.zeros((num_devices, num_subsets), dtype=np.int8)
+    for k in range(num_subsets):
+        devs = rng.choice(num_devices, size=min(d, num_devices),
+                          replace=False)
+        S[devs, k] = 1
+    alloc = Allocation(S=S)
+    alloc.validate()
+    return alloc
 
 
 def cyclic_allocation(num_devices: int, num_subsets: int, d: int
@@ -85,3 +106,18 @@ def encode_weights(alloc: Allocation, p: Optional[float] = None,
                 f"has participation rate 0) — add redundancy on live ranks")
     W = alloc.S.astype(np.float64) / denom[None, :]
     return W.astype(np.float32)
+
+
+def straggler_mask(key: np.ndarray, step: int, num_devices: int,
+                   p: float) -> torch.Tensor:
+    """I^t in {0, 1}^N (eq. 8) as (N,) f32 on the CPU: rank i participates
+    iff uniform(fold_in(key, step), (N,))[i] >= p; pure in (key, step), so
+    every rank derives the same mask without communication."""
+    u = prng.uniform(prng.fold_in(key, step), (num_devices,))
+    return torch.from_numpy((u >= np.float32(p)).astype(np.float32))
+
+
+def redundancy_theta(alloc: Allocation) -> float:
+    """theta = sum_k (1/d_k - 1/N) (eq. 18); 0 under full replication."""
+    d = alloc.d.astype(np.float64)
+    return float(np.sum(1.0 / d - 1.0 / alloc.num_devices))

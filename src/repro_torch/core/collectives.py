@@ -12,41 +12,66 @@ route of `kernels/topk_pack.py`.  DenseWire (the identity compressor, f32
 or bf16 on the wire) has no kernel in JAX either: plain PyTorch on both
 devices.
 
-On one device the coded collective is a single decode
-----------------------------------------------------
-The JAX collective spreads the coding ranks over a mesh axis of nd devices
-and aggregates in three parts (`repro/core/collectives.py:613-657`):
-an all_to_all that sends chunk j of every sender's payload to rank j, a
-per-chunk `decode_reduce` over the senders, and an f32 all_gather of the
-chunk sums.  Decode-reduce works coordinate by coordinate: out[x] depends
-only on the senders' payload entries for x's group or block and the mask,
-summed in sender order.  Chunks are whole groups and whole blocks (n is
-padded to a multiple of nd * pad_multiple, and pad_multiple is
-lcm(group_size, block_size) on the block top-K wire), so every chunk's
-payload is a contiguous slice of the full one (words and scales; indices,
-values and scales of whole blocks), and the all_gather concatenates the
-chunk sums in chunk order without touching their bits.  With every coding
-rank on one device the three parts together are therefore one
-`decode_reduce` over the full payloads — bit for bit, on either wire.
-`coded_aggregate` is that form.  The dense wire goes one step further:
-the ranks run one after another, so each rank's m_i * C(acc_i) is added
-into one f32 accumulator as soon as it is made (`DenseWire.fold_`), which
-is the sender-order sum bit for bit without an (N, n) payload.  The
-multi-process NCCL collective is a later step.
+The coded collective in two forms
+---------------------------------
+The JAX collective spreads the coding ranks over mesh axes, the last of
+which (nd ranks) is the chunk axis, and aggregates in three parts
+(`repro/core/collectives.py:613-657`): an all_to_all that sends chunk j of
+every sender's payload to rank j, a per-chunk `decode_reduce` over the
+senders (then, on a grid with an outer axis, a psum of the chunk sums
+across it), and an all_gather of the chunk sums (phase 2: f32, bf16, or
+re-packed on the sign wire).
+
+The group form is that collective over `torch.distributed` process groups
+(`launch.mesh.CodingGrid`), one process per coding rank:
+`coded_allreduce_start` issues one `all_to_all_single` per payload leaf on
+the chunk group (async; the leaf's chunk rows travel as bytes, so u32 sign
+words and u16 indices need no dtype support from gloo or NCCL) and returns
+an `InFlightAggregate` whose `finish` decodes, sums across the outer group
+and runs phase 2.  No float sum is left to the collective library: the
+decode sums the chunk's senders in order from +0, the outer sum is an
+all_gather of the chunk sums added in rank order from +0 (XLA:CPU's psum
+gives those bits, ROADMAP C5), and `dense_allreduce` is the same path on
+`DenseWire(float32)`.  No all_reduce is used.
+
+The one-device form is `coded_aggregate`: with every coding rank on one
+device the three parts are one `decode_reduce` over the full payloads.
+Decode-reduce works coordinate by coordinate: out[x] depends only on the
+senders' payload entries for x's group or block and the mask, summed in
+sender order.  Chunks are whole groups and whole blocks (n is padded to a
+multiple of nd * pad_multiple, and pad_multiple is lcm(group_size,
+block_size) on the block top-K wire), so every chunk's payload is a
+contiguous slice of the full one, and the all_gather concatenates the
+chunk sums in chunk order without touching their bits.  On a 1-D grid
+(no outer axis) the group form's chunk j is therefore the one-device
+decode restricted to chunk j's coordinates, summed over the same senders
+in the same order from the same +0: the two forms, and the reference
+loop's `_masked_sum`, agree bit for bit.  On a grid with an outer axis the
+group form sums hierarchically, as JAX does (each chunk's senders, then
+the outer groups), which is another association of the same sum.  The
+dense wire goes one step further on one device: the ranks run one after
+another, so each rank's m_i * C(acc_i) is added into one f32 accumulator
+as soon as it is made (`DenseWire.fold_`), which is the sender-order sum
+bit for bit without an (N, n) payload.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Optional, Tuple, Union
+import math
+from typing import List, Optional, Tuple, Union
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from repro_torch.kernels import ops, ref
 from repro_torch.kernels.topk_pack import index_dtype
 
 __all__ = ["SignWire", "SparseWire", "DenseWire", "WIRES", "build_wire",
-           "wire_bytes_sign", "coded_aggregate"]
+           "wire_for_compressor", "wire_bytes_sign", "coded_aggregate",
+           "CodingCollectiveConfig", "InFlightAggregate",
+           "coded_allreduce_start", "two_phase_coded_allreduce",
+           "dense_allreduce", "phase2_local_"]
 
 CHUNK = 1 << 28      # the dense wire's plain passes bound their temporaries
 #                      to this many elements
@@ -300,6 +325,12 @@ class DenseWire:
     def check(self, n: int, nd: int = 1) -> None:
         _check_flat(self, n, nd)
 
+    def payload_n(self, payload: Payload) -> int:
+        return payload[0].shape[-1]
+
+    def has_rank_budgets(self) -> bool:
+        return False
+
     def roundtrip_(self, x: torch.Tensor) -> torch.Tensor:
         """x <- C(x) = f32(vdt(x)) in place (nothing to do on f32)."""
         if self.vdt != torch.float32:
@@ -376,3 +407,225 @@ def coded_aggregate(wire: Wire, payloads: Payload, mask: torch.Tensor,
     mask: (N,) f32."""
     wire.check(wire.payload_n(payloads))
     return wire.decode_reduce(payloads, mask, out=out)
+
+
+def wire_for_compressor(comp, n: int, nd: int = 1) -> Wire:
+    """The wire that carries a `core.compression` compressor on the coded
+    collective (`n` the flat size, `nd` the chunk count): grouped and
+    stochastic sign ride the sign wire, block top-K the sparse wire, the
+    identity the f32 dense wire; global TopK and RandK ride the sparse
+    wire with one block per chunk and a budget of ceil(k/nd) per chunk
+    (RandK twice that)."""
+    from .compression import (BlockTopK, GroupedSign, Identity, RandK,
+                              StochasticSign, TopK)
+    if isinstance(comp, (GroupedSign, StochasticSign)):
+        return SignWire(group_size=comp.group_size if comp.group_size > 0
+                        else n)
+    if isinstance(comp, BlockTopK):
+        return SparseWire(k_per_block=comp.k_per_block,
+                          block_size=comp.block_size)
+    if isinstance(comp, TopK):
+        block = n // nd
+        return SparseWire(k_per_block=min(block, math.ceil(comp.k / nd)),
+                          block_size=block)
+    if isinstance(comp, RandK):
+        block = n // nd
+        return SparseWire(k_per_block=min(block,
+                                          2 * math.ceil(comp.k / nd)),
+                          block_size=block)
+    if isinstance(comp, Identity):
+        return DenseWire()
+    raise TypeError(f"no wire for compressor {type(comp).__name__}")
+
+
+# ---------------------------------------------------------------------------
+# phase 2 and the group form of the collective
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass(frozen=True)
+class CodingCollectiveConfig:
+    """Phase 2 of the coded collective: the dtype of the broadcast of the
+    aggregate (f32 is the paper's), or `phase2_sign` to re-pack it on the
+    sign wire with `group_size` (a beyond-paper option of JAX's)."""
+
+    group_size: int = 512
+    phase2_dtype: str = "float32"
+    phase2_sign: bool = False
+
+    def __post_init__(self):
+        ref.wire_dtype(self.phase2_dtype)
+
+
+def _sign_unpack_into(out: torch.Tensor, words: torch.Tensor,
+                      scales: torch.Tensor, group_size: int) -> None:
+    """out (n,) <- sign(words) * scales, CHUNK // 4 coordinates at a time
+    (the plain unpack makes an int64 per coordinate)."""
+    step = max(group_size, CHUNK // 4)
+    for i in range(0, out.numel(), step):
+        m = min(step, out.numel() - i)
+        out[i:i + m].copy_(ref.sign_unpack_ref(
+            words[i // 32:(i + m) // 32],
+            scales[i // group_size:(i + m) // group_size], group_size))
+
+
+def phase2_local_(ghat: torch.Tensor, cfg: CodingCollectiveConfig,
+                  rows: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
+                  ) -> torch.Tensor:
+    """Phase 2 where every coding rank shares the device: what the
+    receivers of the all_gather get back, in place in ghat.  f32: nothing;
+    bf16: ghat rounded through bf16, CHUNK at a time; phase2_sign:
+    `SignWire(group_size).fused_pack` (the sign_pack kernel on the card),
+    into `rows` = (words (n/32,), scales (n/g,)) when given, then unpacked.
+    Chunks are whole groups, so packing the whole vector equals packing
+    each chunk."""
+    if cfg.phase2_sign:
+        n, g = ghat.numel(), cfg.group_size
+        if rows is None:
+            rows = (torch.empty(n // 32, dtype=torch.uint32,
+                                device=ghat.device),
+                    torch.empty(n // g, dtype=torch.float32,
+                                device=ghat.device))
+        words, scales = SignWire(group_size=g).fused_pack(ghat, out=rows)
+        _sign_unpack_into(ghat, words, scales, g)
+    elif cfg.phase2_dtype != "float32":
+        DenseWire(value_dtype=cfg.phase2_dtype).roundtrip_(ghat)
+    return ghat
+
+
+def _u8(t: torch.Tensor) -> torch.Tensor:
+    """A contiguous tensor's bytes, (rows, bytes per row)."""
+    return t.reshape(t.shape[0], -1).view(torch.uint8)
+
+
+def _gather(dst: torch.Tensor, src: torch.Tensor, group) -> None:
+    """dst (k, *src.shape) <- every group member's src, in group order, as
+    bytes."""
+    dist.all_gather([r.view(torch.uint8) for r in _u8(dst)],
+                    src.reshape(-1).view(torch.uint8), group=group)
+
+
+def _outer_sum(chunk_sum: torch.Tensor, grid) -> torch.Tensor:
+    """The chunk sums of the outer group added in rank order from +0 (the
+    outer psum of JAX's collective)."""
+    if grid.outer_group is None:
+        return chunk_sum
+    parts = torch.empty((grid.n_outer,) + tuple(chunk_sum.shape),
+                        dtype=chunk_sum.dtype, device=chunk_sum.device)
+    _gather(parts, chunk_sum, grid.outer_group)
+    acc = torch.zeros_like(chunk_sum)
+    for o in range(grid.n_outer):
+        acc = acc + parts[o]
+    return acc
+
+
+def _phase2_gather(chunk_sum: torch.Tensor, cfg: CodingCollectiveConfig,
+                   grid, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """Phase 2: every chunk's sum back to every rank of the chunk group,
+    in chunk order, into out (nd * n_c,) f32."""
+    nd, n_c = grid.nd, chunk_sum.numel()
+    if out is None:
+        out = torch.empty(nd * n_c, dtype=torch.float32,
+                          device=chunk_sum.device)
+    if cfg.phase2_sign:
+        g = cfg.group_size
+        words, scales = SignWire(group_size=g).fused_pack(chunk_sum)
+        all_w = torch.empty((nd,) + tuple(words.shape), dtype=words.dtype,
+                            device=words.device)
+        all_s = torch.empty((nd,) + tuple(scales.shape), dtype=scales.dtype,
+                            device=scales.device)
+        _gather(all_w, words, grid.chunk_group)
+        _gather(all_s, scales, grid.chunk_group)
+        _sign_unpack_into(out, all_w.reshape(-1), all_s.reshape(-1), g)
+    elif cfg.phase2_dtype == "float32":
+        _gather(out.view(nd, n_c), chunk_sum, grid.chunk_group)
+    else:
+        vdt = ref.wire_dtype(cfg.phase2_dtype)
+        buf = torch.empty((nd, n_c), dtype=vdt, device=chunk_sum.device)
+        _gather(buf, chunk_sum.to(vdt), grid.chunk_group)
+        out.copy_(buf.reshape(-1))
+    return out
+
+
+@dataclasses.dataclass
+class InFlightAggregate:
+    """Phase 1 of a coded allreduce whose all_to_alls are issued and whose
+    decode and phase 2 are not: `works` are the async handles of the
+    all_to_alls, `recv` the typed views of their receive buffers (row i:
+    sender i's chunk for this rank).  Finishing later changes no value
+    (the pipelined bucket schedule of `core.cocoef`)."""
+
+    recv: Payload
+    works: List
+    sender_mask: torch.Tensor
+    wire: Wire
+    cfg: CodingCollectiveConfig
+    grid: object
+
+    def finish(self, out: Optional[torch.Tensor] = None) -> torch.Tensor:
+        """Wait, decode + mask + sum the received chunks over their
+        senders, sum across the outer group, run phase 2; returns the (n,)
+        aggregate (written into `out` when given), the same bits on every
+        coding rank."""
+        for w in self.works:
+            w.wait()
+        chunk_sum = self.wire.decode_reduce(self.recv, self.sender_mask)
+        return _phase2_gather(_outer_sum(chunk_sum, self.grid), self.cfg,
+                              self.grid, out)
+
+
+def coded_allreduce_start(wire: Wire, cfg: CodingCollectiveConfig, grid,
+                          mask: torch.Tensor, payload: Payload,
+                          recv: Optional[Payload] = None
+                          ) -> InFlightAggregate:
+    """Issue phase 1: one async `all_to_all_single` per payload leaf on the
+    grid's chunk group, chunk j of every leaf to chunk rank j.  payload:
+    this rank's leaves (contiguous, leading dim proportional to n); recv:
+    receive buffers of the same shapes and dtypes (made when None).  mask:
+    (N,) f32 over the whole grid in row-major order."""
+    nd = grid.nd
+    wire.check(wire.payload_n(payload), nd)
+    if recv is None:
+        recv = tuple(torch.empty_like(p) for p in payload)
+    works, typed = [], []
+    for p, r in zip(payload, recv):
+        if not (p.is_contiguous() and r.is_contiguous()):
+            raise ValueError("payload and receive buffers must be "
+                             "contiguous")
+        works.append(dist.all_to_all_single(
+            _u8(r.reshape(nd, -1)), _u8(p.reshape(nd, -1)),
+            group=grid.chunk_group, async_op=True))
+        typed.append(r.reshape((nd, p.shape[0] // nd) + tuple(p.shape[1:])))
+    base = grid.outer_index * nd
+    return InFlightAggregate(tuple(typed), works, mask[base:base + nd],
+                             wire, cfg, grid)
+
+
+def two_phase_coded_allreduce(c_local: Optional[torch.Tensor], wire: Wire,
+                              cfg: CodingCollectiveConfig, grid,
+                              mask: torch.Tensor,
+                              payload: Optional[Payload] = None,
+                              out: Optional[torch.Tensor] = None
+                              ) -> torch.Tensor:
+    """sum_i mask_i * C(acc_i) across the grid's coding ranks with phase 1
+    in `wire`'s packed format: `coded_allreduce_start(...).finish(out)`.
+    c_local: this rank's C(acc_i), packed here when `payload` is None."""
+    if payload is None:
+        if c_local is None:
+            raise ValueError("need c_local or a packed payload")
+        payload = wire.pack(c_local)
+    return coded_allreduce_start(wire, cfg, grid, mask, payload).finish(out)
+
+
+def dense_allreduce(c_local: torch.Tensor, grid, mask: torch.Tensor,
+                    out: Optional[torch.Tensor] = None) -> torch.Tensor:
+    """The SGC baseline's sum of mask_i * c_i over the grid, in JAX's order
+    (a psum per coding axis, outer first): this rank's masked vector summed
+    across the outer group in rank order from +0, then the two-phase path
+    on `DenseWire(float32)` over the chunk group with every sender's mask
+    1 (the mask is already applied), phase 2 in f32."""
+    x = _outer_sum(c_local * mask[grid.rank].to(c_local.dtype), grid)
+    chunk_only = dataclasses.replace(grid, outer_group=None)   # summed
+    return two_phase_coded_allreduce(None, DenseWire(),
+                                     CodingCollectiveConfig(), chunk_only,
+                                     torch.ones_like(mask), payload=(x,),
+                                     out=out)

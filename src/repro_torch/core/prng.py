@@ -19,6 +19,15 @@ with x64 off (the JAX package's setting):
                    XLA:CPU contracts JAX's multiply-add into an FMA
                    (tests/test_torch_prng.py holds this against
                    jax.random), then max(minval, .)
+  split(k, num)    key i is the two output words of
+                   threefry2x32(k, (i >> 32, i & 0xffffffff))
+  permutation(k, n)
+                   arange(n) shuffled as `jax/_src/random.py::_shuffle`:
+                   ceil(3 ln(max(1, n)) / ln(2**32 - 1)) rounds, each
+                   (k, sub) = split(k), then a stable sort of the array by
+                   random_bits(sub, (n,)) as unsigned keys
+  choice(k, n, (m,), replace=False)
+                   permutation(k, n)[:m]
 """
 from __future__ import annotations
 
@@ -26,8 +35,8 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["PRNGKey", "fold_in", "threefry2x32", "random_bits", "uniform",
-           "fma_f32"]
+__all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
+           "uniform", "fma_f32", "permutation", "choice"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -66,12 +75,23 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     return np.array([y0[0], y1[0]], np.uint32)
 
 
+def _counters(n: int):
+    i = np.arange(n, dtype=np.uint64)
+    return ((i >> np.uint64(32)).astype(np.uint32),
+            (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+
+
+def split(key: np.ndarray, num: int = 2) -> np.ndarray:
+    """(num, 2) uint32 keys, as `jax.random.split(key, num)` (the
+    partitionable, fold-like split of jax 0.9)."""
+    y0, y1 = threefry2x32(key, *_counters(int(num)))
+    return np.stack([y0, y1], axis=1)
+
+
 def random_bits(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     """uint32 bits of `shape`, as `jax.random.bits(key, shape)`."""
-    n = int(np.prod(shape, dtype=np.int64))
-    i = np.arange(n, dtype=np.uint64)
-    y0, y1 = threefry2x32(key, (i >> np.uint64(32)).astype(np.uint32),
-                          (i & np.uint64(0xFFFFFFFF)).astype(np.uint32))
+    y0, y1 = threefry2x32(key, *_counters(int(np.prod(shape,
+                                                      dtype=np.int64))))
     return (y0 ^ y1).reshape(tuple(shape))
 
 
@@ -107,3 +127,28 @@ def uniform(key: np.ndarray, shape: Sequence[int], minval: float = 0.0,
     one = (bits >> np.uint32(9)) | np.uint32(0x3F800000)
     floats = one.view(np.float32) - np.float32(1.0)
     return np.maximum(lo, fma_f32(floats, hi - lo, lo))
+
+
+def permutation(key: np.ndarray, n: int) -> np.ndarray:
+    """(n,) int32, as `jax.random.permutation(key, n)`."""
+    x = np.arange(n, dtype=np.int32)
+    rounds = int(np.ceil(3 * np.log(max(1, n))
+                         / np.log(np.iinfo(np.uint32).max)))
+    for _ in range(rounds):
+        key, sub = split(key)
+        order = np.argsort(random_bits(sub, (n,)), kind="stable")
+        x = x[order]
+    return x
+
+
+def choice(key: np.ndarray, n: int, shape: Sequence[int],
+           replace: bool = False) -> np.ndarray:
+    """int32 of `shape`, as `jax.random.choice(key, n, shape,
+    replace=False)`: the first prod(shape) entries of a permutation."""
+    if replace:
+        raise NotImplementedError("the port draws without replacement only "
+                                  "(RandK)")
+    m = int(np.prod(shape, dtype=np.int64))
+    if m > n:
+        raise ValueError(f"cannot take {m} of {n} without replacement")
+    return permutation(key, n)[:m].reshape(tuple(shape))

@@ -3,10 +3,10 @@
 // in sign_pack.cu: each launcher takes device pointers and a cudaStream_t,
 // launches on that stream, does not synchronise, allocates nothing, and
 // returns cudaGetLastError() so the wrapper can raise on a refused launch.
-// Block sizes B in {256, 512}, 1 <= k <= 32, wire values f32 or bf16; the
-// payload is written in the wire's dtypes (u16 in-block indices, values in
-// the value dtype, f32 scales), so no cast pass follows.  block_topk also
-// takes B = 128.
+// Block sizes B in {64, 128, 256, 512}, 1 <= k <= 32, wire values f32 or
+// bf16; the payload is written in the wire's dtypes (u16 in-block indices,
+// values in the value dtype, f32 scales), so no cast pass follows.
+// block_topk takes B in {128, 256, 512}.
 //
 // Selection (warp_select, shared by ef_topk_fused, topk_pack and
 //   block_topk) replaces repro/kernels/topk_block.py::block_select /
@@ -19,10 +19,10 @@
 //   low word bit 31 set, 511 - position in bits 1..9 and the sign of x in
 //   bit 0.  Keys are unique, so the selection is the k largest keys.
 //   1. Each lane orders its P keys once, descending, by Batcher's
-//      odd-even merge sort (sort_desc: 5, 19 and 63 compare-exchanges for
-//      P = 4, 8, 16, each one 64-bit compare and four selects), and writes
-//      them to the warp's slice of shared memory, column per lane, then a
-//      sentinel key 0 (below every key).  A lane's head is its largest key
+//      odd-even merge sort (sort_desc: 1, 5, 19 and 63 compare-exchanges
+//      for P = 2, 4, 8, 16, each one 64-bit compare and four selects), and
+//      writes them to the warp's slice of shared memory, column per lane,
+//      then a sentinel key 0 (below every key).  A lane's head is its largest key
 //      not yet taken.
 //   2. Round r fills output slot r: every lane loads its head, a
 //      __reduce_max_sync takes the largest high word, a second one the
@@ -154,6 +154,10 @@ __device__ __forceinline__ void ce(u64& a, u64& b) {
 template <int P>
 __device__ __forceinline__ void sort_desc(u64 (&v)[P]);
 #define CE(a, b) ce(v[a], v[b])
+template <>
+__device__ __forceinline__ void sort_desc<2>(u64 (&v)[2]) {
+  CE(0, 1);
+}
 template <>
 __device__ __forceinline__ void sort_desc<4>(u64 (&v)[4]) {
   CE(0, 1); CE(2, 3); CE(0, 2); CE(1, 3); CE(1, 2);
@@ -464,6 +468,10 @@ int launch_decode(const void* idx, const void* val, const float* scales,
 #define TOPK_DISPATCH(B_, BF16_, K_, CALL)                          \
   if ((K_) < 1 || (K_) > kMaxK) return (int)cudaErrorInvalidValue; \
   switch ((B_) * 2 + ((BF16_) ? 1 : 0)) {                           \
+    case 128: return CALL(64, float);                               \
+    case 129: return CALL(64, __nv_bfloat16);                       \
+    case 256: return CALL(128, float);                              \
+    case 257: return CALL(128, __nv_bfloat16);                      \
     case 512: return CALL(256, float);                              \
     case 513: return CALL(256, __nv_bfloat16);                      \
     case 1024: return CALL(512, float);                             \

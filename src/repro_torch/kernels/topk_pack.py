@@ -56,7 +56,7 @@ import torch
 from . import build, ref
 from .common import LL, VP, I, check, launches, raise_if, scalar, stream
 
-SUPPORTED_BLOCK_SIZES = (256, 512)     # see TOPK_DISPATCH
+SUPPORTED_BLOCK_SIZES = (64, 128, 256, 512)   # see TOPK_DISPATCH
 BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
 K_MAX = 32                             # one output slot per lane
 ROUND_BLOCK = 256          # B6's block in the global route's rounds

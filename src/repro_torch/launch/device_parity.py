@@ -1,12 +1,14 @@
 """The train step, and the serving path, on one device against the same
 on the CPU.
 
-`step_parity(device, compressor, k_budgets, mode, wire_dtype)` builds the
-f32 smoke-size gemma2-2b slice (g = 32, N = 4; sign wire, block top-K with
-k = 8, B = 256, uniform or with one k budget per rank, global top-K (one
-block of n / 4 per chunk, k = 16) or the dense wire; values in
-`wire_dtype`; cocoef, coco or dense mode) on the CPU and on `device`, from
-the same parameters, and checks two things:
+`step_parity(device, compressor, k_budgets, mode, wire_dtype, num_buckets,
+bucket_schedule, phase2_dtype, phase2_sign)` builds the f32 smoke-size
+gemma2-2b slice (g = 32, N = 4; sign wire, block top-K with k = 8,
+B = 256, uniform or with one k budget per rank, global top-K (one block of
+n / 4 per chunk, k = 16) or the dense wire; values in `wire_dtype`;
+cocoef, coco or dense mode; buckets and phase 2 as `TrainRun` takes them)
+on the CPU and on `device`, from the same parameters, and checks two
+things:
 
   full step   one `train_step` from the same batch and mask (rank 1 a
               straggler).  Stage 1 sums in another order on each device, so
@@ -21,6 +23,11 @@ the same parameters, and checks two things:
               scale, so TOL = 1 on the top-K wires (summed over the N
               ranks, whose payloads add into ghat).  The dense wire and
               dense mode flip nothing: TOL = 0, theta within 1e-6.
+              Phase 2 adds its own: a sign re-pack flips at near-zero
+              sums of ghat (|ghat| <= N * max scale), so TOL doubles with
+              phase2_sign; a bf16 broadcast rounds ghat, which moves a
+              coordinate by up to a bf16 ulp of N * max scale
+              (2**-7 * N * max scale more).
   stage 2     `coded_update` fed the same injected gradients and error
               vectors on both devices.  The kernels equal their plain
               versions bit for bit, so the payload rows, the error vectors
@@ -83,7 +90,7 @@ PAYLOAD = {"sign": ("words", "scales"),
 
 
 def _setups(device, compressor: str, k_budgets: Optional[Tuple[int, ...]],
-            mode: str, wire_dtype: str) -> List[TrainSetup]:
+            mode: str, wire_dtype: str, **knobs) -> List[TrainSetup]:
     """Two separate setups, one on the CPU and one on `device`."""
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
@@ -91,7 +98,7 @@ def _setups(device, compressor: str, k_budgets: Optional[Tuple[int, ...]],
         coding=dataclasses.replace(spec.coding, group_size=32,
                                    wire_dtype=wire_dtype))
     run = TrainRun(base_lr=5e-3, compressor=compressor, k_budgets=k_budgets,
-                   mode=mode)
+                   mode=mode, **knobs)
     return [build_train_setup(spec, ShapeCfg("train", 32, 8), run,
                               smoke=True, device=d)
             for d in ("cpu", device)]
@@ -148,11 +155,16 @@ def _adversarial_chunks_(grads: torch.Tensor, e0: torch.Tensor, nd: int,
 
 def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
                 k_budgets: Optional[Tuple[int, ...]] = None,
-                mode: str = "cocoef", wire_dtype: str = "float32"
+                mode: str = "cocoef", wire_dtype: str = "float32",
+                num_buckets: int = 1, bucket_schedule: str = "pipelined",
+                phase2_dtype: str = "float32", phase2_sign: bool = False
                 ) -> Dict[str, float]:
     """Run both checks (see the module docstring); returns the measured
     gaps of the full step."""
-    cpu, dev = _setups(device, compressor, k_budgets, mode, wire_dtype)
+    knobs = dict(num_buckets=num_buckets, bucket_schedule=bucket_schedule,
+                 phase2_dtype=phase2_dtype, phase2_sign=phase2_sign)
+    cpu, dev = _setups(device, compressor, k_budgets, mode, wire_dtype,
+                       **knobs)
     folds = cpu.cocoef_cfg.folds
     n_code, n = cpu.n_code, cpu.flat_pad
     cpu.init_state()
@@ -173,6 +185,9 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
            "frac_dtheta_over_1e-6": (d > 1e-6).float().mean().item()}
     assert np.isfinite(l1) and abs(l0 - l1) <= 1e-4 * abs(l0), out
     flip = 0.0 if folds else FLIP[compressor]
+    if mode != "dense":
+        flip = flip * (2.0 if phase2_sign else 1.0) + (
+            2.0 ** -7 if phase2_dtype == "bfloat16" else 0.0)
     assert out["max_abs_dtheta"] <= flip * n_code * max(s0, s1) + 1e-6, out
     assert out["frac_dtheta_over_1e-6"] < 0.01, out
 
@@ -206,7 +221,7 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
         a, b = _bits(got[0][k]), _bits(got[1][k])
         assert torch.equal(a, b), (
             f"stage 2 on {device} ({mode}, {compressor}, budgets "
-            f"{k_budgets}): {k} differs from the CPU in "
+            f"{k_budgets}, {knobs}): {k} differs from the CPU in "
             f"{int((a != b).sum())} of {a.numel()} entries")
     # cocoef leaves the straggler's error alone, coco and dense every
     # rank's

@@ -17,17 +17,19 @@ __all__ = ["Model"]
 class Model:
     """A model whose parameters and gradients live in two padded flat f32
     buffers on `device` (`theta`, `grad`), laid out as JAX flattens its
-    param tree and padded to a multiple of chunk_ranks * group_size.
+    param tree and padded to a multiple of
+    chunk_ranks * group_size * num_buckets.
     `with_grad=False` (serving) allocates no gradient buffer: `grad` is
     then None."""
 
     def __init__(self, cfg: ModelConfig, chunk_ranks: int = 1,
                  group_size: int = 512, device="cuda",
-                 with_grad: bool = True):
+                 with_grad: bool = True, num_buckets: int = 1):
         dev = resolve_device(device)
         self.cfg = cfg
         self.layout: FlatLayout = flat_layout(T.param_shapes(cfg),
-                                              chunk_ranks, group_size)
+                                              chunk_ranks, group_size,
+                                              num_buckets)
         theta = torch.zeros(self.layout.padded, dtype=torch.float32,
                             device=dev)
         grad = torch.zeros_like(theta) if with_grad else None

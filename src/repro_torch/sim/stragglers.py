@@ -12,7 +12,7 @@ import dataclasses
 import numpy as np
 import torch
 
-from repro_torch.core import prng
+from repro_torch.core import coding, prng
 
 __all__ = ["IIDBernoulli"]
 
@@ -31,10 +31,8 @@ class IIDBernoulli:
     def mask(self, seed: int, step: int) -> torch.Tensor:
         """(N,) f32 in {0, 1} on the CPU; 1 = the rank participates:
         uniform(fold_in(PRNGKey(seed), step), (N,)) >= p."""
-        u = prng.uniform(prng.fold_in(prng.PRNGKey(seed), step),
-                         (self.num_devices,))
-        return torch.from_numpy((u >= np.float32(self.p))
-                                .astype(np.float32))
+        return coding.straggler_mask(prng.PRNGKey(seed), step,
+                                     self.num_devices, self.p)
 
     def rates(self) -> np.ndarray:
         """(N,) participation probability per rank (1 - p)."""

@@ -3,7 +3,6 @@ tests.  Nothing here imports JAX (the harness runs it in a subprocess), so
 the GPU tests, which run without JAX, can use this module too."""
 import dataclasses
 import json
-import math
 import os
 import subprocess
 import sys
@@ -14,7 +13,6 @@ import numpy as np
 import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
-from repro_torch.core import prng
 from repro_torch.launch.train import TrainRun, build_train_setup
 
 
@@ -329,28 +327,60 @@ def _normal_blocks(acc: np.ndarray, e_new: np.ndarray) -> np.ndarray:
     return ~(denormal(acc) | denormal(e_new))
 
 
-def exp_flips(got, want, seed, step, alloc, per_subset, seq_len, vocab):
-    """Tokens of one coded batch, the port's (`got`) against JAX's (`want`),
-    both (N, b_loc, L+1) of the same seed and step.  The uniforms are
-    equal, so they can differ only where the f32 exp of the token map
-    floor(exp(u * log V)) - 1 does (torch's against XLA's): each such token
-    must be off by one, and u * log V at its source position (the copy
-    perturbation's roll included) within 1 ulp of the log of the integer
-    between the two.  Returns the number of such tokens."""
-    log_v = np.float32(math.log(vocab))
-    bad = np.argwhere(got != want)
-    for i, b, j in bad:
-        sid = alloc.subsets_of(int(i))[b // per_subset]
-        row = b % per_subset
-        k = prng.fold_in(prng.fold_in(prng.PRNGKey(seed), int(sid)), step)
-        shape = (per_subset, seq_len + 1)
-        u = prng.uniform(k, shape, 1e-6, 1.0)[row]
-        copy = prng.uniform(prng.fold_in(k, 1), shape)[row] < 0.25
-        src = (j - 1) % (seq_len + 1) if copy[j] else j   # the roll
-        t = np.float32(u[src] * log_v)
-        lo, hi = sorted((int(got[i, b, j]), int(want[i, b, j])))
-        assert hi == lo + 1, (got[i, b, j], want[i, b, j])
-        boundary = math.log(hi + 1)        # floor(exp(t)) - 1 flips here
-        assert abs(float(t) - boundary) <= float(np.spacing(t)), \
-            (t, boundary)
-    return len(bad)
+# Stage 2 alone on seeded inputs, the port against JAX's mesh
+# `cocoef_update` (tests/test_torch_parity.py; JAX runs them all in one
+# subprocess, `_torch_wire_cases.jax_mesh_cases`).  Each case: the coding
+# axes of JAX's mesh (the port's grid shape), CocoEFConfig keywords, and
+# the inputs.  gamma is 0.5, so gamma*g is exact and XLA's contraction of
+# gamma*g + e into an FMA (ROADMAP C12) cannot change a bit.  "int" inputs
+# have small integer g and quarter-integer e: every group sum is exact in
+# any order, so the sign wire's scales equal JAX's bit for bit (no C3
+# allowance) and every cross-rank sum is exact; "float" inputs are random
+# normals of mixed scale, where the order of a sum shows.
+MESH_N, MESH_GAMMA = 4 * 256 * 4, 0.5
+MESH_MASK = (1.0, 0.0, 1.0, 1.0)
+MESH_CASES = {
+    "sign_b2_pipelined": (("data",), {"num_buckets": 2}, "int"),
+    "sign_b2_serial": (("data",), {"num_buckets": 2,
+                                   "bucket_schedule": "serial"}, "int"),
+    "block_b2_pipelined": (("data",), {"compressor": "block_topk",
+                                       "block_size": 64, "k_per_block": 4,
+                                       "num_buckets": 2}, "float"),
+    "block_b2_serial": (("data",), {"compressor": "block_topk",
+                                    "block_size": 64, "k_per_block": 4,
+                                    "num_buckets": 2,
+                                    "bucket_schedule": "serial"}, "float"),
+    "identity_b2": (("data",), {"compressor": "identity",
+                                "num_buckets": 2}, "float"),
+    "coco_sign_b2": (("data",), {"mode": "coco", "num_buckets": 2}, "int"),
+    "sign_phase2_bf16": (("data",), {"phase2_dtype": "bfloat16"}, "int"),
+    "sign_phase2_sign": (("data",), {"phase2_sign": True,
+                                     "num_buckets": 2}, "int"),
+    "block_phase2_bf16": (("data",), {"compressor": "block_topk",
+                                      "block_size": 64, "k_per_block": 4,
+                                      "phase2_dtype": "bfloat16"}, "float"),
+    "dense": (("data",), {"mode": "dense"}, "float"),
+    "grid_sign": (("pod", "data"), {}, "int"),
+    "grid_block_b2": (("pod", "data"), {"compressor": "block_topk",
+                                        "block_size": 64, "k_per_block": 4,
+                                        "num_buckets": 2}, "float"),
+    "grid_identity": (("pod", "data"), {"compressor": "identity"}, "float"),
+    "grid_block_phase2_bf16": (("pod", "data"), {
+        "compressor": "block_topk", "block_size": 64, "k_per_block": 4,
+        "phase2_dtype": "bfloat16"}, "float"),
+    "grid_dense": (("pod", "data"), {"mode": "dense"}, "float"),
+}
+
+
+def mesh_inputs(kind: str, seed: int = 0):
+    """(g, e) (4, MESH_N) f32 of `kind` ("int" or "float")."""
+    rng = np.random.default_rng(seed)
+    shape = (4, MESH_N)
+    if kind == "int":
+        g = rng.integers(-8, 9, shape).astype(np.float32)
+        e = (rng.integers(-4, 5, shape) * 0.25).astype(np.float32)
+        return g, e
+    mag = np.exp(rng.uniform(-6, 2, (4, MESH_N // 64)))
+    g = rng.standard_normal(shape) * np.repeat(mag, 64, axis=1)
+    e = rng.standard_normal(shape) * np.repeat(mag, 64, axis=1) * 0.1
+    return g.astype(np.float32), e.astype(np.float32)

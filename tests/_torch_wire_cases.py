@@ -1,13 +1,22 @@
 """The JAX-run checks shared by tests/test_torch_wires.py (the dense wire
 and dense mode) and tests/test_torch_topk.py (global top-K): each file
 runs its own JAX runs through these, so the two files' runs go to two
-workers.  The tolerances are stated in each test file's docstring.  This
-module imports JAX; tests/_torch_cases.py does not."""
+workers.  `jax_mesh_cases` runs JAX's mesh stage 2 alone on the seeded
+cases of `_torch_cases.MESH_CASES` (buckets, phase 2, 1-D and 2 x 2
+grids) in one subprocess for tests/test_torch_parity.py.  The tolerances
+are stated in each test file's docstring.  This module imports JAX;
+tests/_torch_cases.py does not."""
+import os
+import subprocess
+import sys
+import textwrap
+from pathlib import Path
+
 import jax.numpy as jnp
 import numpy as np
 import torch
 
-from _torch_cases import G, KB, LR, N, STEPS, _jax_run, _port_setup, \
+from _torch_cases import G, KB, LR, N, SRC, STEPS, _jax_run, _port_setup, \
     _state_dict
 from repro.core import collectives as jcoll
 from repro.core.plan import build_wire as jbuild_wire
@@ -239,3 +248,54 @@ def step_parity_cpu_against_cpu(name):
     out = step_parity("cpu", compressor=kw.pop("compressor", "sign"), **kw)
     assert out["max_abs_dtheta"] == 0.0 and out["loss_cpu"] == \
         out["loss_device"]
+
+
+MESH_RUN = textwrap.dedent("""
+    import os, sys
+    os.environ["XLA_FLAGS"] = "--xla_force_host_platform_device_count=4"
+    import warnings
+    import jax, jax.numpy as jnp, numpy as np
+    from jax.sharding import PartitionSpec as P
+    sys.path.insert(0, sys.argv[2])
+    from _torch_cases import (MESH_CASES, MESH_GAMMA, MESH_MASK,
+                              mesh_inputs)
+    from repro.compat import make_mesh, shard_map
+    from repro.core.cocoef import CocoEFConfig, cocoef_update
+    warnings.simplefilter("ignore")
+    out = {}
+    for name in sys.argv[3].split(","):
+        axes, kw, kind = MESH_CASES[name]
+        shape = (4,) if len(axes) == 1 else (2, 2)
+        mesh = make_mesh(shape, axes)
+        spec = P(axes if len(axes) > 1 else axes[0])
+        cfg = CocoEFConfig(coding_axes=axes, group_size=32, backend="jnp",
+                           **kw)
+
+        def s2(g, e, mask, cfg=cfg):
+            gh, en = cocoef_update(g.reshape(-1), e.reshape(-1), mask,
+                                   jnp.float32(MESH_GAMMA), cfg)
+            return gh.reshape(1, -1), en.reshape(1, -1)
+        f = jax.jit(shard_map(s2, mesh, in_specs=(spec, spec, P()),
+                              out_specs=(spec, spec), check=False))
+        g, e = mesh_inputs(kind)
+        gh, en = f(g, e, np.asarray(MESH_MASK, np.float32))
+        out[name + "/ghat"] = np.asarray(gh)
+        out[name + "/e"] = np.asarray(en)
+    np.savez(sys.argv[1], **out)
+""")
+
+
+def jax_mesh_cases(tmp_path_factory, names):
+    """JAX's mesh `cocoef_update` (jnp backend, a shard_map over 4 host
+    devices) on the seeded inputs of `_torch_cases.MESH_CASES`, every case
+    in one subprocess: {name: (ghat (4, n), e' (4, n))}, one row per
+    device (coding rank, row-major over the grid)."""
+    path = tmp_path_factory.mktemp("jax_mesh") / "mesh.npz"
+    env = dict(os.environ)
+    env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
+    r = subprocess.run([sys.executable, "-c", MESH_RUN, str(path),
+                        str(Path(__file__).parent), ",".join(names)],
+                       env=env, capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr[-3000:]
+    got = dict(np.load(path))
+    return {n: (got[n + "/ghat"], got[n + "/e"]) for n in names}

@@ -215,8 +215,8 @@ def test_topk_decode_reduce_kernel_matches_plain(cuda, block_size, k,
 
 def test_topk_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros(128 * 8, device=cuda)
-    with pytest.raises(ValueError):                 # no kernel for B=128
-        tp.topk_pack(x, 8, 128)
+    with pytest.raises(ValueError):                 # no kernel for B=32
+        tp.topk_pack(x, 8, 32)
     with pytest.raises(ValueError):                 # k > 32
         tp.topk_pack(x, 33, 256)
     with pytest.raises(ValueError):                 # no fp16 values
@@ -480,3 +480,42 @@ def test_new_paths_train_step_cuda_matches_cpu(cuda, name):
           "topk_coco": {"compressor": "topk", "mode": "coco"},
           "dense": {"mode": "dense"}}[name]
     step_parity("cuda", **kw)
+
+
+BUCKET_KNOBS = {
+    "sign_b2_pipelined": {"num_buckets": 2},
+    "sign_b2_serial": {"num_buckets": 2, "bucket_schedule": "serial"},
+    "block_topk_b2": {"compressor": "block_topk", "num_buckets": 2},
+    "block_topk_b2_serial": {"compressor": "block_topk", "num_buckets": 2,
+                             "bucket_schedule": "serial"},
+    "sign_phase2_bf16": {"phase2_dtype": "bfloat16"},
+    "sign_phase2_sign": {"phase2_sign": True},
+    "block_topk_phase2_sign": {"compressor": "block_topk",
+                               "phase2_sign": True, "num_buckets": 2},
+    "coco_sign_b2": {"mode": "coco", "num_buckets": 2},
+}
+
+
+@pytest.mark.parametrize("name", list(BUCKET_KNOBS))
+def test_bucketed_and_phase2_step_cuda_matches_cpu(cuda, name):
+    """The bucketed and phase-2 step on the card against the CPU: stage 2
+    bit for bit (`device_parity.step_parity`)."""
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda", **BUCKET_KNOBS[name])
+
+
+@pytest.mark.parametrize("compressor", ["sign", "block_topk", "identity"])
+@pytest.mark.parametrize("buckets,schedule", [(1, "pipelined"),
+                                              (2, "serial"),
+                                              (2, "pipelined")])
+def test_parity_gate_on_card(cuda, compressor, buckets, schedule):
+    """The reference loop against the one-device step on the card, at
+    JAX's parity sizes, bit for bit, and the loop's theta on the card equal
+    to the CPU's."""
+    from repro_torch.launch.parity import (assert_parity, reference_loop,
+                                           run_parity)
+    assert_parity(run_parity(compressor, num_buckets=buckets,
+                             bucket_schedule=schedule, device="cuda"))
+    a, b = (reference_loop(compressor, device=d) for d in ("cuda", "cpu"))
+    for x, y in zip(a, b):
+        assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))

@@ -141,7 +141,7 @@ def _has_denormal(x: np.ndarray) -> np.ndarray:
     return ((x != 0) & (np.abs(x) < np.finfo(np.float32).tiny)).any(axis=1)
 
 
-@pytest.mark.parametrize("B", [128, 256, 512])
+@pytest.mark.parametrize("B", [64, 128, 256, 512])
 @pytest.mark.parametrize("k", [1, 2, 7, 8, 16, 31, 32])
 def test_twin_selection_is_lax_top_k(B, k):
     x = adversarial_blocks(B, k, seed=B + k)
@@ -164,7 +164,7 @@ def test_twin_selection_is_lax_top_k(B, k):
     np.testing.assert_array_equal(pos[normal], np.asarray(jidx))
 
 
-@pytest.mark.parametrize("P", [4, 8, 16])
+@pytest.mark.parametrize("P", [2, 4, 8, 16])
 def test_sort_networks_sort(P):
     """Every 0/1 input comes out sorted (the 0-1 principle: so does every
     input), with the kernel's compare-exchanges."""

@@ -342,7 +342,7 @@ def test_bad_inputs_raise():
                       torch.ones(4), 0.5, short, ())
     # what only the CUDA kernels refuse (checked before any launch)
     cuda = torch.device("cuda")
-    for n, k, B, vdt in ((1024, 8, 128, torch.float32),
+    for n, k, B, vdt in ((1024, 8, 32, torch.float32),
                          (1024, 33, 256, torch.float32),
                          (1024, 8, 256, torch.float16)):
         with pytest.raises(ValueError):

@@ -189,7 +189,7 @@ def test_global_route_raises_on_budgets_and_kernel_limits():
     cuda = torch.device("cuda")
     tp._check_shape(4 * 1024, 32, 1024, torch.float32, cuda,
                     global_route=True)
-    for k, B, glob in ((33, 1024, True), (8, 1024, False), (8, 128, True)):
+    for k, B, glob in ((33, 1024, True), (8, 1024, False), (8, 32, True)):
         with pytest.raises(ValueError):
             tp._check_shape(4 * 1024, k, B, torch.float32, cuda,
                             global_route=glob)

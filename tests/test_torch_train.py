@@ -11,6 +11,16 @@ Its flat sizes (164,480 sign, 164,864 block top-K) are not multiples of the
 Pallas tiles (256 and 2,048 elements), so JAX takes its jnp path, which
 tests/test_backend_parity.py and tests/test_topk_select.py show is
 bit-identical to the Pallas one (up to the signed zeros of ROADMAP C7).
+
+The port draws JAX's batches itself (tokens included, through its copy of
+XLA:CPU's exp), so the stage-1 comparisons could run from its own
+batches; they keep injecting JAX's dumped batches, which are the same
+bits, so a failure there points at stage 1 alone.
+
+With one gloo process per coding rank (`build_train_setup(...,
+group=grid)`, 4 processes started once for this module), 3 sign steps of
+a 2-layer smoke config give the one-device setup's theta and error rows
+bit for bit (both on one thread).
 """
 import jax.numpy as jnp
 import numpy as np
@@ -18,15 +28,16 @@ import pytest
 import torch
 
 from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
-                          _port_setup, _state_dict, exp_flips)
+                          _port_setup, _state_dict)
+from _torch_gloo import TRAIN_STEPS, run_gloo, train_spec
 from repro.core import coding as jcoding
 from repro.core.collectives import SparseWire as JaxSparseWire
 from repro.kernels import ref as jref
 from repro.optim import optimizers as joptim
-from repro_torch.configs import REGISTRY
+from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.core import coding
 from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
-from repro_torch.launch.train import TrainRun
+from repro_torch.launch.train import TrainRun, build_train_setup
 from repro_torch.optim import optimizers as optim
 
 
@@ -62,18 +73,13 @@ def test_setup_matches_jax(ref_run):
 
 def test_port_draws_jax_batches_and_masks(ref_run):
     """With the same seed (0) the port's batches and straggler masks are
-    JAX's: weights and masks bit for bit, tokens up to the f32 exp flips
-    that `exp_flips` explains (ROADMAP C11)."""
+    JAX's: tokens, weights and masks bit for bit."""
     s = _port_setup()
-    flips = 0
     for t in range(STEPS):
         toks, wts = s.make_batch(t)
         np.testing.assert_array_equal(wts.numpy(), ref_run[f"weights{t}"])
         np.testing.assert_array_equal(s.mask(t).numpy(), ref_run[f"mask{t}"])
-        flips += exp_flips(toks.numpy(), ref_run[f"tokens{t}"], 0, t,
-                           s.allocation, s.per_subset, s.seq_len,
-                           s.model.cfg.vocab_size)
-    print(f"tokens off by one through the f32 exp: {flips}")
+        np.testing.assert_array_equal(toks.numpy(), ref_run[f"tokens{t}"])
 
 
 def test_stage2_with_jax_gradients(ref_run):
@@ -330,3 +336,56 @@ def test_lr_schedule_matches_jax(kind, warmup, total):
                                    rtol=1e-6)
     with pytest.raises(ValueError):
         optim.lr_schedule("cosine", 1.0)
+
+
+@pytest.fixture(scope="module")
+def gloo_train(tmp_path_factory):
+    return run_gloo("train", tmp_path_factory.mktemp("gloo_train"))
+
+
+def test_group_train_equals_one_device(gloo_train):
+    """4 gloo processes, each one coding rank with its own coded rows, its
+    own error row, one backward pass and the group update: theta on every
+    rank equals the one-device setup's after each of 3 sign steps, bit for
+    bit, and each rank's error row is the one-device row."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        s = build_train_setup(train_spec(), ShapeCfg("train", 32, 8),
+                              TrainRun(base_lr=5e-3), smoke=True, n_code=N,
+                              device="cpu")
+        assert s.model.cfg.num_layers == 2
+        e = s.init_state()
+        for rank in gloo_train:
+            assert torch.equal(rank["theta0"], s.model.theta)
+        for t in range(TRAIN_STEPS):
+            m = s.train_step(s.model, e, s.make_batch(t), t)
+            for i, rank in enumerate(gloo_train):
+                assert torch.equal(rank[f"theta{t + 1}"].view(torch.int32),
+                                   s.model.theta.view(torch.int32)), (t, i)
+                assert rank[f"loss{t}"] == m["losses"][i].item()
+        assert s.mask(1).tolist() != [1.0] * N          # a straggler step
+        for i, rank in enumerate(gloo_train):
+            assert torch.equal(rank["e"].view(torch.int32),
+                               e[i].view(torch.int32))
+    finally:
+        torch.set_num_threads(threads)
+
+
+def test_train_run_takes_the_bucket_and_phase2_knobs():
+    run = TrainRun(num_buckets=2, bucket_schedule="serial",
+                   phase2_dtype="bfloat16", phase2_sign=True)
+    cfg = run.coding_config(REGISTRY["gemma2-2b"].coding, N)
+    assert (cfg.num_buckets, cfg.bucket_schedule, cfg.phase2_dtype,
+            cfg.phase2_sign) == (2, "serial", "bfloat16", True)
+    for bad in ({"num_buckets": 0}, {"bucket_schedule": "eager"},
+                {"phase2_dtype": "float16"}):
+        with pytest.raises(ValueError):
+            TrainRun(**bad)
+    s = build_train_setup(train_spec(), ShapeCfg("train", 32, 8),
+                          TrainRun(num_buckets=2), smoke=True, n_code=N,
+                          device="cpu")
+    assert s.flat_pad % (N * 32 * 2) == 0
+    words, scales = s.payload
+    assert words.shape == (2, N, s.flat_pad // 64)
+    assert scales.shape == (2, N, s.flat_pad // 64)
