@@ -17,9 +17,13 @@ Phases (any failure exits non-zero and prints no result line):
                 the train step's buffer layout, chunk by chunk, and timed
                 there with CUDA events (beside them, as a yardstick only,
                 torch.topk of |x| per block: not the same function, its
-                tie order differs).  flash_attention within its stated
-                tolerance of
-                its plain version (f32: 2e-4 relative + 2e-5; bf16: one
+                tie order differs); the sign and block top-K kernels also
+                on the training driver's wire at its n, held and timed the
+                same way (ef_sign_fused and sign_decode_reduce at group
+                32; ef_topk_fused at block 64, k 8, with each rank's
+                budget k_send 8, 8, 3, 1 and a straggler, then
+                topk_decode_reduce over those four rows).  flash_attention
+                within its stated tolerance of its plain version (f32: 2e-4 relative + 2e-5; bf16: one
                 bf16 ulp) over an adversarial sweep (hd 16/64/288, groups
                 1/2/4, softcap 0/50 with scores far past it, window
                 0/1/64/S, S 1/1000/4096, the largest raw score of most
@@ -96,7 +100,21 @@ Phases (any failure exits non-zero and prints no result line):
                 (sign, block top-K, two buckets, pipelined) equals the
                 one-device update bit for bit.  N = 4 over NCCL needs
                 four cards
-  9. serve      with the train setups freed: gemma2-2b at full width and
+  9. driver     the training driver (`python -m repro_torch.launch
+                .train_e2e`'s `run`, its coding overrides: group 32, block
+                64, k 8) on gemma2-2b at full width, N = 4 on the card, one
+                run at a time: 6 steps at full depth with markov stragglers
+                (p 0.25) and the elastic coding plane (masks, replans, step
+                seconds, stage-2 kernel ms and the peak printed; the same
+                flags on the CPU give the same masks, allocations and batch
+                weights), 2 block top-K steps at full depth with the
+                budgets solved for uplinks of 10, 10, 5 and 2.5 Gbit/s,
+                then crash and resume at 2 layers: 4 steps straight
+                against 2 steps, a checkpoint (JAX's format, raw), every
+                tensor dropped, a restore into a fresh setup and 2 steps,
+                theta and e hashed equal (the file's bytes and the seconds
+                to save and restore printed); exact launch counts per run
+ 10. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
                 layer, all on the tensor-core route) then 32 greedy
@@ -160,6 +178,11 @@ PARITY_SIZES = ((1024, {}), (1 << 22, {"group_size": GROUP,
                                         "k_per_block": K,
                                         "gamma": 2e-6 * 1024 / (1 << 22)}))
 BUCKETS = 2
+DRIVER_STEPS = 6          # the driver's elastic markov run, full depth
+DRIVER_BUDGET_STEPS = 2
+DRIVER_UPLINKS = "10,10,5,2.5"    # Gbit/s a rank: k_send = DRIVER_K_BUDGETS
+DRIVER_K_BUDGETS = (8, 8, 3, 1)
+RESUME_LAYERS = 2         # crash and resume: full width, depth cut
 HASH_CHUNK = 1 << 26      # position-weighted bit hashes, this many at once
 NCCL_N = 1 << 26
 
@@ -237,7 +260,7 @@ def adversarial_(g, e, G: int, gamma: float) -> None:
     e[3 * G:4 * G] = -gamma
 
 
-def compare_ef(torch, want, got, what: str) -> dict:
+def compare_ef(torch, want, got, what: str, G: int = GROUP) -> dict:
     """want = the plain (words, scales, c, e'), got = the kernel's (c may
     be None).  Words exact, scales <= MAX_ULP ulp; c and e' exact where
     the scales agree, else within MAX_ULP ulp of the scale (plus one
@@ -249,8 +272,8 @@ def compare_ef(torch, want, got, what: str) -> dict:
     du = ulps(s0, s1)
     if du.max().item() > MAX_ULP:
         fail(f"{what}: scales {du.max().item()} ulp apart")
-    same = (du == 0).repeat_interleave(GROUP)
-    tol = spacing(torch.maximum(s0, s1)).repeat_interleave(GROUP) * MAX_ULP
+    same = (du == 0).repeat_interleave(G)
+    tol = spacing(torch.maximum(s0, s1)).repeat_interleave(G) * MAX_ULP
     worst = {"max_ulp": du.max().item(), "max_abs_err": 0.0}
     for name, a, b, extra in (("c", c0, c1, 0.0), ("e'", e0, e1, None)):
         if b is None:
@@ -314,98 +337,100 @@ def bound(bytes_moved: float, ops: float):
     return (max(t_bytes, t_ops), "bytes" if t_bytes >= t_ops else "operations")
 
 
-def ef_at_slice(torch, ref, sp, gen, dev, n: int) -> dict:
-    """ef_sign_fused at the slice's n (past 2**31 elements) in the train
-    step's layout: the error is a row of a 2-D buffer updated in place and
-    the payload goes into rows of the (N, n/32) and (N, n/g) buffers.  Row
-    0 of `e` keeps the inputs, row 1 is the one the kernel updates.  A
-    straggler launch (mask 0, payload row 2) and a live one (mask 1, row 1)
-    are held against the plain version chunk by chunk, then the live one is
-    timed.  Adversarial groups sit at the start and past 2**31."""
+def ef_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP) -> dict:
+    """ef_sign_fused at the slice's n (past 2**31 elements) and group G in
+    the train step's layout: the error is a row of a 2-D buffer updated in
+    place and the payload goes into rows of the (N, n/32) and (N, n/G)
+    buffers.  Row 0 of `e` keeps the inputs, row 1 is the one the kernel
+    updates.  A straggler launch (mask 0, payload row 2) and a live one
+    (mask 1, row 1) are held against the plain version chunk by chunk, then
+    the live one is timed.  Adversarial groups sit at the start and past
+    2**31."""
     gamma = 5e-3
     g = torch.randn(n, device=dev, generator=gen)
     e = torch.empty((2, n), device=dev)
     e[0].normal_(generator=gen)
-    mag = torch.exp(torch.rand(n // GROUP, device=dev, generator=gen)
-                    * 25 - 20).repeat_interleave(GROUP)
+    mag = torch.exp(torch.rand(n // G, device=dev, generator=gen)
+                    * 25 - 20).repeat_interleave(G)
     g.mul_(mag)
     e[0].mul_(mag).mul_(0.01)
     del mag
-    for a in (0, n - 4 * GROUP):
-        adversarial_(g[a:a + 4 * GROUP], e[0, a:a + 4 * GROUP], GROUP, gamma)
+    for a in (0, n - 4 * G):
+        adversarial_(g[a:a + 4 * G], e[0, a:a + 4 * G], G, gamma)
     e[1].copy_(e[0])
     gamma_t = torch.tensor(gamma, device=dev)   # a device scalar, as in
     # the train step: no launch copies it from the host
     words = torch.zeros((N_CODE, n // 32), dtype=torch.uint32, device=dev)
-    scales = torch.zeros((N_CODE, n // GROUP), device=dev)
+    scales = torch.zeros((N_CODE, n // G), device=dev)
     masks = torch.tensor([1.0, 0.0], device=dev)
     worst = {"max_ulp": 0, "max_abs_err": 0.0}
     for row, m in ((2, masks[1]), (1, masks[0])):
-        sp.ef_sign_fused(g, e[1], gamma_t, m, GROUP,
+        sp.ef_sign_fused(g, e[1], gamma_t, m, G,
                          out=(words[row], scales[row], e[1]))
         torch.cuda.synchronize()
-        what = f"ef_sign_fused at n={n} (mask={m.item()})"
+        what = f"ef_sign_fused at n={n}, g {G} (mask={m.item()})"
         if m.item() == 0.0 and not torch.equal(e[1].view(torch.int32),
                                                 e[0].view(torch.int32)):
             fail(f"{what}: a straggler's e changed")
         for i in range(0, n, CHUNK):
             j = min(i + CHUNK, n)
             want = ref.ef_sign_fused_ref(g[i:j], e[0, i:j], gamma_t, m,
-                                         GROUP)
+                                         G)
             got = (words[row, i // 32:j // 32],
-                   scales[row, i // GROUP:j // GROUP], None, e[1, i:j])
-            worst = merge(worst, compare_ef(torch, want, got, what))
+                   scales[row, i // G:j // G], None, e[1, i:j])
+            worst = merge(worst, compare_ef(torch, want, got, what, G))
             del want
 
     ms = cuda_ms(lambda: sp.ef_sign_fused(
-        g, e[1], gamma_t, masks[0], GROUP, out=(words[1], scales[1], e[1])),
+        g, e[1], gamma_t, masks[0], G, out=(words[1], scales[1], e[1])),
         10)
 
     def plain():
         for i in range(0, n, CHUNK):
             ref.ef_sign_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
-                                  masks[0], GROUP)
+                                  masks[0], G)
     plain_ms = cuda_ms(plain, 2)
-    moved = 12 * n + n / 8 + 4 * n / GROUP
+    moved = 12 * n + n / 8 + 4 * n / G
     b, by = bound(moved, 6 * n)
     return {**worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
             "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
 
-def decode_at_slice(torch, ref, sp, gen, dev, n: int) -> dict:
-    """sign_decode_reduce at the slice's n over the (N, n/32) and (N, n/g)
-    payload buffers of the train step: held against the plain version
-    chunk by chunk (exact), then timed."""
+def decode_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP
+                    ) -> dict:
+    """sign_decode_reduce at the slice's n and group G over the (N, n/32)
+    and (N, n/G) payload buffers of the train step: held against the plain
+    version chunk by chunk (exact), then timed."""
     words = torch.randint(0, 2 ** 32, (N_CODE, n // 32), device=dev,
                           generator=gen, dtype=torch.int64).to(torch.uint32)
-    scales = torch.rand((N_CODE, n // GROUP), device=dev, generator=gen)
+    scales = torch.rand((N_CODE, n // G), device=dev, generator=gen)
     scales[0, :4] = 0.0
     scales[2, -4:] = 0.0
     mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
     out = torch.empty(n, device=dev)
-    sp.sign_decode_reduce(words, scales, mask, GROUP, out=out)
+    sp.sign_decode_reduce(words, scales, mask, G, out=out)
     torch.cuda.synchronize()
     for i in range(0, n, CHUNK):
         j = min(i + CHUNK, n)
         want = ref.sign_decode_reduce_ref(words[:, i // 32:j // 32],
-                                          scales[:, i // GROUP:j // GROUP],
-                                          mask, GROUP)
+                                          scales[:, i // G:j // G],
+                                          mask, G)
         if not torch.equal(out[i:j].view(torch.int32),
                            want.view(torch.int32)):
-            fail(f"sign_decode_reduce at n={n} differs from the "
+            fail(f"sign_decode_reduce at n={n}, g {G} differs from the "
                  f"sender-order sum in [{i}, {j})")
         del want
 
-    ms = cuda_ms(lambda: sp.sign_decode_reduce(words, scales, mask, GROUP,
+    ms = cuda_ms(lambda: sp.sign_decode_reduce(words, scales, mask, G,
                                                out=out), 10)
 
     def plain():
         for i in range(0, n, CHUNK):
             ref.sign_decode_reduce_ref(
                 words[:, i // 32:(i + CHUNK) // 32],
-                scales[:, i // GROUP:(i + CHUNK) // GROUP], mask, GROUP)
+                scales[:, i // G:(i + CHUNK) // G], mask, G)
     plain_ms = cuda_ms(plain, 2)
-    moved = N_CODE * (n / 8 + 4 * n / GROUP) + 4 * N_CODE + 4 * n
+    moved = N_CODE * (n / 8 + 4 * n / G) + 4 * N_CODE + 4 * n
     b, by = bound(moved, 3 * N_CODE * n)
     return {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "gb_per_s": moved / ms / 1e6}
@@ -424,11 +449,10 @@ def same(a, b) -> bool:
     return a.shape == b.shape and torch.equal(bits(a), bits(b))
 
 
-def topk_adversarial_(g, e) -> None:
-    """First blocks (acc = gamma*g + e): all zeros, all -0.0, denormals,
-    K + 1 equal maxima of mixed sign over small values, exactly K
-    nonzeros, every |acc| equal."""
-    B = BLOCK
+def topk_adversarial_(g, e, B: int = BLOCK, K: int = K) -> None:
+    """First blocks of B (acc = gamma*g + e): all zeros, all -0.0,
+    denormals, K + 1 equal maxima of mixed sign over small values, exactly
+    K nonzeros, every |acc| equal."""
     blk = [slice(i * B, (i + 1) * B) for i in range(6)]
     g[blk[0]] = 0.0
     e[blk[0]] = 0.0
@@ -464,19 +488,21 @@ def compare_topk(got, want, what: str) -> None:
                  f" entries")
 
 
-def topk_inputs(torch, gen, dev, n: int, rows: int = 1):
-    """g (n,) and e (rows, n), e[r] all equal, of widely varying block
-    scales, with the adversarial blocks at the start and at the end."""
+def topk_inputs(torch, gen, dev, n: int, rows: int = 1, B: int = BLOCK,
+                k: int = K):
+    """g (n,) and e (rows, n), e[r] all equal, of widely varying scales
+    over blocks of B, with the adversarial blocks (for k) at the start and
+    at the end."""
     g = torch.randn(n, device=dev, generator=gen)
     e = torch.empty((rows, n), device=dev)
     e[0].normal_(generator=gen)
-    mag = torch.exp(torch.rand(n // BLOCK, device=dev, generator=gen)
-                    * 25 - 20).repeat_interleave(BLOCK)
+    mag = torch.exp(torch.rand(n // B, device=dev, generator=gen)
+                    * 25 - 20).repeat_interleave(B)
     g.mul_(mag)
     e[0].mul_(mag).mul_(0.01)
     del mag
-    for a in (0, n - 6 * BLOCK):
-        topk_adversarial_(g[a:a + 6 * BLOCK], e[0, a:a + 6 * BLOCK])
+    for a in (0, n - 6 * B):
+        topk_adversarial_(g[a:a + 6 * B], e[0, a:a + 6 * B], B, k)
     for r in range(1, rows):
         e[r].copy_(e[0])
     return g, e
@@ -650,6 +676,92 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
                      "ops": ops, "gb_per_s": moved / ms / 1e6}
         if name in more:
             res[name]["more"] = more[name]
+    return res
+
+
+def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
+                     budgets) -> dict:
+    """B3 and B4 at the slice's n on the driver's budgeted block top-K
+    wire (blocks of B, k_max = k, the ranks' k_send = `budgets`), in the
+    train step's layout: each rank's local step writes its payload row
+    with its own k_send (the last rank also as a straggler, mask 0, which
+    must leave e as it was), then B4 decodes the four rows with that
+    rank's mask 0.  Each launch is held against its plain version chunk
+    by chunk, bit for bit, then timed (B3 at the largest and the smallest
+    budget)."""
+    gamma = 5e-3
+    g, e = topk_inputs(torch, gen, dev, n, rows=2, B=B, k=k)
+    gamma_t = torch.tensor(gamma, device=dev)
+    nb = n // B
+    idx = torch.zeros((N_CODE, nb, k), dtype=torch.uint16, device=dev)
+    val = torch.zeros((N_CODE, nb, k), device=dev)
+    sc = torch.zeros((N_CODE, nb), device=dev)
+    mask = torch.tensor([1.0, 1.0, 1.0, 0.0], device=dev)
+
+    def row(r):
+        return idx[r], val[r], sc[r]
+
+    def launch(r, m):
+        tp.ef_topk_fused(g, e[1], gamma_t, m, k, B, out=row(r) + (e[1],),
+                         k_send=budgets[r])
+
+    for r in range(N_CODE):
+        for m in ((mask[r],) if r < N_CODE - 1 else (mask[0], mask[r])):
+            e[1].copy_(e[0])
+            launch(r, m)
+            torch.cuda.synchronize()
+            what = (f"ef_topk_fused at n={n}, B {B} (k_send={budgets[r]}, "
+                    f"mask={m.item()})")
+            if m.item() == 0.0 and not same(e[1], e[0]):
+                fail(f"{what}: a straggler's e changed")
+            for i in range(0, n, CHUNK):
+                j = min(i + CHUNK, n)
+                want = ref.ef_topk_fused_ref(g[i:j], e[0, i:j], gamma_t, m,
+                                             k, B, k_send=budgets[r])
+                compare_topk((idx[r, i // B:j // B], val[r, i // B:j // B],
+                              sc[r, i // B:j // B], None, e[1, i:j]),
+                             want, what)
+                del want
+    lo = min(range(N_CODE), key=lambda r: budgets[r])
+    ms = {r: cuda_ms(lambda: launch(r, mask[0]), 10) for r in (0, lo)}
+
+    def plain_ef():
+        for i in range(0, n, CHUNK):
+            ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
+                                  mask[0], k, B, k_send=budgets[0])
+    payload_b = nb * (k * (2 + 4) + 4)
+    out = {"ef_topk_fused": (ms[0], cuda_ms(plain_ef, 2), 12 * n + payload_b,
+                             (6 + k) * n,
+                             {f"ms_k_send_{budgets[lo]}": ms[lo]})}
+    del e
+    ghat = torch.empty(n, device=dev)
+    tp.topk_decode_reduce(idx, val, sc, mask, B, out=ghat)
+    torch.cuda.synchronize()
+    cb = CHUNK // B
+    for b0 in range(0, nb, cb):
+        b1 = min(b0 + cb, nb)
+        want = ref.topk_decode_reduce_ref(idx[:, b0:b1], val[:, b0:b1],
+                                          sc[:, b0:b1], mask, B)
+        if not same(ghat[b0 * B:b1 * B], want):
+            fail(f"topk_decode_reduce at n={n}, B {B} (budgets {budgets}) "
+                 f"differs from the sender-order sum in blocks [{b0}, {b1})")
+        del want
+    ms = cuda_ms(lambda: tp.topk_decode_reduce(idx, val, sc, mask, B,
+                                               out=ghat), 10)
+
+    def plain_decode():
+        for b0 in range(0, nb, cb):
+            ref.topk_decode_reduce_ref(idx[:, b0:b0 + cb], val[:, b0:b0 + cb],
+                                       sc[:, b0:b0 + cb], mask, B)
+    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
+                                 4 * n + N_CODE * payload_b + 4 * N_CODE,
+                                 3 * N_CODE * nb * k, {})
+    res = {}
+    for name, (ms, plain_ms, moved, ops, more) in out.items():
+        b, by = bound(moved, ops)
+        res[name] = {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms,
+                     "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+                     "gb_per_s": moved / ms / 1e6, **more}
     return res
 
 
@@ -1095,7 +1207,9 @@ def train_path(torch, setup, e, first: int, steps: int, label: str,
 
 PEAKS = {}                # peak bytes allocated by train path
 SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
-              "sign phase2 bf16", "sign phase2 sign")
+              "sign phase2 bf16", "sign phase2 sign", "driver markov elastic",
+              "driver resume straight", "driver resume save",
+              "driver resume restored")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -1435,6 +1549,158 @@ def nccl_phase(torch, dev, launches) -> dict:
 
 
 
+def driver_args(ckpt_dir: Path, device: str, *flags):
+    """Parsed flags of `python -m repro_torch.launch.train_e2e`."""
+    from repro_torch.launch import train_e2e
+    return train_e2e.build_parser().parse_args(
+        ["--device", device, "--ckpt-dir", str(ckpt_dir), *flags])
+
+
+def driver_run(torch, launches, label: str, args, spec, shape, want: dict,
+               out: dict) -> dict:
+    """One `train_e2e.run` on the card, the launch counts reset just before
+    and read just after (they must equal `want`), the peak memory reset
+    before it; prints each step's record and the peak, and fails on a
+    non-finite theta or e.  Returns run's result."""
+    from repro_torch.launch import train_e2e
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launches:
+        launches[k] = 0
+    res = train_e2e.run(args, spec=spec, shape=shape, smoke=False)
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launches.items() if v}
+    if got != want:
+        fail(f"driver ({label}): launch counts {got}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    for r in res["steps"]:
+        print(json.dumps({"path": f"driver {label}", **{
+            k: r[k] for k in ("step", "loss", "step_s", "kernel_ms",
+                              "kernel_spans_ms", "batch_s", "mask")},
+            "plane_s": r.get("plane_s"),
+            "replan": {k: r["replan"][k] for k in ("epoch", "drift",
+                                                   "reallocated")}
+            if "replan" in r else None}), flush=True)
+        if not math.isfinite(r["loss"]):
+            fail(f"driver ({label}) step {r['step']}: loss {r['loss']}")
+    setup = res["setup"]
+    for name, rows in (("theta", [setup.model.theta]), ("e", list(res["e"]))):
+        if not all_finite(torch, rows):
+            fail(f"driver ({label}): non-finite {name}")
+    PEAKS[f"driver {label}"] = peak
+    out[label] = {"launches": got, "peak_bytes": peak,
+                  "step_s": [r["step_s"] for r in res["steps"]],
+                  "kernel_ms": [r["kernel_ms"] for r in res["steps"]]}
+    print(f"driver ({label}): gemma2-2b {setup.model.cfg.num_layers} "
+          f"layers, flat {setup.flat_pad}, peak memory {peak} B "
+          f"({peak / 1e9:.2f} GB) of "
+          f"{torch.cuda.get_device_properties(0).total_memory} B", flush=True)
+    return res
+
+
+def driver_phase(torch, spec, dev, launches) -> dict:
+    """The training driver (`repro_torch.launch.train_e2e.run`, its own
+    coding overrides: group 32, block 64, k 8) on gemma2-2b at full width,
+    N = 4 on the card, seq SEQ_LEN, global batch GLOBAL_BATCH, one run's
+    tensors freed before the next:
+      - markov stragglers (p 0.25) with the elastic coding plane, full
+        depth, DRIVER_STEPS steps; the same flags on the CPU (smoke
+        config, same shape) must give the same masks, allocations and
+        batch weights at every step;
+      - block top-K with the budgets solved for uplinks of 10, 10, 5 and
+        2.5 Gbit/s, full depth, DRIVER_BUDGET_STEPS steps;
+      - crash and resume at RESUME_LAYERS layers (full width): 4 steps
+        straight, then 2 steps with a checkpoint, every tensor dropped, a
+        restore into a fresh setup and 2 more steps: theta and e must hash
+        equal.  The checkpoints go to a temporary directory, removed
+        after."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch import train_e2e
+    from repro_torch.nn.transformer import num_params
+    shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
+
+    def sign(steps: int) -> dict:
+        return {"ef_sign_fused": N_CODE * steps, "sign_decode_reduce": steps}
+    out = {}
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_driver_"))
+    try:
+        free = shutil.disk_usage(tmp).free
+        print(f"driver: checkpoints under {tmp}, {free} B free", flush=True)
+        never = ("--ckpt-every", str(1 << 30))
+        flags = ("--steps", str(DRIVER_STEPS), "--straggler", "markov",
+                 "--straggler-p", "0.25", "--elastic", *never)
+        res = driver_run(torch, launches, "markov elastic",
+                         driver_args(tmp / "elastic", "cuda", *flags), spec,
+                         shape, sign(DRIVER_STEPS), out)
+        card = [{k: r[k] for k in ("mask", "allocation", "weights")}
+                for r in res["steps"]]
+        out["markov elastic"]["replans"] = [
+            r["replan"]["epoch"] for r in res["steps"]]
+        del res
+        settle(torch, "the driver's elastic run")
+        cpu = train_e2e.run(driver_args(tmp / "cpu", "cpu", *flags),
+                            spec=spec, shape=shape, smoke=True)
+        if [{k: r[k] for k in ("mask", "allocation", "weights")}
+                for r in cpu["steps"]] != card:
+            fail("driver: the card's masks, allocations or batch weights "
+                 "differ from the CPU's")
+        out["markov elastic"]["card == cpu"] = True
+
+        res = driver_run(torch, launches, "budgets",
+                         driver_args(tmp / "budgets", "cuda", "--steps",
+                                     str(DRIVER_BUDGET_STEPS),
+                                     "--compressor", "block_topk",
+                                     "--rank-uplink-gbps", DRIVER_UPLINKS,
+                                     *never), spec, shape,
+                         {"ef_topk_fused": N_CODE * DRIVER_BUDGET_STEPS,
+                          "topk_decode_reduce": DRIVER_BUDGET_STEPS}, out)
+        out["budgets"]["k"] = list(res["setup"].cocoef_cfg.k_per_block)
+        if tuple(out["budgets"]["k"]) != DRIVER_K_BUDGETS:
+            fail(f"driver: budgets {out['budgets']['k']} solved, the kernel "
+                 f"checks ran {DRIVER_K_BUDGETS}")
+        del res
+        settle(torch, "the driver's budgets run")
+
+        cut = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, num_layers=RESUME_LAYERS))
+        hashes = {}
+        for label, d, steps, every, want in (
+                ("resume straight", "straight", 4, 1 << 30, sign(4)),
+                ("resume save", "crash", 2, 2, sign(2)),
+                ("resume restored", "crash", 4, 1 << 30, sign(2))):
+            res = driver_run(torch, launches, label,
+                             driver_args(tmp / d, "cuda", "--steps",
+                                         str(steps), "--ckpt-every",
+                                         str(every)), cut, shape, want, out)
+            if label != "resume save":
+                hashes[label] = (bits_hash(torch, [res["setup"].model.theta]),
+                                 bits_hash(torch, res["e"]))
+            for c in res["ckpt"]:
+                out[label]["ckpt"] = {k: c[k] for k in ("step", "bytes",
+                                                        "save_s")}
+            if res["restore_s"] is not None:
+                out[label]["restore_s"] = res["restore_s"]
+                out[label]["start"] = res["start"]
+            del res
+            if settle(torch, f"the driver's {label} run") > 1 << 30:
+                fail("driver: over 1 GiB still allocated between runs")
+        if out["resume restored"].get("start") != 2:
+            fail("driver: the restored run did not resume from step 2")
+        if hashes["resume straight"] != hashes["resume restored"]:
+            fail("driver: theta or e after save, restore and 2 steps "
+                 "differs from 4 steps straight")
+        out["resume restored"]["bit_equal"] = True
+        out["params"] = {"full": num_params(spec.config),
+                         f"{RESUME_LAYERS} layers": num_params(cut.config)}
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    print("driver: " + json.dumps(out), flush=True)
+    return {f"driver {k}": v["launches"] for k, v in out.items()
+            if isinstance(v, dict) and "launches" in v}
+
+
 def serve_request(torch, setup, prompts, launches, n_layers: int):
     """Prefill `prompts`, then NEW_TOKENS greedy decode steps, with the
     launch counts reset just before and checked after each part: one
@@ -1485,7 +1751,7 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
 
 
 def serve(torch, spec, dev, launches) -> int:
-    """The serve phase (9 in the module docstring); returns the
+    """The serve phase (10 in the module docstring); returns the
     flash_attention launches of the whole phase."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.launch.serve import build_serve_setup
@@ -1555,6 +1821,7 @@ def main() -> None:
     from repro_torch.kernels import build, flash_attention as fa, ref, \
         sign_pack as sp, topk_pack as tp
     from repro_torch.kernels.common import launches
+    from repro_torch.launch import train_e2e
     from repro_torch.launch.device_parity import serve_parity, step_parity
     from repro_torch.nn.transformer import num_params
 
@@ -1604,6 +1871,25 @@ def main() -> None:
     settle(torch, "sign_pack and block_topk at the slice's n")
     print(f"kernels vs plain and times at n={n}, train layout: "
           f"{json.dumps(at_slice)}", flush=True)
+    # the driver's own wire (train_e2e.CODING_OVERRIDES) at its n
+    wire = train_e2e.CODING_OVERRIDES
+    G, B, k = wire["group_size"], wire["block_size"], wire["k_per_block"]
+    n_sign = padded_size(num_params(spec.config), N_CODE, G)
+    n_topk = padded_size(num_params(spec.config), N_CODE, math.lcm(G, B))
+    drv = {"ef_sign_fused": {"n": n_sign, "group": G, **ef_at_slice(
+        torch, ref, sp, gen, dev, n_sign, G)}}
+    settle(torch, f"ef_sign_fused at the driver's n, g {G}")
+    drv["sign_decode_reduce"] = {"n": n_sign, "group": G, **decode_at_slice(
+        torch, ref, sp, gen, dev, n_sign, G)}
+    settle(torch, f"sign_decode_reduce at the driver's n, g {G}")
+    for name, r in budgets_at_slice(torch, ref, tp, gen, dev, n_topk, B, k,
+                                    DRIVER_K_BUDGETS).items():
+        drv[name] = {"n": n_topk, "block": B, "k": k,
+                     "k_send": list(DRIVER_K_BUDGETS), **r}
+    settle(torch, f"the budgeted block top-K kernels at the driver's n, "
+           f"B {B}")
+    print(f"kernels vs plain and times on the driver's wire, train layout: "
+          f"{json.dumps(drv)}", flush=True)
     route = global_at_slice(torch, ref, tp, gen, dev, n)
     settle(torch, "the global top-K route at the slice's n")
     print(f"global top-K route (rounds of topk_pack) vs plain at n={n}, "
@@ -1656,6 +1942,9 @@ def main() -> None:
     if settle(torch, "the buckets phase") > 1 << 30:
         fail("over 1 GiB still allocated before the nccl phase")
     nccl_phase(torch, dev, launches)
+    if settle(torch, "the nccl phase") > 1 << 30:
+        fail("over 1 GiB still allocated before the driver phase")
+    counts.update(driver_phase(torch, spec, dev, launches))
     if settle(torch, "the train paths") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
@@ -1665,9 +1954,11 @@ def main() -> None:
         "ef_sign_fused": ("sign_pack", "sign_pack.py:112", SIGN_PATHS),
         "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", SIGN_PATHS),
         "ef_topk_fused": ("topk_pack", "topk_pack.py:137",
-                          ("block_topk", "block_topk b2 pipelined")),
+                          ("block_topk", "block_topk b2 pipelined",
+                           "driver budgets")),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
-                               ("block_topk", "block_topk b2 pipelined")),
+                               ("block_topk", "block_topk b2 pipelined",
+                                "driver budgets")),
         "topk_pack": ("topk_pack", "topk_pack.py:63",
                       ("block_topk coco", "topk", "topk coco")),
         "sign_pack": ("sign_pack", "sign_pack.py:60",
@@ -1678,6 +1969,12 @@ def main() -> None:
         "flash_attention": ("flash_attention_sm90", "flash_attention.py:67",
                             "serve prefill"),
     }
+    driver_paths = {
+        "ef_sign_fused": [p for p in SIGN_PATHS if p.startswith("driver")],
+        "sign_decode_reduce": [p for p in SIGN_PATHS
+                               if p.startswith("driver")],
+        "ef_topk_fused": ["driver budgets"],
+        "topk_decode_reduce": ["driver budgets"]}
     kernels = []
     for name, (src, replaces, path) in meta.items():
         r = at_slice[name]
@@ -1685,6 +1982,11 @@ def main() -> None:
         if name == "topk_pack":       # its rounds in the global route
             r = {**r, "more": {**r.get("more", {}), **{
                 f"global_route_{k}": v for k, v in route.items()}}}
+        if name in drv:               # the driver's instance, own numbers
+            r = {**r, "more": {**r.get("more", {}), "driver_wire": {
+                "launches": sum(counts.get(p, {}).get(name, 0)
+                                for p in driver_paths[name]),
+                **drv[name]}}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
@@ -1692,8 +1994,10 @@ def main() -> None:
             "path": " + ".join(paths),
             "launches": sum(counts.get(p, {}).get(name, 0) for p in paths),
             "max_abs_err": max(checks.get(name, r)["max_abs_err"],
-                               r["max_abs_err"]),
-            "max_ulp": (max(checks.get(name, r)["max_ulp"], r["max_ulp"])
+                               r["max_abs_err"],
+                               drv.get(name, r)["max_abs_err"]),
+            "max_ulp": (max(checks.get(name, r)["max_ulp"], r["max_ulp"],
+                            drv.get(name, r)["max_ulp"])
                         if "max_ulp" in r else None),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

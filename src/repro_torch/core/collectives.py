@@ -113,6 +113,10 @@ class SignWire:
     def wire_bytes(self, n: int) -> int:
         return wire_bytes_sign(n, self.group_size)
 
+    def rank_wire_bytes(self, n: int, num_ranks: int) -> np.ndarray:
+        """(num_ranks,) int64 phase-1 bytes per rank: uniform."""
+        return np.full((num_ranks,), int(self.wire_bytes(n)), np.int64)
+
     def alignment(self) -> int:
         return self.group_size
 
@@ -318,6 +322,10 @@ class DenseWire:
 
     def wire_bytes(self, n: int) -> int:
         return n * self.vdt.itemsize
+
+    def rank_wire_bytes(self, n: int, num_ranks: int) -> np.ndarray:
+        """(num_ranks,) int64 phase-1 bytes per rank: uniform."""
+        return np.full((num_ranks,), int(self.wire_bytes(n)), np.int64)
 
     def alignment(self) -> int:
         return 1

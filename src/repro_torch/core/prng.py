@@ -9,6 +9,7 @@ with x64 off (the JAX package's setting):
 
   PRNGKey(seed)    [0, seed & 0xffffffff] (JAX reduces the seed to 32 bits)
   fold_in(k, d)    threefry2x32(k, (0, d)): the two output words
+                   (`fold_in_many`: many data, or one key per datum)
   random_bits(k, shape)
                    element i (flat, row-major) is y0 ^ y1 of
                    threefry2x32(k, (i >> 32, i & 0xffffffff))
@@ -19,6 +20,7 @@ with x64 off (the JAX package's setting):
                    XLA:CPU contracts JAX's multiply-add into an FMA
                    (tests/test_torch_prng.py holds this against
                    jax.random), then max(minval, .)
+                   (`uniform_rows`: one (n,) draw per key of a batch)
   split(k, num)    key i is the two output words of
                    threefry2x32(k, (i >> 32, i & 0xffffffff))
   permutation(k, n)
@@ -35,8 +37,9 @@ from typing import Sequence
 
 import numpy as np
 
-__all__ = ["PRNGKey", "fold_in", "split", "threefry2x32", "random_bits",
-           "uniform", "fma_f32", "permutation", "choice"]
+__all__ = ["PRNGKey", "fold_in", "fold_in_many", "split", "threefry2x32",
+           "random_bits", "uniform", "uniform_rows", "fma_f32",
+           "permutation", "choice"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
 
@@ -48,8 +51,10 @@ def _rotl(x: np.ndarray, r: int) -> np.ndarray:
 def threefry2x32(key: np.ndarray, x0: np.ndarray, x1: np.ndarray):
     """The 20-round threefry2x32 block function (Salmon et al. 2011, as
     `jax._src.prng.threefry2x32`) on uint32 counters (x0, x1) of any
-    shape; returns the two uint32 output words."""
-    k0, k1 = (np.uint32(v) for v in np.asarray(key, np.uint32))
+    shape; returns the two uint32 output words.  `key` is one (2,) key or
+    keys (..., 2) that broadcast against the counters."""
+    key = np.asarray(key, np.uint32)
+    k0, k1 = key[..., 0], key[..., 1]
     ks = (k0, k1, k0 ^ k1 ^ np.uint32(0x1BD11BDA))
     with np.errstate(over="ignore"):
         x = [np.asarray(x0, np.uint32) + ks[0],
@@ -73,6 +78,15 @@ def fold_in(key: np.ndarray, data: int) -> np.ndarray:
     y0, y1 = threefry2x32(key, np.zeros(1, np.uint32),
                           np.array([int(data) & 0xFFFFFFFF], np.uint32))
     return np.array([y0[0], y1[0]], np.uint32)
+
+
+def fold_in_many(key: np.ndarray, data: np.ndarray) -> np.ndarray:
+    """(len(data), 2) keys: row i is `fold_in(key_i, data[i])`, where key
+    is one (2,) key or one key per datum (len(data), 2); data are taken
+    modulo 2**32 (negative steps wrap as JAX's cast to uint32)."""
+    d = (np.asarray(data, np.int64) % (1 << 32)).astype(np.uint32)
+    y0, y1 = threefry2x32(key, np.zeros_like(d), d)
+    return np.stack([y0, y1], axis=-1)
 
 
 def _counters(n: int):
@@ -122,8 +136,20 @@ def uniform(key: np.ndarray, shape: Sequence[int], minval: float = 0.0,
             maxval: float = 1.0) -> np.ndarray:
     """f32 of `shape`, as `jax.random.uniform(key, shape, jnp.float32,
     minval, maxval)`."""
+    return _bits_to_uniform(random_bits(key, shape), minval, maxval)
+
+
+def uniform_rows(keys: np.ndarray, n: int) -> np.ndarray:
+    """(K, n) f32 in [0, 1): row i is `uniform(keys[i], (n,))`, for keys
+    (K, 2), in one vectorised pass."""
+    y0, y1 = threefry2x32(np.asarray(keys, np.uint32)[:, None, :],
+                          *_counters(int(n)))
+    return _bits_to_uniform(y0 ^ y1, 0.0, 1.0)
+
+
+def _bits_to_uniform(bits: np.ndarray, minval: float, maxval: float
+                     ) -> np.ndarray:
     lo, hi = np.float32(minval), np.float32(maxval)
-    bits = random_bits(key, shape)
     one = (bits >> np.uint32(9)) | np.uint32(0x3F800000)
     floats = one.view(np.float32) - np.float32(1.0)
     return np.maximum(lo, fma_f32(floats, hi - lo, lo))

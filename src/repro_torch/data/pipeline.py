@@ -1,5 +1,6 @@
 """Deterministic synthetic LM batches for the coded train step (port of
-`repro.data.pipeline`: synthetic_lm_batch and coded_train_batch).
+`repro.data.pipeline`: synthetic_lm_batch, coded_train_batch and
+elastic_train_batch).
 
 The same streams as the JAX pipeline, from `core/prng.py`'s copy of
 `jax.random`: subset k of step t draws from
@@ -53,7 +54,8 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.coding import Allocation
 
-__all__ = ["synthetic_lm_batch", "coded_train_batch", "xla_cpu_exp_f32"]
+__all__ = ["synthetic_lm_batch", "coded_train_batch", "elastic_train_batch",
+           "xla_cpu_exp_f32"]
 
 _EXP_LO, _EXP_HI = np.uint32(0xC2AF999A), np.uint32(0x42B1999A)
 _LOG2E = np.uint32(0x3FB8AA3B)
@@ -103,6 +105,14 @@ def synthetic_lm_batch(key: np.ndarray, step: int, batch: int, seq_len: int,
     return torch.where(copy, torch.roll(toks, 1, dims=-1), toks)
 
 
+def _rank_tokens(key: np.ndarray, step: int, sids: np.ndarray,
+                 per_subset: int, seq_len: int, vocab: int) -> torch.Tensor:
+    """A rank's rows: per_subset rows of each of its subsets, in order."""
+    return torch.cat([synthetic_lm_batch(prng.fold_in(key, int(k)), step,
+                                         per_subset, seq_len, vocab)
+                      for k in sids], 0)
+
+
 def coded_train_batch(seed: int, step: int, allocation: Allocation,
                       W: np.ndarray, per_subset: int, seq_len: int,
                       vocab: int, ranks: Optional[Sequence[int]] = None
@@ -118,9 +128,40 @@ def coded_train_batch(seed: int, step: int, allocation: Allocation,
     toks, wts = [], []
     for i in (range(allocation.num_devices) if ranks is None else ranks):
         sids = allocation.subsets_of(i)
-        rows = [synthetic_lm_batch(prng.fold_in(key, int(k)), step,
-                                   per_subset, seq_len, vocab) for k in sids]
-        toks.append(torch.cat(rows, 0))
+        toks.append(_rank_tokens(key, step, sids, per_subset, seq_len, vocab))
         w = np.repeat(Wn[i, sids] / per_subset, per_subset)
         wts.append(torch.from_numpy(w.astype(np.float32)))
     return torch.stack(toks), torch.stack(wts)
+
+
+def elastic_train_batch(seed: int, step: int, allocation: Allocation,
+                        per_subset: int, seq_len: int, vocab: int,
+                        ranks: Optional[Sequence[int]] = None
+                        ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
+    """`coded_train_batch` with the encode weights left out: (tokens
+    (N, b_loc, L+1) int64, weights (N, b_loc) f32 = 1, subset_ids
+    (N, b_loc) int64), or the rows of `ranks`.  The elastic step gathers
+    each example's weight W_scaled[rank, subset_id] from the live
+    `CodingState` (`launch.train.elastic_coding_state` divides by
+    per_subset on the host, the static path's f32 division), so with the
+    same W both paths give the same weights bit for bit; the tokens are
+    `coded_train_batch`'s.  Needs the same subset count on every rank (the
+    stacked shape must stay put across re-allocations):
+    `rate_aware_allocation(..., exact_load=True)`, or `cyclic_allocation`
+    with N | d*M."""
+    counts = np.asarray(allocation.S).sum(axis=1)
+    if np.any(counts != counts[0]):
+        raise ValueError(
+            f"elastic batches need a uniform per-rank subset count, got "
+            f"loads {counts.tolist()} — use rate_aware_allocation("
+            f"exact_load=True)")
+    key = prng.PRNGKey(seed)
+    toks, sids_out = [], []
+    for i in (range(allocation.num_devices) if ranks is None else ranks):
+        sids = allocation.subsets_of(i)
+        toks.append(_rank_tokens(key, step, sids, per_subset, seq_len, vocab))
+        sids_out.append(torch.from_numpy(
+            np.repeat(sids.astype(np.int64), per_subset)))
+    tokens = torch.stack(toks)
+    return (tokens, torch.ones(tokens.shape[:2], dtype=torch.float32),
+            torch.stack(sids_out))

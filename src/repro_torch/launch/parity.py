@@ -23,9 +23,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional
 
+import numpy as np
 import torch
 
 from repro_torch.core import coding, error_feedback as EF, prng
+from repro_torch.core.coding_state import CodingPlan, maybe_replan
 from repro_torch.core.cocoef import (CocoEFConfig, cocoef_update,
                                      group_buffers, group_cocoef_update)
 from repro_torch.core.compression import WireCompressor
@@ -99,13 +101,10 @@ def run_parity(compressor: str = "sign", T: int = 20, N: int = 4,
     `bitexact` is True iff theta and the error vectors (this rank's row
     with a grid) are bit-equal at every step.
 
-    dynamic_state=True (JAX's third trajectory, encode weights from a live
-    `core.coding_state` plan) needs the coding state, which the port does
-    not have yet (ROADMAP A7)."""
-    if dynamic_state:
-        raise NotImplementedError(
-            "dynamic_state needs core.coding_state, which is not ported yet "
-            "(ROADMAP A7, with the simulation and the elastic plane)")
+    dynamic_state=True adds JAX's third trajectory: the same step with the
+    encode weights of a live `core.coding_state.CodingPlan` pinned to the
+    oracle rates, recomputed by `maybe_replan` every step; it must equal
+    the reference too (the elastic plane's acceptance criterion)."""
     if group is not None and (group.size != N or group.n_outer != 1):
         raise ValueError(f"parity holds on a 1-D grid of N={N} ranks, got "
                          f"{group.shape}")
@@ -118,18 +117,14 @@ def run_parity(compressor: str = "sign", T: int = 20, N: int = 4,
     rows = list(range(N)) if group is None else [group.rank]
 
     st = EF.EFState.init(theta0, N)
-    theta = theta0.clone()
-    e = torch.zeros((len(rows), dim), dtype=torch.float32, device=device)
     if group is None:
         bufs = [_payload_buffers(ccfg, N, n_loc, device) for _ in parts]
     else:
         bufs = [group_buffers(ccfg, group.nd, n_loc, device) for _ in parts]
-    first_div: Optional[Dict] = None
-    max_dtheta = max_de = 0.0
-    for t in range(T):
-        m = mask(t)
-        st = EF.cocoef_step(st, grad_fn, W, m, gamma, comp, step=t)
-        g = EF._coded_gradients(grad_fn, theta, W)
+
+    def coded_step(theta, e, Wt, m):
+        """theta - ghat of one step, e updated in place."""
+        g = EF._coded_gradients(grad_fn, theta, Wt)
         ghat = torch.empty_like(theta)
         for sl, buf in zip(parts, bufs):
             if group is None:
@@ -138,24 +133,52 @@ def run_parity(compressor: str = "sign", T: int = 20, N: int = 4,
             else:
                 group_cocoef_update(g[group.rank, sl], e[0, sl], m, gamma,
                                     ccfg, group, buf, out=ghat[sl])
-        theta = theta - ghat
-        for field, a, b in (("theta", st.theta, theta),
-                            ("e", st.e[rows], e)):
-            if torch.equal(a.view(torch.int32), b.view(torch.int32)):
-                continue
-            diff = (a - b).abs().max().item()
-            if field == "theta":
-                max_dtheta = max(max_dtheta, diff)
-            else:
-                max_de = max(max_de, diff)
-            if first_div is None:
-                first_div = {"step": t, "field": field,
-                             "max_abs_diff": diff}
+        return theta - ghat
+
+    # side -> [theta, this setup's error rows]; "dynamic" takes its W from
+    # the live plane (the iid oracle rates are uniform, so maybe_replan's
+    # W is encode_weights(alloc, p) bit for bit)
+    sides = {"step": [theta0.clone(), None]}
+    if dynamic_state:
+        oracle = np.full((N,), 1.0 - p)
+        plan = CodingPlan.create(oracle, N, d,
+                                 allocation=coding.cyclic_allocation(N, N, d))
+        sides["dynamic"] = [theta0.clone(), None]
+    for side in sides.values():
+        side[1] = torch.zeros((len(rows), dim), dtype=torch.float32,
+                              device=device)
+    first_div: Optional[Dict] = None
+    max_dtheta = max_de = 0.0
+    for t in range(T):
+        m = mask(t)
+        st = EF.cocoef_step(st, grad_fn, W, m, gamma, comp, step=t)
+        for name, side in sides.items():
+            Wt = W
+            if name == "dynamic":
+                cs, info = maybe_replan(plan, oracle)
+                if info["reallocated"]:
+                    raise AssertionError("pinned rates must never drift")
+                Wt = cs.W
+            side[0] = coded_step(side[0], side[1], Wt, m)
+            for field, a, b in (("theta", st.theta, side[0]),
+                                ("e", st.e[rows], side[1])):
+                if torch.equal(a.view(torch.int32), b.view(torch.int32)):
+                    continue
+                diff = (a - b).abs().max().item()
+                if field == "theta":
+                    max_dtheta = max(max_dtheta, diff)
+                else:
+                    max_de = max(max_de, diff)
+                if first_div is None:
+                    first_div = {"step": t, "field": field, "side": name,
+                                 "max_abs_diff": diff}
+    theta = sides["step"][0]
     return {
         "compressor": compressor, "wire": type(comp.wire).__name__,
         "T": T, "N": N, "shards": shards, "dim": dim, "gamma": gamma,
         "p": p, "d": d, "num_buckets": num_buckets,
         "bucket_schedule": bucket_schedule, "device": str(device),
+        "dynamic_state": dynamic_state,
         "grid": None if group is None else list(group.shape),
         "bitexact": first_div is None, "first_divergence": first_div,
         "max_abs_diff_theta": max_dtheta, "max_abs_diff_e": max_de,

@@ -31,40 +31,60 @@ groups), and holds a replica of theta that every rank updates with the
 same ghat, so the replicas stay bit-identical.  `num_buckets`,
 `bucket_schedule`, `phase2_dtype` and `phase2_sign` work in both forms
 (`core.cocoef`).
+
+The coding plane (JAX's): a straggler process of `sim.stragglers`, a
+cyclic or rate-aware allocation and rate-aware encode weights from the
+run's `PlanSpec`; with `TrainRun(elastic=True)` the step takes a live
+`CodingState` (`elastic_coding_state`) whose W weights each example
+through its subset id, so the weights and the allocation can follow the
+observed rates without rebuilding anything.
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, List, Optional, Tuple
+from typing import Dict, Iterator, List, Optional, Tuple
 
 import numpy as np
 import torch
 
-from repro_torch.configs.common import ArchSpec, CodingPlan, ShapeCfg
+from repro_torch.configs.common import ArchSpec, CodingPlan as CodingCfg, \
+    ShapeCfg
 from repro_torch.core import coding
 from repro_torch.core.cocoef import (SCHEDULES, CocoEFConfig, check_mode,
                                      cocoef_update, group_buffers,
                                      group_cocoef_update, payload_specs)
+from repro_torch.core.coding_state import CodingPlan, CodingState, \
+    maybe_replan
+from repro_torch.core.plan import PlanSpec
 from repro_torch.data import pipeline
 from repro_torch.kernels import ref
 from repro_torch.nn.models import Model
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_update,
                                           init_opt_state, lr_schedule)
-from repro_torch.sim.stragglers import IIDBernoulli
+from repro_torch.sim import stragglers
 
-__all__ = ["TrainRun", "TrainSetup", "build_train_setup"]
+__all__ = ["TrainRun", "TrainSetup", "build_train_setup",
+           "setup_encode_weights", "elastic_coding_state", "batch_stream"]
+
+# the fields a plan carries; with TrainRun(plan=...) they stay at these
+_PLAN_ALIASES = {"compressor": None, "k_budgets": None, "num_buckets": 1,
+                 "bucket_schedule": "pipelined"}
 
 
 @dataclasses.dataclass(frozen=True)
 class TrainRun:
-    """The knobs of the slice's run: constant learning rate (the paper's
-    setting), the server optimizer, the seed of the parameters, the
-    batches and the straggler masks, the mode, and JAX's wire overrides
-    (the other wire knobs come from the spec's CodingPlan).
+    """The knobs of one run (JAX's `TrainRun`, as far as it is ported).
 
     mode: "cocoef" (the paper's method), "coco" (its baseline without
       error feedback) or "dense" (stochastic gradient coding, no
       compression).
+    base_lr / schedule / warmup / schedule_total: the learning rate
+      gamma(step) (`optim.lr_schedule`: "constant", the paper's, "rsqrt"
+      or "cosine" over schedule_total steps).
+    plan: the deployment (`core.plan.PlanSpec`: d, allocation, wire,
+      buckets).  With a plan the alias fields compressor, k_budgets,
+      num_buckets and bucket_schedule stay at their defaults; without one
+      `resolve_plan` assembles the plan from them and spec.coding.
     compressor: overrides spec.coding.compressor ("sign" | "block_topk" |
       "topk" | "identity").
     k_budgets: one block top-K budget per coding rank; overrides
@@ -72,10 +92,26 @@ class TrainRun:
     num_buckets / bucket_schedule: buckets of the flat vector and their
       issue order ("pipelined" | "serial", the same bits).
     phase2_dtype / phase2_sign: the broadcast of the aggregate ("float32"
-      is the paper's; "bfloat16"; or re-packed on the sign wire)."""
+      is the paper's; "bfloat16"; or re-packed on the sign wire).
+    straggler / straggler_burst / straggler_spread / straggler_trace: the
+      process of the masks (`sim.stragglers`: "iid", "markov" with its
+      mean burst, "hetero" with p_i in p*(1 +/- spread), "trace" from a
+      mask JSON or availability CSV).
+    rate_aware: encode weights from the process's per-rank rates q_i
+      (eq. 3 bit for bit under uniform rates); False = the mean-rate
+      eq. 3 with spec.coding.straggler_p.
+    elastic: the live coding plane: the step takes a `CodingState` and
+      gathers each example's weight from its W, so rate estimates can move
+      the weights (and, past replan_threshold, the allocation) every step.
+    seed: the seed of the parameters, the batches and the masks (JAX's
+      `PRNGKey(seed)`)."""
 
     base_lr: float = 1e-3
+    schedule: str = "constant"
+    schedule_total: Optional[int] = None
+    warmup: int = 0
     optimizer: OptimizerConfig = OptimizerConfig()
+    plan: Optional[PlanSpec] = None
     seed: int = 0
     compressor: Optional[str] = None
     k_budgets: Optional[Tuple[int, ...]] = None
@@ -84,9 +120,28 @@ class TrainRun:
     phase2_sign: bool = False
     num_buckets: int = 1
     bucket_schedule: str = "pipelined"
+    straggler: str = "iid"
+    straggler_burst: float = 8.0
+    straggler_spread: float = 0.5
+    straggler_trace: Optional[str] = None
+    rate_aware: bool = True
+    elastic: bool = False
+    replan_threshold: float = 0.1
 
     def __post_init__(self):
         check_mode(self.mode)
+        lr_schedule(self.schedule, self.base_lr, self.warmup,
+                    self.schedule_total)
+        if self.straggler not in stragglers.STRAGGLER_PROCESSES:
+            raise ValueError(
+                f"unknown straggler process {self.straggler!r}; "
+                f"have {stragglers.STRAGGLER_PROCESSES}")
+        if self.straggler_burst < 1.0:
+            raise ValueError(f"straggler_burst={self.straggler_burst} must "
+                             f"be >= 1 step")
+        if self.straggler_spread < 0.0:
+            raise ValueError(f"straggler_spread={self.straggler_spread} "
+                             f"must be >= 0")
         if self.num_buckets < 1:
             raise ValueError(f"num_buckets={self.num_buckets} must be >= 1")
         if self.bucket_schedule not in SCHEDULES:
@@ -99,41 +154,76 @@ class TrainRun:
         if self.k_budgets is not None and len(self.k_budgets) == 0:
             raise ValueError("k_budgets must be non-empty (one per-rank "
                              "block-top-K budget per coding rank)")
+        if self.plan is not None:
+            clash = [f for f, dflt in _PLAN_ALIASES.items()
+                     if getattr(self, f) != dflt]
+            if clash:
+                raise ValueError(
+                    f"TrainRun(plan=...) conflicts with deprecated alias "
+                    f"field(s) {clash}: the plan already carries those "
+                    f"knobs — set them on the PlanSpec instead")
+        if not self.replan_threshold > 0.0:
+            raise ValueError(f"replan_threshold={self.replan_threshold} "
+                             f"must be > 0")
 
-    def coding_config(self, plan: CodingPlan, n_code: int) -> CocoEFConfig:
-        """The wire this run codes with on `n_code` ranks: the plan's,
-        with this run's overrides (JAX `TrainRun.resolve_plan`)."""
-        comp = self.compressor or plan.compressor
-        k_per_block = plan.k_per_block
+    def resolve_plan(self, coding_cfg: CodingCfg, n_code: int) -> PlanSpec:
+        """The run's PlanSpec on `n_code` coding ranks: `plan` with its
+        num_ranks bound (or checked), or the plan the alias fields and
+        `coding_cfg` imply (JAX `TrainRun.resolve_plan`)."""
+        m = max(n_code, 1)
+        if self.plan is not None:
+            if self.plan.num_ranks is None:
+                return dataclasses.replace(self.plan, num_ranks=m)
+            if self.plan.num_ranks != m:
+                raise ValueError(
+                    f"plan targets num_ranks={self.plan.num_ranks} coding "
+                    f"ranks but the mesh has {m}")
+            return self.plan
+        comp = self.compressor or coding_cfg.compressor
+        k_per_block = coding_cfg.k_per_block
         if self.k_budgets is not None:
             if comp != "block_topk":
                 raise ValueError(
                     f"k_budgets rides the block-top-K sparse wire; the "
                     f"effective compressor is {comp!r} (pass "
                     f"compressor='block_topk' or drop k_budgets)")
-            if len(self.k_budgets) != n_code:
+            if len(self.k_budgets) != m:
                 raise ValueError(f"k_budgets has {len(self.k_budgets)} "
-                                 f"entries, the run has {n_code} coding "
-                                 f"ranks")
+                                 f"entries, the run has {m} coding ranks")
             k_per_block = tuple(self.k_budgets)
+        return PlanSpec(
+            d=min(coding_cfg.redundancy, m), allocation="uniform",
+            compressor=comp, group_size=coding_cfg.group_size,
+            k_per_block=k_per_block, block_size=coding_cfg.block_size,
+            topk_k=coding_cfg.topk_k, value_dtype=coding_cfg.wire_dtype,
+            num_buckets=self.num_buckets,
+            bucket_schedule=self.bucket_schedule, num_ranks=m)
+
+    def coding_config(self, coding_cfg: CodingCfg, n_code: int
+                      ) -> CocoEFConfig:
+        """The wire this run codes with on `n_code` ranks: its resolved
+        plan's, in this run's mode and phase 2."""
+        plan = self.resolve_plan(coding_cfg, n_code)
         return CocoEFConfig(group_size=plan.group_size, mode=self.mode,
-                            compressor=comp, topk_k=plan.topk_k,
-                            k_per_block=k_per_block,
+                            compressor=plan.compressor, topk_k=plan.topk_k,
+                            k_per_block=plan.k_per_block,
                             block_size=plan.block_size,
-                            wire_dtype=plan.wire_dtype,
+                            wire_dtype=plan.value_dtype,
                             phase2_dtype=self.phase2_dtype,
                             phase2_sign=self.phase2_sign,
-                            num_buckets=self.num_buckets,
-                            bucket_schedule=self.bucket_schedule)
+                            num_buckets=plan.num_buckets,
+                            bucket_schedule=plan.bucket_schedule)
 
 
-Batch = Tuple[torch.Tensor, torch.Tensor]    # tokens (N, b, S+1), weights
+# tokens (R, b, S+1), weights (R, b); elastic runs add subset ids (R, b)
+# int64 on the CPU
+Batch = Tuple[torch.Tensor, ...]
 
 
 @dataclasses.dataclass
 class TrainSetup:
     """Everything one run needs: the model over flat buffers, the coding
-    plan, the payload buffers and the optimizer state, on one device.
+    plane, the payload buffers and the optimizer state, on one device.
     With a coding grid (`grid`) it is one coding rank's: `payload` is
     empty and `buffers` holds its (send, receive) buffers per bucket."""
 
@@ -143,12 +233,16 @@ class TrainSetup:
     b_loc: int
     per_subset: int
     seq_len: int
-    allocation: coding.Allocation
-    W: np.ndarray                    # (N, M) f32 encode weights
+    allocation: coding.Allocation    # the static (epoch-0) placement
+    W: np.ndarray                    # (N, M) f32 static encode weights
     cocoef_cfg: CocoEFConfig
-    straggler_process: Optional[IIDBernoulli]
+    straggler_process: Optional[stragglers.StragglerProcess]
     payload: Tuple[torch.Tensor, ...]     # the wire's, stacked over ranks
     opt_state: Tuple[torch.Tensor, ...]
+    plan: Optional[PlanSpec] = None       # the resolved deployment plan
+    straggler_rates: Optional[Tuple[float, ...]] = None   # rate-aware q_i
+    coding_plan: Optional[CodingPlan] = None   # elastic runs: its current
+    #   allocation is the one the batch maker uses
     grid: Optional[object] = None         # launch.mesh.CodingGrid
     buffers: Optional[List] = None        # group_buffers, with a grid
 
@@ -180,10 +274,18 @@ class TrainSetup:
 
     def make_batch(self, step: int) -> Batch:
         """Tokens (R, b_loc, L+1) and weights (R, b_loc) of this setup's R
-        ranks (`ranks`)."""
+        ranks (`ranks`) on the setup's device; an elastic setup's weights
+        are 1 and its batch adds the subset ids (R, b_loc) on the CPU,
+        drawn from the coding plan's current allocation."""
+        vocab = self.model.cfg.vocab_size
+        if self.coding_plan is not None:
+            toks, wts, sids = pipeline.elastic_train_batch(
+                self.run.seed, step, self.coding_plan.allocation,
+                self.per_subset, self.seq_len, vocab, ranks=self.ranks)
+            return toks.to(self.device), wts.to(self.device), sids
         toks, wts = pipeline.coded_train_batch(
             self.run.seed, step, self.allocation, self.W, self.per_subset,
-            self.seq_len, self.model.cfg.vocab_size, ranks=self.ranks)
+            self.seq_len, vocab, ranks=self.ranks)
         return toks.to(self.device), wts.to(self.device)
 
     def mask(self, step: int) -> torch.Tensor:
@@ -191,20 +293,40 @@ class TrainSetup:
             return torch.ones(self.n_code, dtype=torch.float32)
         return self.straggler_process.mask(self.run.seed, step)
 
+    def batch_weights(self, batch: Batch,
+                      coding_state: Optional[CodingState] = None
+                      ) -> torch.Tensor:
+        """The per-example weights stage 1 uses: the static batch's, or on
+        an elastic batch W_scaled[rank, subset_id] from `coding_state`
+        (`elastic_coding_state`), gathered on the host in f32 (JAX's
+        `take_along_axis`; the ones multiply exactly)."""
+        if (len(batch) == 3) != (coding_state is not None):
+            raise ValueError("an elastic setup's batch needs a coding_state "
+                             "and a static one takes none")
+        if coding_state is None:
+            return batch[1]
+        rows = np.asarray(self.ranks)[:, None]
+        coef = np.asarray(coding_state.W, np.float32)[rows,
+                                                      batch[2].numpy()]
+        return batch[1] * torch.from_numpy(coef).to(batch[1].device)
+
     def train_step(self, params: Model, e: Optional[torch.Tensor],
                    batch: Batch, step: int,
                    masks: Optional[torch.Tensor] = None,
-                   kernel_spans: Optional[List] = None
+                   kernel_spans: Optional[List] = None,
+                   coding_state: Optional[CodingState] = None
                    ) -> Dict[str, torch.Tensor]:
         """One COCO-EF step (or COCO or SGC step, in the coco and dense
         modes); updates params.theta, e (only in cocoef mode; None is fine
         in the others) and the optimizer state in place.  masks: (N,)
         participation for this step (default: the setup's straggler
-        process at `step`).  kernel_spans: see
-        `cocoef_update`.  With a grid, batch and e are this rank's.
+        process at `step`).  kernel_spans: see `cocoef_update`.
+        coding_state: the elastic step's live encode weights (needed with
+        an elastic batch).  With a grid, batch and e are this rank's.
         Returns {"loss": mean loss of the setup's ranks, "losses": (R,),
-        "mask": (N,)}."""
-        tokens, weights = batch
+        "mask": (N,), "weights": (R, b_loc) the per-example weights}."""
+        tokens = batch[0]
+        weights = self.batch_weights(batch, coding_state)
         mask = (self.mask(step) if masks is None else
                 torch.as_tensor(masks, dtype=torch.float32))
         mask = mask.to(self.device).contiguous()
@@ -219,7 +341,8 @@ class TrainSetup:
 
         self.coded_update(params, grad_of, e, mask, step, kernel_spans)
         ls = torch.stack(losses)
-        return {"loss": ls.mean(), "losses": ls, "mask": mask}
+        return {"loss": ls.mean(), "losses": ls, "mask": mask,
+                "weights": weights}
 
     def coded_update(self, params: Model, grad_of,
                      e: Optional[torch.Tensor], mask: torch.Tensor, step: int,
@@ -230,7 +353,9 @@ class TrainSetup:
         (on one device, on the dense wire and in dense mode ghat is the
         accumulator, payload[0]), then theta <- theta - ghat in place.
         mask: (N,) f32 on the setup's device.  Returns ghat."""
-        gamma = lr_schedule("constant", self.run.base_lr)(step)
+        r = self.run
+        gamma = lr_schedule(r.schedule, r.base_lr, r.warmup,
+                            r.schedule_total)(step)
         # one copy to the device per step, made before stage 1 is queued,
         # instead of one per rank that would block the host between ranks
         gamma_dev = gamma.to(self.device)
@@ -252,13 +377,19 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
                       run: TrainRun = TrainRun(), smoke: bool = False,
                       n_code: int = 4, device="cuda",
                       group=None) -> TrainSetup:
-    """The slice's counterpart of JAX's `build_train_setup` on a
-    (data=n_code, model=1) mesh: cyclic allocation with M = n_code subsets
-    and d = spec.coding.redundancy, rate-aware encode weights (eq. 3 for
-    the iid process), flat size padded to nd * pad_multiple * num_buckets
-    (the sign group, joined with the block on the block top-K wire; nd the
-    chunk ranks, n_code on one device).  With compressor "topk" the wire
-    is one block of n / nd per chunk and bucket, as on JAX's mesh.
+    """The counterpart of JAX's `build_train_setup` on a (data=n_code,
+    model=1) mesh.  The run's plan (`TrainRun.resolve_plan`) fixes d and
+    the wire; M = n_code subsets; the straggler process is built unless
+    it is iid with p = 0 (all ranks answer).  The allocation is cyclic
+    (plan.allocation "uniform"), or `rate_aware_allocation` from the
+    process's rates ("rate_aware", or "exact_load" with the same load on
+    every rank); the encode weights are rate-aware (eq. 3 for uniform
+    rates) or, with run.rate_aware False, the mean-rate eq. 3.  An elastic
+    run also gets a `CodingPlan` over that allocation (re-allocating with
+    exact loads unless the plan says "rate_aware").  The flat size is
+    padded to nd * pad_multiple * num_buckets (nd the chunk ranks, n_code
+    on one device); with compressor "topk" the wire is one block of
+    n / nd per chunk and bucket, as on JAX's mesh.
     group: a `launch.mesh.CodingGrid`; this process is then its coding
     rank only, and n_code must be the grid's size."""
     cfg = spec.smoke if smoke else spec.config
@@ -268,12 +399,27 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
     if n_code < 2:
         raise ValueError("the coded step needs at least 2 coding ranks")
     p = spec.coding.straggler_p
-    proc = IIDBernoulli(n_code, p) if p > 0 else None
-    M = n_code
-    d = min(spec.coding.redundancy, n_code)
-    alloc = coding.cyclic_allocation(n_code, M, d)
-    W = (coding.encode_weights(alloc, rates=proc.rates()) if proc
-         else coding.encode_weights(alloc, p=0.0))
+    plan = run.resolve_plan(spec.coding, n_code)
+    proc = None
+    if run.straggler != "iid" or p > 0:
+        proc = stragglers.get_straggler_process(
+            run.straggler, n_code, p, mean_burst=run.straggler_burst,
+            spread=run.straggler_spread, trace=run.straggler_trace)
+    rates = (tuple(float(x) for x in proc.rates())
+             if run.rate_aware and proc is not None else None)
+    M, d = n_code, plan.d
+    q = (np.asarray(rates, np.float64) if rates is not None
+         else np.full((n_code,), 1.0 - p))
+    if plan.allocation == "uniform":
+        alloc = coding.cyclic_allocation(n_code, M, d)
+    else:
+        alloc = coding.rate_aware_allocation(
+            q, M, d, exact_load=(plan.allocation == "exact_load"))
+    coding_plan = None
+    if run.elastic:
+        coding_plan = CodingPlan.create(
+            q, M, d, drift_threshold=run.replan_threshold,
+            exact_load=(plan.allocation != "rate_aware"), allocation=alloc)
     per_subset = max(1, shape.global_batch // M)
     ccfg = run.coding_config(spec.coding, n_code)
 
@@ -288,10 +434,43 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
         payload, buffers = (), group_buffers(ccfg, nd, n, dev)
     return TrainSetup(
         run=run, model=model, n_code=n_code, b_loc=per_subset * d,
-        per_subset=per_subset, seq_len=shape.seq_len, allocation=alloc, W=W,
-        cocoef_cfg=ccfg, straggler_process=proc, payload=payload,
-        opt_state=init_opt_state(run.optimizer, n, dev), grid=group,
-        buffers=buffers)
+        per_subset=per_subset, seq_len=shape.seq_len, allocation=alloc,
+        W=(coding.encode_weights(alloc, rates=rates) if rates is not None
+           else coding.encode_weights(alloc, p)), cocoef_cfg=ccfg,
+        straggler_process=proc, payload=payload,
+        opt_state=init_opt_state(run.optimizer, n, dev), plan=plan,
+        straggler_rates=rates, coding_plan=coding_plan,
+        grid=group, buffers=buffers)
+
+
+def setup_encode_weights(setup: TrainSetup) -> np.ndarray:
+    """The (N, M) f32 encode weights the setup aggregates with: rate-aware
+    (per-rank q_i) when the setup carries straggler rates, else the
+    mean-rate eq. 3 (JAX `setup_encode_weights`); built once, as setup.W."""
+    return setup.W
+
+
+def elastic_coding_state(setup: TrainSetup, rates=None
+                         ) -> Tuple[CodingState, dict]:
+    """One control tick of the elastic loop: `maybe_replan` on the latest
+    estimates (None keeps the planned rates), then the batch maker's
+    1/per_subset fold on the host in f32 (the static batch's division).
+    Returns (CodingState for `train_step`, the replan info)."""
+    if setup.coding_plan is None:
+        raise ValueError("setup was built without TrainRun.elastic")
+    st, info = maybe_replan(setup.coding_plan, rates)
+    return st._replace(W=np.asarray(st.W) / setup.per_subset), info
+
+
+def batch_stream(setup: TrainSetup, start_step: int = 0
+                 ) -> Iterator[Batch]:
+    """`make_batch` of steps start_step, start_step+1, ..., each made when
+    it is pulled (an elastic run's re-allocation reaches the next
+    batch)."""
+    step = start_step
+    while True:
+        yield setup.make_batch(step)
+        step += 1
 
 
 def _payload_buffers(ccfg: CocoEFConfig, n_code: int, n: int,

@@ -39,7 +39,8 @@ from _torch_wire_cases import jax_mesh_cases
 from repro_torch.core.cocoef import CocoEFConfig, cocoef_update
 from repro_torch.core.collectives import SignWire
 from repro_torch.kernels import ref
-from repro_torch.launch.parity import assert_parity, run_parity
+from repro_torch.launch.parity import (PARITY_COMPRESSORS, assert_parity,
+                                      run_parity)
 from repro_torch.launch.train import _payload_buffers
 
 ONE_D = [n for n, (axes, _, _) in MESH_CASES.items() if len(axes) == 1]
@@ -98,8 +99,12 @@ def test_run_parity_gloo_grid(gloo, compressor, buckets, schedule):
 
 
 def test_run_parity_refuses_dynamic_state():
-    with pytest.raises(NotImplementedError, match="A7"):
-        run_parity("sign", T=1, device="cpu", dynamic_state=True)
+    """dynamic_state (the elastic coding plane's third trajectory, W from
+    a pinned `CodingPlan` every step) is ported: it runs and is bit-exact
+    on every wire; what parity still refuses is global top-K."""
+    for comp in PARITY_COMPRESSORS:
+        rep = run_parity(comp, T=6, device="cpu", dynamic_state=True)
+        assert rep["dynamic_state"] and rep["bitexact"], rep
     with pytest.raises(ValueError):
         run_parity("topk", T=1, device="cpu")
 
