@@ -22,7 +22,14 @@ Phases (any failure exits non-zero and prints no result line):
                 same way (ef_sign_fused and sign_decode_reduce at group
                 32; ef_topk_fused at block 64, k 8, with each rank's
                 budget k_send 8, 8, 3, 1 and a straggler, then
-                topk_decode_reduce over those four rows).  flash_attention
+                topk_decode_reduce over those four rows).
+                topk_decode_reduce also at small n on the shapes its tile
+                plan handles inside the kernel (a partial last tile, fewer
+                blocks than a tile, more senders than ring stages, nb*k
+                odd with rows off 16-byte granules, one block, an all-zero
+                mask) at every B, f32 and bf16 values, and beside each of
+                its timings a yardstick of scatter_add_ calls, one per
+                sender and chunk (never called by the port).  flash_attention
                 within its stated tolerance of its plain version (f32: 2e-4 relative + 2e-5; bf16: one
                 bf16 ulp) over an adversarial sweep (hd 16/64/288, groups
                 1/2/4, softcap 0/50 with scores far past it, window
@@ -556,6 +563,95 @@ def check_topk(torch, ref, tp, gen, dev) -> None:
         del packed, senders, payload, got, want
 
 
+def decode_payload(torch, gen, dev, N: int, nb: int, k: int, B: int, vdt,
+                   offset: int = 0, budgets=None):
+    """Seeded payloads of N senders for topk_decode_reduce: distinct
+    in-block positions, values of both signs (a -0.0 among them), scales
+    over 2^-14..2^3 with 1.0 (an all-zero block's) in block 0; each
+    tensor a contiguous view `offset` elements into its buffer, so that
+    its rows start off 16-byte granules; with `budgets`, sender i's values
+    past slot budgets[i] are +0, as a budgeted rank's."""
+    def view(shape, dtype):
+        buf = torch.empty(offset + math.prod(shape), dtype=dtype, device=dev)
+        return buf[offset:].view(shape)
+    idx = view((N, nb, k), torch.uint16)
+    idx.view(torch.int16).copy_(torch.rand(
+        (N, nb, B), device=dev, generator=gen).argsort(-1)[..., :k])
+    val = view((N, nb, k), vdt)
+    val.copy_(torch.randn((N, nb, k), device=dev, generator=gen))
+    val[0, 0, 0] = -0.0
+    sc = view((N, nb), torch.float32)
+    sc.copy_(torch.exp2(torch.rand((N, nb), device=dev, generator=gen) * 17
+                        - 14))
+    sc[:, 0] = 1.0
+    for i, b in enumerate(budgets or ()):
+        val[i, :, b:] = 0
+    return idx, val, sc
+
+
+def decode_shape_cases(T: int) -> list:
+    """(what, N, nb, k, mask, budgets, element offset) of the small-n
+    topk_decode_reduce checks, for tiles of T blocks: a last partial tile
+    with the driver's budgets, fewer blocks than a tile with more senders
+    than ring stages, nb*k odd with every row off its granule, one
+    block of one sender, and an all-zero mask at k 32."""
+    return [("a partial last tile, budgets 8, 8, 3, 1", 4, 2 * T + 5, 8,
+             (1.0, 1.0, 1.0, 0.0), DRIVER_K_BUDGETS, 0),
+            ("fewer blocks than a tile, N 9", 9, T - 3, 8,
+             (1.0, 0.0, 0.75, 1.0, 1.0, 1.0, 0.0, 1.0, 1.0), None, 0),
+            ("nb*k odd, rows off 16-byte granules", 4, T + 7, 3,
+             (1.0, 0.0, 1.0, 1.0), None, 1),
+            ("one block, N 1", 1, 1, 1, (1.0,), None, 0),
+            ("mask all zero, k 32", 4, T + 1, 32, (0.0,) * 4, None, 3)]
+
+
+def check_decode_shapes(torch, ref, tp, gen, dev) -> int:
+    """topk_decode_reduce against its plain version, bit for bit, at small
+    n on the shapes a tile plan must handle inside the kernel
+    (`decode_shape_cases`), at every block size and in f32 and bf16.
+    Returns the number of cases."""
+    cases = 0
+    for B in tp.SUPPORTED_BLOCK_SIZES:
+        for what, N, nb, k, m, budgets, off in decode_shape_cases(
+                tp.DECODE_TILE // B):
+            for vdt in (torch.float32, torch.bfloat16):
+                idx, val, sc = decode_payload(torch, gen, dev, N, nb, k, B,
+                                              vdt, off, budgets)
+                mask = torch.tensor(m, device=dev)
+                got = tp.topk_decode_reduce(idx, val, sc, mask, B)
+                torch.cuda.synchronize()
+                if not same(got, ref.topk_decode_reduce_ref(idx, val, sc,
+                                                            mask, B)):
+                    fail(f"topk_decode_reduce ({what}; B {B}, N {N}, nb "
+                         f"{nb}, k {k}, {vdt}) differs from the sender-"
+                         f"order sum")
+                cases += 1
+    return cases
+
+
+def scatter_add_ms(torch, idx, val, sc, mask, B: int, out) -> float:
+    """The yardstick beside topk_decode_reduce: out zeroed, then per sender
+    in order out.view(nb, B).scatter_add_(1, idx_i, m_i * (val_i * scale_i))
+    over chunks of CHUNK coordinates.  Several PyTorch calls, not one, so
+    it is no `library_ms`; the port never calls it.  Prints its time."""
+    N, nb, _ = idx.shape
+    rows, cb = out.view(nb, B), CHUNK // B
+
+    def run():
+        out.zero_()
+        for i in range(N):
+            for b0 in range(0, nb, cb):
+                b1 = min(b0 + cb, nb)
+                rows[b0:b1].scatter_add_(
+                    1, idx[i, b0:b1].to(torch.int64),
+                    mask[i] * (val[i, b0:b1].float() * sc[i, b0:b1, None]))
+    ms = cuda_ms(run, 3)
+    print(f"yardstick, several calls (scatter_add_ per sender and chunk): "
+          f"topk_decode_reduce's function at n={nb * B}, B {B}: {ms} ms",
+          flush=True)
+    return ms
+
+
 def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     """B3, B6 and B4 at the slice's n (past 2**31 elements) in the train
     step's layout: e is a row of a 2-D buffer updated in place, payloads
@@ -668,6 +764,8 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
                                  4 * n + N_CODE * payload_b + 4 * N_CODE,
                                  3 * N_CODE * nb * K)
+    more["topk_decode_reduce"] = {"yardstick_scatter_add_ms": scatter_add_ms(
+        torch, idx, val, sc, mask, BLOCK, ghat)}
     res = {}
     for name, (ms, plain_ms, moved, ops) in out.items():
         b, by = bound(moved, ops)
@@ -755,7 +853,9 @@ def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
                                        sc[:, b0:b0 + cb], mask, B)
     out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
                                  4 * n + N_CODE * payload_b + 4 * N_CODE,
-                                 3 * N_CODE * nb * k, {})
+                                 3 * N_CODE * nb * k,
+                                 {"yardstick_scatter_add_ms": scatter_add_ms(
+                                     torch, idx, val, sc, mask, B, ghat)})
     res = {}
     for name, (ms, plain_ms, moved, ops, more) in out.items():
         b, by = bound(moved, ops)
@@ -1847,11 +1947,13 @@ def main() -> None:
     checks = {"ef_sign_fused": check_ef(torch, ref, sp, gen, dev),
               "sign_decode_reduce": check_decode(torch, ref, sp, gen, dev)}
     check_topk(torch, ref, tp, gen, dev)
+    n_shapes = check_decode_shapes(torch, ref, tp, gen, dev)
     check_pack(torch, ref, sp, tp, gen, dev)
     checks["flash_attention"] = check_flash(torch, ref, fa, gen, dev)
     print(f"kernels vs plain at n={CHECK_N}: {json.dumps(checks)}; "
           f"block top-K kernels bit-equal (f32 and bf16 values, budget "
-          f"k_send={K_BUDGETS[3]} and none); sign_pack "
+          f"k_send={K_BUDGETS[3]} and none); topk_decode_reduce bit-equal"
+          f" on {n_shapes} small-n tile shapes; sign_pack "
           f"and block_topk bit-equal (B in {TOPK_BLOCKS}, k in {{{K}, 32}}); "
           f"flash_attention over the adversarial sweep", flush=True)
     settle(torch, "the 2**28 checks")

@@ -47,13 +47,15 @@ def _target(name: str) -> Path:
     return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
-def _nvcc_build(src: Path, target: Path) -> None:
+def _nvcc_build(src: Path, target: Path, defines: tuple = ()) -> None:
     """Compile `src` into the library `target` (into a temporary file
     renamed atomically, so a reader never sees half a library; ptxas's
-    report is written beside it, before the rename)."""
+    report is written beside it, before the rename).  `defines` are extra
+    `-D` flags such as "NAME=VALUE"."""
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     tmp = target.with_suffix(f".{os.getpid()}.{threading.get_ident()}.tmp")
-    r = subprocess.run([_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(src)],
+    r = subprocess.run([_nvcc(), *NVCC_FLAGS, *(f"-D{d}" for d in defines),
+                        "-o", str(tmp), str(src)],
                        capture_output=True, text=True)
     if r.returncode != 0:
         tmp.unlink(missing_ok=True)
@@ -72,12 +74,14 @@ def _compile(name: str) -> Path:
     return target
 
 
-def library_of_file(src: Path, name: str) -> ctypes.CDLL:
+def library_of_file(src: Path, name: str,
+                    defines: tuple = ()) -> ctypes.CDLL:
     """Another CUDA source (such as an earlier version of a kernel, for a
-    comparison in one run) built with the same flags into
-    `build/kernels/lib<name>.so`, rebuilt on every call, and loaded."""
+    comparison in one run, or a variant built with `defines`) built with
+    the same flags into `build/kernels/lib<name>.so`, rebuilt on every
+    call, and loaded; ptxas's report is `lib<name>.log` beside it."""
     target = BUILD_DIR / f"lib{name}.so"
-    _nvcc_build(Path(src), target)
+    _nvcc_build(Path(src), target, defines)
     return ctypes.CDLL(str(target))
 
 

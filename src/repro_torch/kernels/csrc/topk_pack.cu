@@ -94,22 +94,70 @@
 //   Elsewhere the scan adds mask_i * 0 = +0, which changes nothing: the sum
 //   starts at +0.0 and a round-to-nearest sum is -0.0 only when both terms
 //   are, so no element is ever -0.0.  Hence the kernel equals the scan bit
-//   for bit.  Design: one warp per output block zeroes a tile in shared
-//   memory; for each sender lane j < k adds entry j (a pack's k positions in
-//   a block are distinct, so no atomics), then __syncwarp orders the
-//   senders; the tile is stored as float4.  Positions >= B are dropped.
-//   Bound: bytes (N payloads read, 4 B/coordinate written).
+//   for bit.  Preconditions: a pack's k positions in a block are distinct
+//   (so one sender's adds never meet and need no atomics); positions >= B
+//   are dropped.
+//   Bound: bytes (N payloads read, 4 B/coordinate written); at B = 64 the
+//   payloads are 45% of them.
+//   Design: the work unit is a tile of T = kDecTile / B consecutive blocks
+//   (kDecTile coordinates at every B), so the work per tile and the busy
+//   threads do not depend on B or k.  A persistent grid (as many CTAs as
+//   fit on the SMs at the kernel's shared memory) walks the tiles.  Per
+//   CTA one producer warp streams the (tile, sender) segments, in the
+//   order the consumers add them, into a ring of `stages` slots; a
+//   segment is three runs (T*k indices, T*k values, T scales), each one
+//   1-D bulk copy (cp.async.bulk, completing on the slot's full mbarrier)
+//   of its 16-byte aligned interior, its unaligned head and tail (under 16
+//   bytes each: nb*k odd, a sender's row starting mid-granule) copied by
+//   the producer's lanes.  A slot holds one segment, so N is not bounded
+//   by shared memory, and the copies of the next `stages` segments are in
+//   flight while one is added.  The eight consumer warps add a sender's
+//   T*k entries into the f32 tile in shared memory, all threads busy, one
+//   named barrier between senders (the sender order); then each consumer
+//   warp writes its 1/8 of the tile with one bulk store (cp.async.bulk
+//   shared -> global).  The tile is double-buffered: a warp zeroes its
+//   chunk of the other buffer once its own store of that buffer has been
+//   read (cp.async.bulk.wait_group.read), while the next tile's segments
+//   land.  The ring's stage count is the most (up to kDecMaxStages) that
+//   lets two CTAs share an SM, else one CTA.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
 constexpr int kMaxK = 32;
-constexpr int kSendersAhead = 4;  // decode: senders loaded before adding
+
+// topk_decode_reduce's plan (see the file comment).  The two macros let
+// tools/topk_check.py --decode build variants for a sweep.
+#ifndef TOPK_DECODE_TILE
+#define TOPK_DECODE_TILE 8192
+#endif
+#ifndef TOPK_DECODE_STAGES
+#define TOPK_DECODE_STAGES 8
+#endif
+constexpr int kDecTile = TOPK_DECODE_TILE;     // coordinates a tile
+constexpr int kDecMaxStages = TOPK_DECODE_STAGES;
+constexpr int kDecConsumerWarps = 8;
+constexpr int kDecConsumers = kDecConsumerWarps * 32;
+constexpr int kDecThreads = kDecConsumers + 32;  // + the producer warp
+constexpr int kDecChunk = kDecTile / kDecConsumerWarps;  // a warp's store
+// shared memory: two output tiles, then full[] and empty[] mbarriers, then
+// the ring
+constexpr int kDecBars = 2 * kDecTile * 4;
+constexpr int kDecRing = kDecBars + 16 * kDecMaxStages;
+static_assert(kDecTile % 512 == 0 && kDecChunk % 128 == 0,
+              "a tile holds whole blocks of every B; a warp's chunk is "
+              "stored and zeroed as float4 by its 32 lanes");
+static_assert(kDecTile / 64 * kMaxK * kMaxK <= (1 << 20),
+              "entry / k as (entry * ceil(2^20 / k)) >> 20 is exact for "
+              "entry < T*k when T*k*k <= 2^20");
+static_assert(kDecMaxStages >= 2 && kDecRing % 16 == 0, "ring layout");
 
 template <typename V>
 __device__ __forceinline__ V to_wire(float x);
@@ -356,52 +404,239 @@ block_topk_kernel(const T* x, T* out, int k, int64_t n_blocks) {
         cand_key(xv[w], 32 * w + lane) >= last ? raw[w] : zero;
 }
 
+// --- topk_decode_reduce (see the file comment) ----------------------------
+
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile(
+      "mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(bar),
+      "r"(bytes)
+      : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+// Returns once the phase of parity `parity` of the barrier has completed.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done;
+  do {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  } while (!done);
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from global
+// to shared memory; completion counts them on `bar`.
+__device__ __forceinline__ void bulk_load(uint32_t dst, const void* src,
+                                          uint32_t bytes, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.shared::cluster.global.mbarrier::complete_tx::bytes "
+      "[%0], [%1], %2, [%3];\n" ::"r"(dst),
+      "l"(src), "r"(bytes), "r"(bar)
+      : "memory");
+}
+
+// `bytes` (a multiple of 16, both addresses 16-byte aligned) from shared to
+// global memory, in this thread's current bulk group.
+__device__ __forceinline__ void bulk_store(void* dst, uint32_t src,
+                                           uint32_t bytes) {
+  asm volatile(
+      "cp.async.bulk.global.shared::cta.bulk_group [%0], [%1], %2;\n" ::"l"(
+          dst),
+      "r"(src), "r"(bytes)
+      : "memory");
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores have read their shared memory.
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// Waits until this thread's bulk stores are complete.
+__device__ __forceinline__ void bulk_wait() {
+  asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
+}
+
+// Makes this thread's shared-memory writes visible to bulk copies.
+__device__ __forceinline__ void fence_proxy_async() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// The consumer warps' barrier (named barrier 1; the producer warp is not in
+// it).
+__device__ __forceinline__ void consumers_sync() {
+  asm volatile("bar.sync 1, %0;\n" ::"n"(kDecConsumers) : "memory");
+}
+
+// One run of a segment: `bytes` bytes at global `src`, elements of ES
+// bytes, copied to shared memory so that global byte x lands at
+// dst + (src & 15) + (x - src).  The 16-byte aligned interior is returned
+// for one bulk copy; the head and tail outside it (under 16 bytes each)
+// are copied here, lanes 0-7 the head's elements and 8-15 the tail's.
+struct Interior {
+  const void* src;
+  uint32_t dst, bytes;
+};
+
+template <int ES>
+__device__ __forceinline__ Interior stage_run(const void* src, int bytes,
+                                              unsigned char* dst, int lane) {
+  using E = typename std::conditional<ES == 2, uint16_t, uint32_t>::type;
+  const uintptr_t a = reinterpret_cast<uintptr_t>(src), b = a + bytes;
+  const uintptr_t a16 = (a + 15) & ~uintptr_t(15), b16 = b & ~uintptr_t(15);
+  const uintptr_t lo = a16 < b ? a16 : b;     // head [a, lo)
+  const uintptr_t hi = b16 > lo ? b16 : lo;   // interior [lo, hi), tail [hi, b)
+  unsigned char* d = dst + (a & 15);          // global byte a
+  const uintptr_t x = (lane < 8 ? a : hi) + (lane & 7) * ES;
+  if (lane < 16 && x < (lane < 8 ? lo : b))
+    *reinterpret_cast<E*>(d + (x - a)) = *reinterpret_cast<const E*>(x);
+  return {reinterpret_cast<const void*>(lo), smem_addr(d + (lo - a)),
+          static_cast<uint32_t>(hi - lo)};
+}
+
 template <int B, typename V>
-__global__ void __launch_bounds__(kWarpsPerBlock * 32)
+__global__ void __launch_bounds__(kDecThreads)
 topk_decode_reduce_kernel(const uint16_t* __restrict__ idx,
                           const V* __restrict__ val,
                           const float* __restrict__ scales,
                           const float* __restrict__ mask,
                           float* __restrict__ out, int n_senders, int k,
-                          int64_t n_blocks) {
-  __shared__ __align__(16) float tile[kWarpsPerBlock][B];
-  const int warp = threadIdx.x >> 5;
-  const int lane = threadIdx.x & 31;
-  const int64_t blk = (int64_t)blockIdx.x * kWarpsPerBlock + warp;
-  if (blk >= n_blocks) return;
-  float* t = tile[warp];
-#pragma unroll
-  for (int w = 0; w < B / 32; ++w) t[32 * w + lane] = 0.f;
-  __syncwarp();
+                          int64_t n_blocks, int stages, int idx_area,
+                          int val_area, int slot_bytes) {
+  constexpr int T = kDecTile / B;  // blocks a tile
+  extern __shared__ __align__(128) unsigned char smem[];
+  float* tiles = reinterpret_cast<float*>(smem);
+  const uint32_t full = smem_addr(smem + kDecBars);
+  const uint32_t empty = full + 8 * kDecMaxStages;
+  unsigned char* ring = smem + kDecRing;
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int64_t n_tiles = (n_blocks + T - 1) / T;
 
-  const int64_t per_sender = n_blocks * k;
-  const bool active = lane < k;
-  for (int i0 = 0; i0 < n_senders; i0 += kSendersAhead) {
-    int pos[kSendersAhead];
-    float add[kSendersAhead];
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kDecConsumerWarps);  // a lane 0 per warp
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  if (warp < kDecConsumerWarps) {  // tile buffer 0 starts at +0.0
+    float4* z = reinterpret_cast<float4*>(tiles + warp * kDecChunk);
+    for (int q = lane; q < kDecChunk / 4; q += 32)
+      z[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+  }
+  __syncthreads();
+
+  if (warp == kDecConsumerWarps) {
+    // producer: the segments (tile, sender) in the consumers' order
+    int sl = 0;
+    uint32_t use = 0;
+    for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x) {
+      const int64_t b0 = t * T;
+      const int nt = (int)(n_blocks - b0 < T ? n_blocks - b0 : T);
+      for (int i = 0; i < n_senders; ++i) {
+        if (use > 0) mbar_wait(empty + 8 * sl, (use - 1) & 1);
+        unsigned char* seg = ring + sl * slot_bytes;
+        const int64_t e0 = (int64_t)i * n_blocks + b0;  // the segment's block
+        const Interior r[3] = {
+            stage_run<2>(idx + e0 * k, nt * k * 2, seg, lane),
+            stage_run<sizeof(V)>(val + e0 * k, nt * k * (int)sizeof(V),
+                                 seg + idx_area, lane),
+            stage_run<4>(scales + e0, nt * 4, seg + idx_area + val_area,
+                         lane)};
+        __threadfence_block();
+        __syncwarp();  // the heads and tails are in before the arrival
+        if (lane == 0) {
+          const uint32_t bar = full + 8 * sl;
+          mbar_expect_tx(bar, r[0].bytes + r[1].bytes + r[2].bytes);
 #pragma unroll
-    for (int u = 0; u < kSendersAhead; ++u) {
-      const int i = i0 + u;
-      pos[u] = B;  // dropped
-      add[u] = 0.f;
-      if (active && i < n_senders) {
-        const int64_t o = i * per_sender + blk * k + lane;
-        pos[u] = idx[o];
-        const float sv = __fmul_rn(from_wire(val[o]), scales[i * n_blocks + blk]);
-        add[u] = __fmul_rn(mask[i], sv);
+          for (int q = 0; q < 3; ++q)
+            if (r[q].bytes) bulk_load(r[q].dst, r[q].src, r[q].bytes, bar);
+        }
+        if (++sl == stages) {
+          sl = 0;
+          ++use;
+        }
       }
     }
-#pragma unroll
-    for (int u = 0; u < kSendersAhead; ++u) {
-      if (pos[u] < B) t[pos[u]] = __fadd_rn(t[pos[u]], add[u]);
-      __syncwarp();
-    }
+    return;
   }
 
-  float4* o4 = reinterpret_cast<float4*>(out + blk * B);
-  const float4* t4 = reinterpret_cast<const float4*>(t);
+  // consumers: thread tid adds entries tid, tid + 256, ... of a segment
+  const uint32_t magic = ((1u << 20) + k - 1) / k;  // e / k = e*magic >> 20
+  int sl = 0;
+  uint32_t use = 0, buf = 0;
+  for (int64_t t = blockIdx.x; t < n_tiles; t += gridDim.x, buf ^= 1) {
+    const int64_t b0 = t * T;
+    const int nt = (int)(n_blocks - b0 < T ? n_blocks - b0 : T);
+    float* tile = tiles + buf * kDecTile;
+    for (int i = 0; i < n_senders; ++i) {
+      mbar_wait(full + 8 * sl, use & 1);
+      const unsigned char* seg = ring + sl * slot_bytes;
+      const int64_t e0 = (int64_t)i * n_blocks + b0;
+      const uint16_t* si = reinterpret_cast<const uint16_t*>(
+          seg + (reinterpret_cast<uintptr_t>(idx + e0 * k) & 15));
+      const V* sv = reinterpret_cast<const V*>(
+          seg + idx_area + (reinterpret_cast<uintptr_t>(val + e0 * k) & 15));
+      const float* ss = reinterpret_cast<const float*>(
+          seg + idx_area + val_area +
+          (reinterpret_cast<uintptr_t>(scales + e0) & 15));
+      const float m = __ldg(mask + i);
+      const int ne = nt * k;
+#pragma unroll 4
+      for (int e = tid; e < ne; e += kDecConsumers) {
+        const int blk = (int)(((uint32_t)e * magic) >> 20);
+        const int pos = si[e];
+        const float add = __fmul_rn(m, __fmul_rn(from_wire(sv[e]), ss[blk]));
+        if (pos < B) {
+          float* p = tile + blk * B + pos;
+          *p = __fadd_rn(*p, add);
+        }
+      }
+      __syncwarp();
+      if (lane == 0) mbar_arrive(empty + 8 * sl);
+      if (++sl == stages) {
+        sl = 0;
+        ++use;
+      }
+      if (i + 1 < n_senders) consumers_sync();  // the sender order
+    }
+    // the other buffer (the previous tile's) is zeroed for the next tile
+    // once this warp's store of it has read it
+    if (lane == 0) bulk_wait_read();
+    __syncwarp();
+    float4* z = reinterpret_cast<float4*>(tiles + (buf ^ 1) * kDecTile +
+                                          warp * kDecChunk);
 #pragma unroll
-  for (int q = lane; q < B / 4; q += 32) o4[q] = t4[q];
+    for (int q = lane; q < kDecChunk / 4; q += 32)
+      z[q] = make_float4(0.f, 0.f, 0.f, 0.f);
+    fence_proxy_async();
+    consumers_sync();
+    const int64_t c0 = (int64_t)warp * kDecChunk;
+    const int64_t len = (int64_t)nt * B - c0 < kDecChunk
+                            ? (int64_t)nt * B - c0 : kDecChunk;
+    if (lane == 0 && len > 0)
+      bulk_store(out + b0 * B + c0, smem_addr(tile + c0),
+                 static_cast<uint32_t>(len * 4));
+  }
+  if (lane == 0) bulk_wait();
 }
 
 // gridDim.x is at most 2^31 - 1 blocks
@@ -452,11 +687,50 @@ template <int B, typename V>
 int launch_decode(const void* idx, const void* val, const float* scales,
                   const float* mask, float* out, int n_senders, int64_t n,
                   int k, cudaStream_t st) {
-  unsigned grid;
-  if (int err = grid_for(n / B, &grid)) return err;
-  topk_decode_reduce_kernel<B, V><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+  constexpr int T = kDecTile / B;
+  const int64_t n_blocks = n / B;
+  if (n_blocks <= 0 || n_senders < 0) return (int)cudaErrorInvalidValue;
+  // a ring slot: each run's area holds the run shifted by its global
+  // address mod 16
+  const int idx_area = (T * k * 2 + 15) / 16 * 16 + 16;
+  const int val_area = (T * k * (int)sizeof(V) + 15) / 16 * 16 + 16;
+  const int slot_bytes = idx_area + val_area + T * 4 + 16;
+  int dev, sms, per_sm, per_block, reserved;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_sm, cudaDevAttrMaxSharedMemoryPerMultiprocessor, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &per_block, cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(
+        &reserved, cudaDevAttrReservedSharedMemoryPerBlock, dev);
+  if (err != cudaSuccess) return (int)err;
+  // the most stages (<= kDecMaxStages) with which two CTAs share an SM,
+  // else with which one CTA fits
+  int stages = (per_sm / 2 - reserved - kDecRing) / slot_bytes;
+  if (stages < 2) stages = (per_block - kDecRing) / slot_bytes;
+  stages = stages < kDecMaxStages ? stages : kDecMaxStages;
+  if (stages < 2) return (int)cudaErrorInvalidConfiguration;
+  const int bytes = kDecRing + stages * slot_bytes;
+  auto kernel = topk_decode_reduce_kernel<B, V>;
+  err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
+                                                        kDecThreads, bytes);
+  if (err != cudaSuccess) return (int)err;
+  if (per_sm < 1) return (int)cudaErrorInvalidConfiguration;
+  const int64_t n_tiles = (n_blocks + T - 1) / T;
+  const int64_t resident = (int64_t)sms * per_sm;
+  const int64_t grid = n_tiles < resident ? n_tiles : resident;
+  kernel<<<(unsigned)grid, kDecThreads, bytes, st>>>(
       static_cast<const uint16_t*>(idx), static_cast<const V*>(val), scales,
-      mask, out, n_senders, k, n / B);
+      mask, out, n_senders, k, n_blocks, stages, idx_area, val_area,
+      slot_bytes);
   return (int)cudaGetLastError();
 }
 

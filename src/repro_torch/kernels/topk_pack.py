@@ -59,6 +59,7 @@ from .common import LL, VP, I, check, launches, raise_if, scalar, stream
 SUPPORTED_BLOCK_SIZES = (64, 128, 256, 512)   # see TOPK_DISPATCH
 BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
 K_MAX = 32                             # one output slot per lane
+DECODE_TILE = 8192         # topk_decode_reduce's tile: kDecTile in csrc
 ROUND_BLOCK = 256          # B6's block in the global route's rounds
 FINAL_SORT = 1024          # a chunk's candidates are sorted at this many
 
@@ -238,8 +239,16 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
                        out: Optional[torch.Tensor] = None) -> torch.Tensor:
     """Server-side decode + masked sum over senders, in sender order:
     idx (N, n/B, k), val (N, n/B, k), scales (N, n/B) f32, mask (N,) f32
-    -> (n,) f32, written into `out` when given.  A pack's k indices in a
-    block are distinct and < B."""
+    -> (n,) f32, written into `out` when given (16-byte aligned on CUDA).
+    Preconditions: a pack's k indices in a block are distinct; an index
+    >= B adds nothing on CUDA.
+
+    The kernel walks tiles of DECODE_TILE coordinates (DECODE_TILE / B
+    blocks) on a persistent grid: per tile, each sender's index, value and
+    scale runs are bulk-copied into a ring in shared memory, added in
+    sender order into an f32 tile there, and the tile is bulk-stored
+    (`csrc/topk_pack.cu`).  Any N, any n/B (a last partial tile), and rows
+    at any element offset are taken."""
     dev = idx.device
     if idx.dim() != 3:
         raise ValueError(f"idx: need (N, n/B, k), got {tuple(idx.shape)}")
@@ -260,7 +269,7 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
     if is_global(block_size):
         return topk_decode_global(idx, val, scales, mask, block_size, out)
     if out.data_ptr() % 16:
-        raise ValueError("out: the kernel stores float4, need 16-byte "
+        raise ValueError("out: the kernel bulk-stores tiles, need 16-byte "
                          "alignment")
     err = _lib().topk_decode_reduce_launch(
         idx.data_ptr(), val.data_ptr(), scales.data_ptr(), mask.data_ptr(),

@@ -213,6 +213,66 @@ def test_topk_decode_reduce_kernel_matches_plain(cuda, block_size, k,
     assert _same(got, want)
 
 
+def _decode_payload(N, nb, k, block_size, value_dtype, offset, budgets,
+                    seed):
+    """Payloads for the tile-shape cases: distinct positions, values of both
+    signs with a -0.0, scales with a 1.0, +0 past a sender's budget; each
+    tensor on the card `offset` elements into its buffer."""
+    rng = np.random.default_rng(seed)
+    idx = np.argsort(rng.random((N, nb, block_size)), axis=-1)[..., :k]
+    val = rng.standard_normal((N, nb, k)).astype(np.float32)
+    val[0, 0, 0] = -0.0
+    for i, b in enumerate(budgets or ()):
+        val[i, :, b:] = 0.0
+    scales = np.exp2(rng.uniform(-14, 3, (N, nb))).astype(np.float32)
+    scales[:, 0] = 1.0
+
+    def put(a, dtype):
+        t = torch.from_numpy(a.reshape(-1)).to(dtype)
+        buf = torch.empty(offset + t.numel(), dtype=dtype, device="cuda")
+        buf[offset:].copy_(t)
+        return buf[offset:].view(a.shape)
+    return (put(idx.astype(np.int16), torch.int16).view(torch.uint16),
+            put(val, ref.wire_dtype(value_dtype)), put(scales, torch.float32))
+
+
+# (N, nb as a function of the tile's T blocks, k, mask, budgets, offset):
+# the shapes the kernel's tile plan handles itself
+DECODE_SHAPES = {
+    "partial_last_tile": (4, lambda T: 2 * T + 5, 8, (1, 0, 1, 1), None, 0),
+    "under_one_tile": (4, lambda T: T - 3, 8, (1, 1, 0, 1), None, 0),
+    "one_block": (4, lambda T: 1, 8, (1, 1, 1, 0), None, 0),
+    "nb_k_odd_unaligned": (4, lambda T: T + 7, 3, (1, 0, 1, 1), None, 1),
+    "one_sender": (1, lambda T: T + 2, 8, (1,), None, 0),
+    "nine_senders": (9, lambda T: 2 * T + 1, 5,
+                     (1, 0, 1, 0.75, 1, 1, 0, 1, 1), None, 3),
+    "mask_all_zero": (4, lambda T: T + 1, 32, (0, 0, 0, 0), None, 0),
+    "budgets": (4, lambda T: 2 * T + 3, 8, (1, 1, 1, 0), (8, 8, 3, 1), 0),
+}
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("shape", sorted(DECODE_SHAPES))
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+def test_topk_decode_reduce_kernel_tile_shapes(cuda, block_size, shape,
+                                               value_dtype):
+    """A last partial tile, fewer blocks than a tile, one block, nb*k odd
+    with every row off its 16-byte granule, one sender, more senders than
+    ring stages, an all-zero mask and a budgeted payload: bit for bit
+    against the plain version."""
+    N, nb_of, k, mask, budgets, offset = DECODE_SHAPES[shape]
+    nb = nb_of(tp.DECODE_TILE // block_size)
+    idx, val, scales = _decode_payload(N, nb, k, block_size, value_dtype,
+                                       offset, budgets, seed=nb * k)
+    mask = torch.tensor(mask, dtype=torch.float32, device=cuda)
+    before = tp.launches["topk_decode_reduce"]
+    got = tp.topk_decode_reduce(idx, val, scales, mask, block_size)
+    torch.cuda.synchronize()
+    assert tp.launches["topk_decode_reduce"] == before + 1
+    want = ref.topk_decode_reduce_ref(idx, val, scales, mask, block_size)
+    assert _same(got, want)
+
+
 def test_topk_wrappers_raise_instead_of_falling_back(cuda):
     x = torch.zeros(128 * 8, device=cuda)
     with pytest.raises(ValueError):                 # no kernel for B=32

@@ -9,6 +9,8 @@ blocks of widely varying scale and on all-zero blocks (the padding).
 
     PYTHONPATH=src python tools/topk_check.py [--baseline FILE.cu]
         [--yardstick] [--rounds]
+    PYTHONPATH=src python tools/topk_check.py --decode [--baseline FILE.cu]
+        [--sweep TILE:STAGES,...]
 
 --baseline   another topk_pack.cu with the launch interface before the
              budget argument (ef_topk_fused_launch(..., n, B, k, bf16,
@@ -20,9 +22,24 @@ blocks of widely varying scale and on all-zero blocks (the padding).
              ROADMAP C1, and it writes i64 indices and f32 values)
 --rounds     topk_pack at k = 1, 2, 4, 8, 16, 32 on the same x: the time
              each selection round adds
+--decode     topk_decode_reduce (B4) alone instead: ptxas's report of its
+             instances, chip_smoke.py's small-n tile shapes against the
+             plain version at every B, then B4 on the driver's wire (B 64,
+             k 8, budgets 8, 8, 3, 1, a straggler, n = 2,660,228,352) and
+             on the slice's (B 256, k 8, n = 2,660,229,120), timed beside
+             the scatter_add_ yardstick; --baseline is then a topk_pack.cu
+             with the same decode interface (e.g. the parent's), whose
+             output must equal the new kernel's bit for bit, timed in the
+             order baseline, new, new, baseline; beside them a stream
+             floor: PyTorch's zero_ of the output plus an amax over each
+             payload tensor, one pass each over the same bytes
+--sweep      with --decode: variants of the kernel built with
+             -DTOPK_DECODE_TILE=TILE -DTOPK_DECODE_STAGES=STAGES (all
+             nvcc at once) and timed on the same two instances
 
 Exits 1 if a kernel differs from its plain version.  Much shorter than
-chip_smoke.py: the tool for iterating on the selection.
+chip_smoke.py: the tool for iterating on the selection and, with
+--decode, on topk_decode_reduce.
 """
 import argparse
 import json
@@ -44,6 +61,156 @@ def ptxas_lines(report: str) -> list:
     return [ln.strip() for ln in report.splitlines()
             if "Compiling entry" in ln or "Used" in ln or "spill" in ln
             or "stack" in ln or "warning" in ln]
+
+
+def decode_lines(report: str) -> list:
+    """ptxas's lines for the topk_decode_reduce instances."""
+    out, on = [], False
+    for ln in report.splitlines():
+        if "Compiling entry" in ln:
+            on = "topk_decode_reduce" in ln
+        if on and ("Compiling entry" in ln or "Used" in ln or "spill" in ln
+                   or "stack" in ln):
+            out.append(ln.strip())
+    return out
+
+
+def decode_lib(lib):
+    from repro_torch.kernels.common import I, LL, VP
+    lib.topk_decode_reduce_launch.argtypes = [VP] * 5 + [I, LL, I, I, I, VP]
+    lib.topk_decode_reduce_launch.restype = I
+    return lib
+
+
+def big_payload(torch, gen, dev, N: int, nb: int, k: int, B: int, budgets):
+    """N senders' payloads at a large n, made chunk by chunk: positions
+    (r + q*slot) mod B with r random and q random odd (distinct in a
+    block), normal values (+0 past a sender's budget), scales 2^-14..2^3."""
+    idx = torch.empty((N, nb, k), dtype=torch.uint16, device=dev)
+    val = torch.empty((N, nb, k), device=dev)
+    sc = torch.empty((N, nb), device=dev)
+    slots = torch.arange(k, device=dev)
+    cb = cs.CHUNK // B
+    for i in range(N):
+        for b0 in range(0, nb, cb):
+            b1 = min(nb, b0 + cb)
+            r = torch.randint(0, B, (b1 - b0, 1), device=dev, generator=gen)
+            q = torch.randint(0, B // 2, (b1 - b0, 1), device=dev,
+                              generator=gen) * 2 + 1
+            idx[i, b0:b1].view(torch.int16).copy_((r + q * slots) % B)
+        val[i].normal_(generator=gen)
+        val[i, :, budgets[i]:] = 0
+        sc[i].uniform_(-14, 3, generator=gen).exp2_()
+    return idx, val, sc
+
+
+def decode_main(args, torch, dev) -> None:
+    """--decode: see the module docstring."""
+    import math
+    from concurrent.futures import ThreadPoolExecutor
+    from repro_torch.configs import REGISTRY
+    from repro_torch.core.cocoef import padded_size
+    from repro_torch.kernels import build, ref, topk_pack as tp
+    from repro_torch.kernels.common import stream
+    from repro_torch.launch.train_e2e import CODING_OVERRIDES
+    from repro_torch.nn.transformer import num_params
+
+    t0 = time.perf_counter()
+    report = build.ptxas_report("topk_pack")
+    print(f"build topk_pack: {time.perf_counter() - t0:.2f} s", flush=True)
+    for ln in decode_lines(report):
+        print(f"  {ln}", flush=True)
+    src = build.CSRC / "topk_pack.cu"
+    variants = {}
+    if args.sweep:
+        plans = [tuple(map(int, v.split(":"))) for v in args.sweep.split(",")]
+        t0 = time.perf_counter()
+        with ThreadPoolExecutor(len(plans)) as pool:
+            libs = pool.map(lambda p: build.library_of_file(
+                src, f"topk_pack-t{p[0]}-s{p[1]}",
+                (f"TOPK_DECODE_TILE={p[0]}", f"TOPK_DECODE_STAGES={p[1]}")),
+                plans)
+            variants = {f"tile {p[0]}, stages <= {p[1]}": decode_lib(lib)
+                        for p, lib in zip(plans, libs)}
+        print(f"built {len(plans)} variants in "
+              f"{time.perf_counter() - t0:.2f} s", flush=True)
+    base = (decode_lib(build.library_of_file(args.baseline,
+                                             "topk_pack-baseline"))
+            if args.baseline else None)
+
+    gen = torch.Generator(device=dev).manual_seed(0)
+    n_shapes = cs.check_decode_shapes(torch, ref, tp, gen, dev)
+    print(f"topk_decode_reduce bit-equal to the plain version on {n_shapes} "
+          f"small-n tile shapes", flush=True)
+
+    cfg = REGISTRY["gemma2-2b"].config
+    n64 = padded_size(num_params(cfg), cs.N_CODE,
+                      math.lcm(CODING_OVERRIDES["group_size"],
+                               CODING_OVERRIDES["block_size"]))
+    n256 = padded_size(num_params(cfg), cs.N_CODE, cs.GROUP)
+    st = stream(dev)
+    rows = {}
+    for what, n, B, k, budgets, m in (
+            ("driver budgets", n64, CODING_OVERRIDES["block_size"],
+             CODING_OVERRIDES["k_per_block"], cs.DRIVER_K_BUDGETS,
+             (1.0, 1.0, 1.0, 0.0)),
+            ("slice", n256, cs.BLOCK, cs.K, (cs.K,) * cs.N_CODE,
+             (1.0, 0.0, 1.0, 1.0))):
+        nb = n // B
+        idx, val, sc = big_payload(torch, gen, dev, cs.N_CODE, nb, k, B,
+                                   budgets)
+        mask = torch.tensor(m, device=dev)
+        out = torch.empty(n, device=dev)
+
+        def launch(lib):
+            err = lib.topk_decode_reduce_launch(
+                idx.data_ptr(), val.data_ptr(), sc.data_ptr(),
+                mask.data_ptr(), out.data_ptr(), cs.N_CODE, n, B, k, 0, st)
+            if err:
+                cs.fail(f"topk_decode_reduce launch failed ({err})")
+
+        def new():
+            tp.topk_decode_reduce(idx, val, sc, mask, B, out=out)
+        new()
+        torch.cuda.synchronize()
+        if base is not None:
+            want = out.clone()
+            launch(base)
+            torch.cuda.synchronize()
+            if not cs.same(out, want):
+                cs.fail(f"topk_decode_reduce ({what}, B {B}) differs from "
+                        f"the baseline's")
+            del want
+        times = {}
+        if base is not None:
+            times["baseline"] = [cs.cuda_ms(lambda: launch(base), REPS)]
+        times["new"] = [cs.cuda_ms(new, REPS), cs.cuda_ms(new, REPS)]
+        if base is not None:
+            times["baseline"].append(cs.cuda_ms(lambda: launch(base), REPS))
+        for name, lib in variants.items():
+            times[name] = cs.cuda_ms(lambda: launch(lib), REPS)
+        # PyTorch's own streaming passes over the same bytes: the output
+        # written once (zero_), each payload tensor read once (amax)
+        floor = {"write_out_ms": cs.cuda_ms(out.zero_, REPS),
+                 "read_payload_ms": sum(cs.cuda_ms(lambda t=t: t.amax(), REPS)
+                                        for t in (idx.view(torch.int16), val,
+                                                  sc))}
+        moved = 4 * n + cs.N_CODE * nb * (k * (2 + 4) + 4) + 4 * cs.N_CODE
+        bound_ms = moved / cs.HBM_BYTES_PER_S * 1e3
+        rows[what] = {"n": n, "block": B, "k": k, "k_send": list(budgets),
+                      **times, "bound_ms": bound_ms,
+                      "gb_per_s": moved / min(times["new"]) / 1e6,
+                      "bound_share": bound_ms / min(times["new"]),
+                      "stream_floor": floor,
+                      "stream_floor_share": sum(floor.values())
+                      / min(times["new"]),
+                      "yardstick_scatter_add_ms": cs.scatter_add_ms(
+                          torch, idx, val, sc, mask, B, out)}
+        print(f"topk_decode_reduce, {what}: {json.dumps(rows[what])}",
+              flush=True)
+        del idx, val, sc, out
+        torch.cuda.empty_cache()
+    print(json.dumps({"topk_decode_reduce": rows}))
 
 
 def baseline_lib(src: Path):
@@ -92,10 +259,19 @@ def main() -> None:
     ap.add_argument("--baseline", type=Path)
     ap.add_argument("--yardstick", action="store_true")
     ap.add_argument("--rounds", action="store_true")
+    ap.add_argument("--decode", action="store_true")
+    ap.add_argument("--sweep")
     args = ap.parse_args()
     import torch
     if not torch.cuda.is_available():
         sys.exit("needs a CUDA device")
+    if args.decode:
+        dev = torch.device("cuda", 0)
+        smi = cs.smi_line()
+        print(f"device: {smi}", flush=True)
+        decode_main(args, torch, dev)
+        print(smi)
+        return
     from repro_torch.configs import REGISTRY
     from repro_torch.core.cocoef import padded_size
     from repro_torch.kernels import build, ref, topk_pack as tp
