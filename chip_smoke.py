@@ -49,6 +49,12 @@ Phases (any failure exits non-zero and prints no result line):
                 all-zero chunk, fewer than k nonzeros, -0.0, denormals)
                 against the stable sort of whole chunks, bit for bit, then
                 timed against one pass over g, e and e' (12 B/coord)
+  3b. init      theta0 from JAX's key (C13): the smoke config's theta0
+                on the card equals the CPU's bit for bit; gemma2-2b's
+                2,660,228,352 draws on the card (timed), and on its slices
+                (all of layer 0's wq, the first and last 4096 rows of the
+                token table, layer 13's w_down) equal numpy's draws of the
+                same counters (`prng.normal_range`, every core)
   4. reference  the f32 smoke-size train step on the card against the CPU
                 (repro_torch/launch/device_parity.py) on the sign wire, the
                 block top-K wire and the block top-K wire with per-rank
@@ -120,7 +126,17 @@ Phases (any failure exits non-zero and prints no result line):
                 against 2 steps, a checkpoint (JAX's format, raw), every
                 tensor dropped, a restore into a fresh setup and 2 steps,
                 theta and e hashed equal (the file's bytes and the seconds
-                to save and restore printed); exact launch counts per run
+                to save and restore printed); between those, the driver's
+                last three flags at full depth: `--plan auto --metrics
+                --prefetch 2`, markov p 0.25, 6 steps (the card's plan
+                must be the CPU planner's pick; the JSONL and the Chrome
+                trace pass the port's validators; batch wait, spans, the
+                StepTimer's prediction and the peak printed), then the same
+                plan without --metrics (the same theta and e bits; the
+                frame's ms a step is the difference); and at 2 layers
+                `--prefetch 2` against synchronous batches (markov,
+                elastic, 4 steps: theta and e hashed equal); exact launch
+                counts per run
  10. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
@@ -190,6 +206,11 @@ DRIVER_BUDGET_STEPS = 2
 DRIVER_UPLINKS = "10,10,5,2.5"    # Gbit/s a rank: k_send = DRIVER_K_BUDGETS
 DRIVER_K_BUDGETS = (8, 8, 3, 1)
 RESUME_LAYERS = 2         # crash and resume: full width, depth cut
+PREFETCH_LAYERS = 2       # prefetched against synchronous: depth cut
+INIT_ROWS = 4096          # rows of each end of the token table checked
+INIT_LAYER = 13           # the layer whose w_down is checked
+INIT_PIECE = 256          # rows a numpy thread draws at a time
+FRAME_REPS = 3            # stage 2 timed with and without the frame
 HASH_CHUNK = 1 << 26      # position-weighted bit hashes, this many at once
 NCCL_N = 1 << 26
 
@@ -1309,7 +1330,9 @@ PEAKS = {}                # peak bytes allocated by train path
 SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
               "sign phase2 bf16", "sign phase2 sign", "driver markov elastic",
               "driver resume straight", "driver resume save",
-              "driver resume restored")
+              "driver resume restored", "driver prefetch 2 layers",
+              "driver sync 2 layers", "driver all flags",
+              "driver metrics off")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -1690,7 +1713,8 @@ def driver_run(torch, launches, label: str, args, spec, shape, want: dict,
     PEAKS[f"driver {label}"] = peak
     out[label] = {"launches": got, "peak_bytes": peak,
                   "step_s": [r["step_s"] for r in res["steps"]],
-                  "kernel_ms": [r["kernel_ms"] for r in res["steps"]]}
+                  "kernel_ms": [r["kernel_ms"] for r in res["steps"]],
+                  "batch_s": [r["batch_s"] for r in res["steps"]]}
     print(f"driver ({label}): gemma2-2b {setup.model.cfg.num_layers} "
           f"layers, flat {setup.flat_pad}, peak memory {peak} B "
           f"({peak / 1e9:.2f} GB) of "
@@ -1763,6 +1787,8 @@ def driver_phase(torch, spec, dev, launches) -> dict:
         del res
         settle(torch, "the driver's budgets run")
 
+        all_flags_phase(torch, launches, spec, shape, tmp, out)
+
         cut = dataclasses.replace(spec, config=dataclasses.replace(
             spec.config, num_layers=RESUME_LAYERS))
         hashes = {}
@@ -1786,6 +1812,26 @@ def driver_phase(torch, spec, dev, launches) -> dict:
             del res
             if settle(torch, f"the driver's {label} run") > 1 << 30:
                 fail("driver: over 1 GiB still allocated between runs")
+        pf_hashes = {}
+        for label, pf in (("prefetch 2 layers", ("--prefetch", "2")),
+                          ("sync 2 layers", ())):
+            res = driver_run(torch, launches, label,
+                             driver_args(tmp / label.replace(" ", "_"),
+                                         "cuda", "--steps", "4",
+                                         "--straggler", "markov",
+                                         "--straggler-p", "0.25",
+                                         "--elastic", *never, *pf),
+                             cut, shape, sign(4), out)
+            pf_hashes[label] = (bits_hash(torch,
+                                          [res["setup"].model.theta]),
+                                bits_hash(torch, res["e"]))
+            out[label]["prefetch"] = res["prefetch"]
+            del res
+            settle(torch, f"the driver's {label} run")
+        if pf_hashes["prefetch 2 layers"] != pf_hashes["sync 2 layers"]:
+            fail("driver: the prefetched run's theta or e differs from the "
+                 "synchronous run's")
+        out["prefetch 2 layers"]["bit_equal_to_sync"] = True
         if out["resume restored"].get("start") != 2:
             fail("driver: the restored run did not resume from step 2")
         if hashes["resume straight"] != hashes["resume restored"]:
@@ -1799,6 +1845,202 @@ def driver_phase(torch, spec, dev, launches) -> dict:
     print("driver: " + json.dumps(out), flush=True)
     return {f"driver {k}": v["launches"] for k, v in out.items()
             if isinstance(v, dict) and "launches" in v}
+
+
+def init_slices(cfg) -> list:
+    """(leaf, layer or None, first row, rows) of the full-width theta0
+    checked against numpy: all of layer 0's wq, the first and last
+    INIT_ROWS rows of the token table, and layer INIT_LAYER's w_down."""
+    v = cfg.vocab_size
+    return [("blocks/attn/wq", 0, 0, cfg.d_model),
+            ("embed/tok", None, 0, INIT_ROWS),
+            ("embed/tok", None, v - INIT_ROWS, INIT_ROWS),
+            ("blocks/mlp/w_down", INIT_LAYER, 0, cfg.d_ff)]
+
+
+def init_phase(torch, spec, dev) -> dict:
+    """theta0 is JAX's `init_params(PRNGKey(0))` on both devices (C13):
+    at the smoke config the card's theta equals the CPU's bit for bit; at
+    full width the card draws all 2,660,228,352 values (timed, CUDA
+    synchronised) and `init_slices` of them must equal numpy's draws of
+    the same counters (`prng.normal_range`, four threads)."""
+    import threading
+    import numpy as np
+    from repro_torch.core import prng
+    from repro_torch.nn.models import Model
+    from repro_torch.nn.transformer import init_keys
+    cpu = Model(spec.smoke, chunk_ranks=N_CODE, group_size=GROUP,
+                device="cpu")
+    cpu.init_(0)
+    card = Model(spec.smoke, chunk_ranks=N_CODE, group_size=GROUP,
+                 device=dev)
+    card.init_(0)
+    if not torch.equal(cpu.theta, card.theta.cpu()):
+        fail("init: the card's smoke theta0 differs from the CPU's")
+    del cpu, card
+    cfg = spec.config
+    m = Model(cfg, chunk_ranks=N_CODE, group_size=GROUP, device=dev,
+              with_grad=False)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    m.init_(0)
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    keys, params = init_keys(cfg, prng.PRNGKey(0)), m.params()
+    jobs = [(name, layer, r0, min(INIT_PIECE, row + rows - r0))
+            for name, layer, row, rows in init_slices(cfg)
+            for r0 in range(row, row + rows, INIT_PIECE)]
+    res = {}
+
+    def check(i, name, layer, row, rows):
+        key, fan = keys[name]
+        v = params[name] if layer is None else params[name][layer]
+        width = math.prod(v.shape[1:])
+        got = v[row:row + rows].reshape(-1).cpu().numpy()
+        want = prng.normal_range(key if layer is None else key[layer],
+                                 row * width, rows * width,
+                                 prng.init_scale(fan))
+        res[i] = (f"{name}[{'' if layer is None else f'{layer}, '}"
+                  f"{row}:{row + rows}]", got.size,
+                  int((got.view(np.int32) != want.view(np.int32)).sum()))
+    t0 = time.perf_counter()
+    todo = list(enumerate(jobs))
+
+    def worker():
+        while todo:
+            try:
+                i, job = todo.pop()
+            except IndexError:
+                return
+            check(i, *job)
+    threads = [threading.Thread(target=worker)
+               for _ in range(os.cpu_count() or 4)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join()
+    numpy_s = time.perf_counter() - t0
+    if len(res) != len(jobs) or any(r[2] for r in res.values()):
+        fail(f"init: the card's theta0 differs from numpy's draws: {res}")
+    out = {"smoke card == cpu": True, "full_init_s": init_s,
+           "draws": m.layout.total, "numpy_s": numpy_s,
+           "slices_bit_equal": {f"{n}[{'' if l is None else f'{l}, '}"
+                                f"{r}:{r + k}]": k * math.prod(
+                                    params[n].shape[1 if l is None else 2:])
+                                for n, l, r, k in init_slices(cfg)}}
+    del m, params
+    print("init: " + json.dumps(out), flush=True)
+    return out
+
+
+def frame_cost(torch, setup, e, reps: int = FRAME_REPS) -> dict:
+    """Stage 2 and the update (`coded_update`) on the setup's own buffers,
+    timed with and without the telemetry frame, alternating (host clock
+    between synchronises, every rank participating): the frame's ms a
+    step is the difference of the medians.  Run after the setup's bits
+    were hashed: it keeps updating theta and e."""
+    mask = torch.ones(N_CODE, dtype=torch.float32, device=e.device)
+    grad = setup.model.grad
+    times = {"on": [], "off": []}
+    for _ in range(reps):
+        for key in ("off", "on"):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            setup.coded_update(setup.model, lambda i: grad, e, mask, 0,
+                               frames=[] if key == "on" else None)
+            torch.cuda.synchronize()
+            times[key].append((time.perf_counter() - t0) * 1e3)
+    med = {k: sorted(v)[len(v) // 2] for k, v in times.items()}
+    return {"on_ms": times["on"], "off_ms": times["off"],
+            "frame_ms": med["on"] - med["off"]}
+
+
+def all_flags_phase(torch, launches, spec, shape, tmp: Path, out: dict
+                    ) -> None:
+    """The driver's last three flags at full width and depth:
+    `--plan auto --metrics --prefetch 2` with markov stragglers (p 0.25),
+    DRIVER_STEPS steps.  The card must pick the plan the CPU's planner
+    picks for the same flags, launch the kernels of that plan's wire
+    only, and write JSONL that passes `validate_record` and a trace that
+    passes `validate_chrome_trace` (the port's copies).  Then the same
+    plan without --metrics: the same theta and e bits and launches, and
+    the frame's cost as the difference of the step seconds."""
+    from repro_torch.launch import train_e2e
+    from repro_torch.obs import read_jsonl, validate_chrome_trace, \
+        validate_record
+    never = ("--ckpt-every", str(1 << 30))
+    flags = ("--steps", str(DRIVER_STEPS), "--straggler", "markov",
+             "--straggler-p", "0.25", *never)
+    cpu_args = driver_args(tmp / "plan_cpu", "cpu", *flags, "--plan", "auto",
+                           "--plan-out", str(tmp / "plan_cpu.json"))
+    t0 = time.perf_counter()
+    want_plan = train_e2e._auto_plan(
+        cpu_args, train_e2e._driver_spec(cpu_args, spec), N_CODE, None,
+        cpu_args.plan_out)
+    cpu_plan_s = time.perf_counter() - t0
+    per_step = {"sign": {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1},
+                "block_topk": {"ef_topk_fused": N_CODE,
+                               "topk_decode_reduce": 1},
+                "identity": {}}
+    if want_plan.compressor not in per_step:
+        fail(f"driver: the planner picked {want_plan.compressor}, which this "
+             f"phase has no launch counts for")
+    B = want_plan.num_buckets
+    want = {k: v * B * DRIVER_STEPS
+            for k, v in per_step[want_plan.compressor].items()}
+    plan_out = tmp / "plan.json"
+    t0 = time.perf_counter()
+    res = driver_run(torch, launches, "all flags",
+                     driver_args(tmp / "flags", "cuda", *flags,
+                                 "--plan", "auto", "--plan-out",
+                                 str(plan_out), "--metrics", "--metrics-dir",
+                                 str(tmp / "metrics"), "--prefetch", "2"),
+                     spec, shape, want, out)
+    run_s = time.perf_counter() - t0
+    got_plan = res["setup"].plan
+    if got_plan != dataclasses.replace(want_plan, num_ranks=N_CODE):
+        fail(f"driver: the card's planner picked {got_plan.to_json()}, the "
+             f"CPU's {want_plan.to_json()}")
+    recs = read_jsonl(res["metrics"]["jsonl"])
+    for r in recs:
+        validate_record(r)
+    kinds = [r["kind"] for r in recs]
+    if kinds != ["run_meta"] + ["train_step"] * DRIVER_STEPS + ["prefetch"]:
+        fail(f"driver: metrics records {kinds}")
+    validate_chrome_trace(json.loads(Path(res["metrics"]["trace"])
+                                     .read_text()))
+    steps = [r for r in recs if r["kind"] == "train_step"]
+    sync_batch = out["markov elastic"]["batch_s"]
+    flags_hash = (bits_hash(torch, [res["setup"].model.theta]),
+                  bits_hash(torch, res["e"]))
+    frame_ms = frame_cost(torch, res["setup"], res["e"])
+    out["all flags"].update({
+        "plan": got_plan.to_dict(), "plan_equals_cpu": True,
+        "cpu_plan_s": cpu_plan_s, "run_s": run_s,
+        "batch_wait_ms": [x * 1e3 for x in res["metrics"]["batch_wait_s"]],
+        "sync_batch_ms": [x * 1e3 for x in sync_batch],
+        "prefetch": res["prefetch"], "records": len(recs),
+        "spans_ms": [{k: v * 1e3 for k, v in r["spans"].items()}
+                     for r in steps],
+        "predicted_step_ms": [x * 1e3 for x in
+                              res["metrics"]["predicted_step_s"]],
+        "stage2_ms_frame_on_off": frame_ms,
+        "telemetry_last": {k: steps[-1][k] for k in (
+            "participation", "wire_bytes_rank", "bytes_down",
+            "grad_norm_rank", "compress_cosine_rank", "ghat_norm",
+            "update_norm", "param_norm")}})
+    del res
+    settle(torch, "the driver's all-flags run")
+    res = driver_run(torch, launches, "metrics off",
+                     driver_args(tmp / "off", "cuda", *flags, "--plan",
+                                 str(plan_out), "--prefetch", "2"),
+                     spec, shape, want, out)
+    if (bits_hash(torch, [res["setup"].model.theta]),
+            bits_hash(torch, res["e"])) != flags_hash:
+        fail("driver: --metrics changed theta or e")
+    out["metrics off"]["bit_equal_to_metrics_on"] = True
+    del res
+    settle(torch, "the driver's metrics-off run")
 
 
 def serve_request(torch, setup, prompts, launches, n_layers: int):
@@ -1910,6 +2152,12 @@ def settle(torch, after: str) -> int:
 
 
 def main() -> None:
+    # the driver's all-flags run peaks at 81.5 GB of the card's 85.0e9 B;
+    # after the earlier phases fixed allocator segments left 3.6 GiB
+    # reserved in pieces that its 1.46 GiB logits gradient did not fit
+    # (out of memory), so segments grow in place instead
+    os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF",
+                          "expandable_segments:True")
     import torch
     if not torch.cuda.is_available():
         fail("torch.cuda.is_available() is false")
@@ -1997,6 +2245,8 @@ def main() -> None:
     print(f"global top-K route (rounds of topk_pack) vs plain at n={n}, "
           f"bit for bit on the adversarial chunks: {json.dumps(route)}",
           flush=True)
+    init_phase(torch, spec, dev)
+    settle(torch, "the init phase")
 
     cases = [(mode, comp, kb, "float32") for mode in ("cocoef", "coco")
              for comp, kb in (("sign", None), ("block_topk", None),
@@ -2057,10 +2307,12 @@ def main() -> None:
         "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", SIGN_PATHS),
         "ef_topk_fused": ("topk_pack", "topk_pack.py:137",
                           ("block_topk", "block_topk b2 pipelined",
-                           "driver budgets")),
+                           "driver budgets", "driver all flags",
+                           "driver metrics off")),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
                                ("block_topk", "block_topk b2 pipelined",
-                                "driver budgets")),
+                                "driver budgets", "driver all flags",
+                                "driver metrics off")),
         "topk_pack": ("topk_pack", "topk_pack.py:63",
                       ("block_topk coco", "topk", "topk coco")),
         "sign_pack": ("sign_pack", "sign_pack.py:60",
@@ -2075,8 +2327,10 @@ def main() -> None:
         "ef_sign_fused": [p for p in SIGN_PATHS if p.startswith("driver")],
         "sign_decode_reduce": [p for p in SIGN_PATHS
                                if p.startswith("driver")],
-        "ef_topk_fused": ["driver budgets"],
-        "topk_decode_reduce": ["driver budgets"]}
+        "ef_topk_fused": ["driver budgets", "driver all flags",
+                          "driver metrics off"],
+        "topk_decode_reduce": ["driver budgets", "driver all flags",
+                               "driver metrics off"]}
     kernels = []
     for name, (src, replaces, path) in meta.items():
         r = at_slice[name]

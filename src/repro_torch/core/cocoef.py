@@ -60,6 +60,18 @@ JAX (its psum returns f32).  On one device phase 2 runs in place on each
 bucket of ghat after its decode (`collectives.phase2_local_`); the sign
 re-pack writes into row 0 of the bucket's sign payload, which the decode
 has finished reading.
+
+Telemetry.  Given a `FrameSums` (`metrics=`), the update also fills the
+per-rank fields of a `repro_torch.obs.MetricsFrame` (JAX's
+`_cocoef_update_metrics`): a pass before each rank's local step takes
+|g|^2 and |acc|^2 (acc re-made chunk by chunk, rounded as the kernels
+round it) and, where C(acc) is a function of a chunk of acc (the sign
+wire's group scales, the dense wire, dense mode), |c|^2 and <acc, c>; a
+pass after it takes |e'|^2 and, on the sparse wires, |c|^2 and <acc, c>
+from the payload, with acc at the kept coordinates as c + e' for a
+participating rank (exact there) and gamma*g + e for a straggler (whose
+e' is e).  No pass holds more than `obs.metrics.CHUNK` elements, and
+without `metrics` the update runs exactly as before.
 """
 from __future__ import annotations
 
@@ -67,9 +79,12 @@ import dataclasses
 import math
 from typing import Callable, Dict, List, Optional, Sequence, Tuple, Union
 
+import numpy as np
 import torch
 
 from repro_torch.kernels import ref
+from repro_torch.obs.metrics import CHUNK as FRAME_CHUNK, MetricsFrame, \
+    norm_sq
 
 from .collectives import (CodingCollectiveConfig, DenseWire, SignWire, Wire,
                           build_wire, coded_aggregate, coded_allreduce_start,
@@ -77,7 +92,8 @@ from .collectives import (CodingCollectiveConfig, DenseWire, SignWire, Wire,
 
 __all__ = ["CocoEFConfig", "FlatLayout", "flat_layout", "padded_size",
            "cocoef_update", "group_cocoef_update", "group_buffers",
-           "bucket_payload", "payload_specs", "MODES", "SCHEDULES", "check_mode"]
+           "bucket_payload", "payload_specs", "MODES", "SCHEDULES", "check_mode",
+           "FrameSums"]
 
 MODES = ("cocoef", "coco", "dense")
 SCHEDULES = ("serial", "pipelined")
@@ -301,11 +317,127 @@ class _BucketSchedule:
             self._pending = None
 
 
+def _dot(a: torch.Tensor, b: torch.Tensor) -> torch.Tensor:
+    """<a, b> of two flat f32 tensors as float64 (one read of each)."""
+    return torch.dot(a, b).to(torch.float64)
+
+
+def _idx64(idx: torch.Tensor) -> torch.Tensor:
+    """Sparse-wire indices (u16 or u32) as int64."""
+    if idx.dtype == torch.uint16:
+        return idx.view(torch.int16).to(torch.int64) & 0xFFFF
+    if idx.dtype == torch.uint32:
+        return idx.view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    return idx.to(torch.int64)
+
+
+class FrameSums:
+    """The per-rank sums of one step's `MetricsFrame`, taken around each
+    rank's local step (module docstring, "Telemetry").  `ranks`: the
+    coding ranks whose rows this process fills, in row order (all N on one
+    device, its own rank with a grid); `nd`: the all_to_all chunk count;
+    `n`: the flat size."""
+
+    def __init__(self, cfg: CocoEFConfig, mask: torch.Tensor, gamma,
+                 ranks: Sequence[int], nd: int, n: int):
+        N, B = mask.shape[0], cfg.num_buckets
+        self.cfg, self.rows = cfg, {r: j for j, r in enumerate(ranks)}
+        self.gamma = ref.as_f32(gamma, mask)
+        f = MetricsFrame.zeros(N, len(ranks), B, mask.device)
+        if cfg.mode == "dense":
+            rb = DenseWire("float32").rank_wire_bytes(n, N)
+            buckets = np.repeat(rb[None].astype(np.float64) / B, B, axis=0)
+        else:
+            wire = cfg.wire_format(n // B, nd)
+            buckets = np.stack([wire.rank_wire_bytes(n // B, N)] * B)
+            rb = buckets.sum(axis=0)
+        m = mask.to(torch.float64)
+        dev = mask.device
+        f.participation = m.clone()
+        f.wire_bytes_rank = torch.as_tensor(rb, dtype=torch.float64,
+                                            device=dev) * m
+        rows = torch.as_tensor(np.asarray(buckets, np.float64)[:, list(ranks)]
+                               .T.copy(), device=dev)
+        f.bucket_wire_bytes = rows * m[list(ranks)][:, None]
+        f.bytes_down = torch.tensor(
+            float(n * ref.wire_dtype(cfg.phase2_dtype).itemsize),
+            dtype=torch.float64, device=dev)
+        self.frame = f
+
+    def _sparse(self, wire) -> bool:
+        return self.cfg.mode != "dense" and not isinstance(
+            wire, (SignWire, DenseWire))
+
+    def before(self, rank: int, g: torch.Tensor, e: Optional[torch.Tensor],
+               wire) -> None:
+        """g and e of one bucket before the local step: |g|^2, |acc|^2,
+        and, where C(acc) is a function of a chunk of acc, |c|^2 and
+        <acc, c>."""
+        f, j, cfg = self.frame, self.rows[rank], self.cfg
+        ef = cfg.mode == "cocoef"
+        for i in range(0, g.numel(), FRAME_CHUNK):
+            gc = g[i:i + FRAME_CHUNK]
+            f.grad_norm_sq[j] += _dot(gc, gc)
+            acc = gc * self.gamma
+            if ef:
+                acc.add_(e[i:i + FRAME_CHUNK])
+            f.acc_norm_sq[j] += _dot(acc, acc)
+            if self._sparse(wire):
+                continue
+            if isinstance(wire, SignWire):
+                gs = wire.group_size
+                a = acc.abs().view(-1, gs).sum(-1)
+                sc = a / gs                       # the group's mean |acc|
+                f.c_norm_sq[j] += _dot(sc, sc) * gs
+                f.acc_dot_c[j] += _dot(sc, a)
+                continue
+            c = acc if cfg.mode == "dense" else wire.unpack(wire.pack(acc))
+            cc = _dot(c, c)
+            f.c_norm_sq[j] += cc
+            f.acc_dot_c[j] += cc if c is acc else _dot(acc, c)
+
+    def after(self, rank: int, g: torch.Tensor, e: Optional[torch.Tensor],
+              payload: Tuple[torch.Tensor, ...], mask_i, wire) -> None:
+        """One bucket after the local step: |e'|^2 and the sparse wires'
+        |c|^2 and <acc, c>, from the payload (idx, values, scales)."""
+        f, j, cfg = self.frame, self.rows[rank], self.cfg
+        if e is not None and cfg.mode == "cocoef":
+            f.ef_norm_sq[j] += norm_sq(e)
+        if not self._sparse(wire):
+            return
+        idx, val, scales = payload
+        B, k = wire.block_size, idx.shape[-1]
+        in_g = cfg.mode == "coco" or cfg.compressor == "topk"  # g holds acc
+        step = max(1, FRAME_CHUNK // max(B, k))
+        for r0 in range(0, idx.shape[0], step):
+            r1 = min(r0 + step, idx.shape[0])
+            base = torch.arange(r0, r1, dtype=torch.int64,
+                                device=g.device)[:, None] * B
+            pos = (base + _idx64(idx[r0:r1])).reshape(-1)
+            c = (val[r0:r1].to(torch.float32)
+                 * scales[r0:r1, None]).reshape(-1)
+            f.c_norm_sq[j] += _dot(c, c)
+            gk = g.index_select(0, pos)
+            if in_g:
+                acc = gk
+            else:
+                ek = e.index_select(0, pos)
+                acc = torch.where(ref.as_f32(mask_i, c) > 0, c + ek,
+                                  gk * self.gamma + ek)
+            f.acc_dot_c[j] += _dot(acc, c)
+
+    def finish(self, ghat: torch.Tensor) -> MetricsFrame:
+        self.frame.ghat_norm_sq = norm_sq(ghat)
+        return self.frame
+
+
+
 def cocoef_update(grad_of: Callable[[int], torch.Tensor],
                   e: Optional[torch.Tensor], mask: torch.Tensor, gamma,
                   cfg: CocoEFConfig, payload: Tuple[torch.Tensor, ...],
                   out: Optional[torch.Tensor] = None,
-                  kernel_spans: Optional[List] = None) -> torch.Tensor:
+                  kernel_spans: Optional[List] = None,
+                  metrics: Optional[FrameSums] = None) -> torch.Tensor:
     """One Algorithm-1 update (or, with cfg.mode "coco", one update without
     error feedback, or with "dense" the uncompressed baseline) for the N
     coding ranks sharing this device.
@@ -332,17 +464,20 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
     kernel_spans: when a list and on CUDA, gets a (start, end) event pair
       around every rank's local step on every bucket (in coco mode its
       gamma*g and pack) and around every bucket's decode and phase 2.
+    metrics: a `FrameSums` to fill (module docstring, "Telemetry").
     Returns ghat (n,) f32: apply as  params -= ghat."""
     N, B = mask.shape[0], cfg.num_buckets
     spans = _KernelSpans(kernel_spans, mask.device)
     coll = cfg.collective()
     if cfg.folds:
         ghat = _folded_update(grad_of, e, mask, gamma, cfg, payload[0],
-                              spans)
+                              spans, metrics)
         if cfg.mode != "dense":               # JAX's dense psum: no phase 2
             for sl in _buckets(ghat.numel(), B):
                 with spans:
                     phase2_local_(ghat[sl], coll)
+        if metrics is not None:
+            metrics.finish(ghat)
         return ghat
     sched = _BucketSchedule(cfg.bucket_schedule)
     wire = ghat = None
@@ -358,20 +493,26 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
         for b, sl in enumerate(slices):
             pb = bucket_payload(payload, b, B)
             rows = tuple(p[i] for p in pb)
+            e_b = e[i, sl] if cfg.mode == "cocoef" else None
+            if metrics is not None:
+                metrics.before(i, g[sl], e_b, wire)
             with spans:
                 if cfg.mode == "coco":
                     # one f32 rounding, as JAX's gamma * g; no c, no e
                     acc = g[sl].mul_(ref.as_f32(gamma, g))
                     wire.fused_pack(acc, out=rows, rank=i)
                 else:
-                    e_b = e[i, sl]
                     wire.fused_local_step(g[sl], e_b, gamma, mask[i],
                                           out=rows + (e_b,), rank=i)
+            if metrics is not None:      # before the decode reuses g
+                metrics.after(i, g[sl], e_b, rows, mask[i], wire)
             if i == N - 1:
                 sched.submit(lambda: None,
                              lambda _, pb=pb, sl=sl: _decode_one(
                                  wire, pb, mask, ghat[sl], coll, spans))
     sched.collect()
+    if metrics is not None:
+        metrics.finish(ghat)
     return ghat
 
 
@@ -387,7 +528,8 @@ def _decode_one(wire: Wire, pb: Tuple[torch.Tensor, ...], mask, out,
 
 
 def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
-                   ghat: torch.Tensor, spans: _KernelSpans) -> torch.Tensor:
+                   ghat: torch.Tensor, spans: _KernelSpans,
+                   metrics: Optional[FrameSums] = None) -> torch.Tensor:
     """`cocoef_update` where ghat is one accumulator: rank by rank, C(acc_i)
     is made in the gradient buffer and mask_i * C(acc_i) added into ghat,
     from +0.0 in rank order.  Dense mode is the f32 identity without error
@@ -398,12 +540,17 @@ def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
         ghat.zero_()
     for i in range(mask.shape[0]):
         g = grad_of(i)
+        e_i = e[i] if cfg.mode == "cocoef" else None
+        if metrics is not None:
+            metrics.before(i, g, e_i, wire)
         with spans:
             if cfg.mode == "cocoef":
-                c = wire.fused_local_step_(g, e[i], gamma, mask[i])
+                c = wire.fused_local_step_(g, e_i, gamma, mask[i])
             else:
                 c = wire.roundtrip_(g.mul_(ref.as_f32(gamma, g)))
             wire.fold_(ghat, c, mask[i])
+        if metrics is not None:
+            metrics.after(i, g, e_i, (), mask[i], wire)
     return ghat
 
 
@@ -426,7 +573,8 @@ def group_buffers(cfg: CocoEFConfig, nd: int, n: int, device
 def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
                         mask: torch.Tensor, gamma, cfg: CocoEFConfig, grid,
                         buffers, out: Optional[torch.Tensor] = None,
-                        kernel_spans: Optional[List] = None
+                        kernel_spans: Optional[List] = None,
+                        metrics: Optional[FrameSums] = None
                         ) -> torch.Tensor:
     """`cocoef_update` with one process per coding rank: this process is
     rank grid.rank (`launch.mesh.CodingGrid`) and runs its own local step,
@@ -438,15 +586,22 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
     modes); mask: (N,) f32 over the grid, on g's device; buffers:
     `group_buffers(cfg, grid.nd, n, device)`; out: where ghat goes (may be
     g).  On a 1-D grid the result is `cocoef_update`'s bit for bit (see
-    `core.collectives`).  Returns ghat (n,), the same on every rank."""
+    `core.collectives`).  metrics: a `FrameSums` over this rank only (the
+    frame's cross-rank rows wait for the driver over a grid, ROADMAP
+    A13).  Returns ghat (n,), the same on every rank."""
     me, B = grid.rank, cfg.num_buckets
     spans = _KernelSpans(kernel_spans, g.device)
     ghat = torch.empty_like(g) if out is None else out
     gam = ref.as_f32(gamma, g)
     if cfg.mode == "dense":
+        if metrics is not None:
+            metrics.before(me, g, None, DenseWire())
         with spans:
             acc = g.mul_(gam)
-        return dense_allreduce(acc, grid, mask, out=ghat)
+        ghat = dense_allreduce(acc, grid, mask, out=ghat)
+        if metrics is not None:
+            metrics.finish(ghat)
+        return ghat
     coll = cfg.collective()
     slices = _buckets(g.numel(), B)
     n_b = g.numel() // B
@@ -456,6 +611,9 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
     sched = _BucketSchedule(cfg.bucket_schedule)
     for sl, (send, recv) in zip(slices, buffers):
         g_b = g[sl]
+        e_b = e[sl] if cfg.mode == "cocoef" else None
+        if metrics is not None:
+            metrics.before(me, g_b, e_b, wire)
         with spans:
             if cfg.mode == "coco":
                 acc = g_b.mul_(gam)
@@ -469,6 +627,8 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
             else:
                 wire.fused_local_step(g_b, e[sl], gam, mask[me],
                                       out=send + (e[sl],), rank=me)
+        if metrics is not None:
+            metrics.after(me, g_b, e_b, send, mask[me], wire)
 
         def finish(handle, sl=sl):
             with spans:
@@ -476,4 +636,6 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
         sched.submit(lambda send=send, recv=recv: coded_allreduce_start(
             wire, coll, grid, mask, send, recv), finish)
     sched.collect()
+    if metrics is not None:
+        metrics.finish(ghat)
     return ghat

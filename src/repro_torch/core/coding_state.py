@@ -19,7 +19,7 @@ JAX's order, so it equals JAX's plane bit for bit.
 from __future__ import annotations
 
 import dataclasses
-from typing import NamedTuple, Optional, Sequence, Tuple
+from typing import Callable, NamedTuple, Optional, Sequence, Tuple
 
 import numpy as np
 
@@ -117,7 +117,10 @@ class CodingPlan:
     when some estimate has drifted more than `drift_threshold` from the
     rates it was planned for.  `min_rate` floors the estimates before the
     fit, so a rank not yet seen participating cannot get an infinite
-    weight.  (JAX's optional planner hook waits for the planner's port.)
+    weight.  `replan_hook` (e.g. `sim.planner.elastic_replan_hook`) is
+    called with the clipped estimates on every drift-triggered
+    re-allocation, and what it returns lands in info["plan_ranking"]; it
+    advises and must not mutate the plan.
     """
 
     allocation: coding.Allocation
@@ -128,12 +131,15 @@ class CodingPlan:
     min_rate: float = 0.05
     load_slack: float = 1.25
     exact_load: bool = False
+    replan_hook: Optional[Callable[[np.ndarray], object]] = \
+        dataclasses.field(default=None, repr=False, compare=False)
 
     @classmethod
     def create(cls, rates: Sequence[float], num_subsets: int, d: int, *,
                drift_threshold: float = 0.1, min_rate: float = 0.05,
                load_slack: float = 1.25, exact_load: bool = False,
                allocation: Optional[coding.Allocation] = None,
+               replan_hook: Optional[Callable[[np.ndarray], object]] = None,
                ) -> "CodingPlan":
         """Plan from initial rates.  Pass `allocation` to keep an existing
         placement (the static setup's), so epoch 0 of the elastic path is
@@ -145,7 +151,8 @@ class CodingPlan:
                 exact_load=exact_load)
         return cls(allocation=allocation, rates_planned=q.copy(), d=int(d),
                    drift_threshold=drift_threshold, min_rate=min_rate,
-                   load_slack=load_slack, exact_load=exact_load)
+                   load_slack=load_slack, exact_load=exact_load,
+                   replan_hook=replan_hook)
 
     def clip(self, rates: Sequence[float]) -> np.ndarray:
         return np.clip(np.asarray(rates, np.float64), self.min_rate, 1.0)
@@ -184,6 +191,8 @@ class CodingPlan:
         info = {"epoch": self.epoch, "drift": drift,
                 "reallocated": bool(reallocated),
                 "rates_estimate": q.tolist()}
+        if reallocated and self.replan_hook is not None:
+            info["plan_ranking"] = self.replan_hook(q)
         return st, info
 
     def resize(self, rates: Sequence[float], num_subsets: int) -> None:

@@ -1,6 +1,5 @@
-"""Deterministic synthetic LM batches for the coded train step (port of
-`repro.data.pipeline`: synthetic_lm_batch, coded_train_batch and
-elastic_train_batch).
+"""Deterministic synthetic LM batches for the coded train step, and the
+host-to-device prefetcher (port of `repro.data.pipeline`).
 
 The same streams as the JAX pipeline, from `core/prng.py`'s copy of
 `jax.random`: subset k of step t draws from
@@ -42,11 +41,27 @@ the uniform stands between it and the uniform's own multiply-add), and
 log V is f32(log 256000) = 0x41473f36 in the IR.  The copy is only as
 good as the CPU XLA ran on: tests/test_torch_prng.py holds it against
 live `jnp.exp` on 2**22 inputs and the port's tokens against JAX's.
+
+The prefetcher
+--------------
+`prefetch_to_device(it, size, device)` is JAX's: a host thread pulls from
+`it` and parks up to `size` staged items in a bounded queue, with JAX's
+`PrefetchStats` counters.  On a CUDA device the thread copies each
+tensor into pinned memory and on to the device with non_blocking=True
+on a side stream, records an event, and the consumer's stream waits on
+that event before the step reads the batch (and the tensors are
+recorded on the consumer's stream, so the allocator cannot hand their
+memory back early).  A producer's exception re-raises at the consumer's
+next pull; `close()`, exhaustion and `__del__` stop and join the thread.
 """
 from __future__ import annotations
 
+import dataclasses
 import math
-from typing import Optional, Sequence, Tuple
+import queue
+import threading
+import time
+from typing import Callable, Iterator, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -54,8 +69,24 @@ import torch
 from repro_torch.core import prng
 from repro_torch.core.coding import Allocation
 
-__all__ = ["synthetic_lm_batch", "coded_train_batch", "elastic_train_batch",
-           "xla_cpu_exp_f32"]
+__all__ = ["SyntheticLMConfig", "synthetic_lm_batch", "subset_batch_for_rank",
+           "coded_train_batch", "elastic_train_batch", "coded_batch_stream",
+           "prefetch_to_device", "PrefetchStats", "host_stream",
+           "to_device", "xla_cpu_exp_f32"]
+
+PREFETCH_THREAD = "repro_torch-prefetch"
+
+
+@dataclasses.dataclass(frozen=True)
+class SyntheticLMConfig:
+    vocab_size: int
+    seq_len: int
+    global_batch: int
+    num_subsets: int = 0          # 0 => one subset per DP rank (plain DP)
+    seed: int = 0
+
+    def subsets(self, num_dp_ranks: int) -> int:
+        return self.num_subsets or num_dp_ranks
 
 _EXP_LO, _EXP_HI = np.uint32(0xC2AF999A), np.uint32(0x42B1999A)
 _LOG2E = np.uint32(0x3FB8AA3B)
@@ -103,6 +134,20 @@ def synthetic_lm_batch(key: np.ndarray, step: int, batch: int, seq_len: int,
     toks = torch.from_numpy(ranks.astype(np.int64)).clamp(0, vocab - 1)
     copy = torch.from_numpy(prng.uniform(prng.fold_in(k, 1), shape) < 0.25)
     return torch.where(copy, torch.roll(toks, 1, dims=-1), toks)
+
+
+def subset_batch_for_rank(key: np.ndarray, step: int, subset_ids: np.ndarray,
+                          subset_weights: np.ndarray, per_subset: int,
+                          seq_len: int, vocab: int
+                          ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The union of a rank's subsets for one step (JAX's): tokens
+    (n_local * per_subset, L+1) int64, subset k's rows keyed by
+    fold_in(key, k), and the per-example weights (f32, subset_weights[j]
+    repeated per_subset times)."""
+    toks = _rank_tokens(key, step, np.asarray(subset_ids), per_subset,
+                        seq_len, vocab)
+    w = np.repeat(np.asarray(subset_weights, np.float32), per_subset)
+    return toks, torch.from_numpy(w.astype(np.float32))
 
 
 def _rank_tokens(key: np.ndarray, step: int, sids: np.ndarray,
@@ -165,3 +210,214 @@ def elastic_train_batch(seed: int, step: int, allocation: Allocation,
     tokens = torch.stack(toks)
     return (tokens, torch.ones(tokens.shape[:2], dtype=torch.float32),
             torch.stack(sids_out))
+
+
+def coded_batch_stream(seed: int, allocation: Allocation, W: np.ndarray,
+                       per_subset: int, seq_len: int, vocab: int,
+                       start_step: int = 0
+                       ) -> Iterator[Tuple[torch.Tensor, torch.Tensor]]:
+    """`coded_train_batch(seed, t, ...)` for t = start_step, start_step+1,
+    ...: deterministic in (seed, step), so prefetching cannot change what
+    any step trains on."""
+    step = start_step
+    while True:
+        yield coded_train_batch(seed, step, allocation, W, per_subset,
+                                seq_len, vocab)
+        step += 1
+
+
+def host_stream(cfg: SyntheticLMConfig, start_step: int = 0
+                ) -> Iterator[torch.Tensor]:
+    """Host-side infinite stream of global batches (single-host testing)."""
+    key = prng.PRNGKey(cfg.seed)
+    step = start_step
+    while True:
+        yield synthetic_lm_batch(key, step, cfg.global_batch, cfg.seq_len,
+                                 cfg.vocab_size)
+        step += 1
+
+
+@dataclasses.dataclass
+class PrefetchStats:
+    """Host-side counters of one `prefetch_to_device` stream (JAX's).
+    Single writer per field (the worker owns the producer's counters, the
+    consumer the rest):
+
+      put_count        batches staged (copy issued, parked in the queue)
+      get_count        batches the consumer pulled
+      producer_wait_s  worker time blocked on a FULL queue
+      consumer_wait_s  consumer time blocked on an EMPTY queue (the
+                       host's batch on the step's critical path)
+      device_put_s     worker time inside the host->device staging
+      max_depth        high-water queue occupancy (<= size)
+      depth_sum        sum of the occupancies seen at each get
+    """
+
+    size: int = 0
+    put_count: int = 0
+    get_count: int = 0
+    producer_wait_s: float = 0.0
+    consumer_wait_s: float = 0.0
+    device_put_s: float = 0.0
+    max_depth: int = 0
+    depth_sum: int = 0
+
+    def snapshot(self) -> dict:
+        """Plain-dict copy (the `prefetch` JSONL record's `stats` body)."""
+        return dataclasses.asdict(self)
+
+
+def _map_leaves(fn, item):
+    if isinstance(item, (torch.Tensor, np.ndarray)):
+        return fn(item)
+    if isinstance(item, dict):
+        return {k: _map_leaves(fn, v) for k, v in item.items()}
+    if isinstance(item, (tuple, list)):
+        return type(item)(_map_leaves(fn, v) for v in item)
+    return item
+
+
+def _stage(x, device: torch.device) -> torch.Tensor:
+    """One leaf to `device`: through pinned memory with a non-blocking
+    copy when the device is a CUDA card (the caller's current stream)."""
+    t = torch.as_tensor(x)
+    if device.type != "cuda":
+        return t.to(device)
+    if t.device.type == "cpu":
+        t = t.pin_memory()
+    return t.to(device, non_blocking=True)
+
+
+def to_device(item, device) -> object:
+    """Every tensor or array leaf of a tuple/list/dict tree on `device`."""
+    device = torch.device(device)
+    return _map_leaves(lambda x: _stage(x, device), item)
+
+
+def _stager(device: torch.device, put: Callable) -> Callable:
+    """item -> (staged item, the CUDA event its copies end with, or
+    None): on a card the copies run on a side stream of their own."""
+    if device.type != "cuda":
+        return lambda item: (put(item, device), None)
+    stream = torch.cuda.Stream(device)
+
+    def stage(item):
+        with torch.cuda.device(device), torch.cuda.stream(stream):
+            item = put(item, device)
+            ev = torch.cuda.Event()
+            ev.record(stream)
+        return item, ev
+    return stage
+
+
+def _worker(it, stage, q, stop, stats, sentinel, err) -> None:
+    try:
+        for item in it:
+            t0 = time.perf_counter()
+            staged = stage(item)
+            stats.device_put_s += time.perf_counter() - t0
+            t0 = time.perf_counter()
+            while not stop.is_set():
+                try:
+                    q.put(staged, timeout=0.1)
+                    stats.put_count += 1
+                    break
+                except queue.Full:
+                    continue
+            stats.producer_wait_s += time.perf_counter() - t0
+            if stop.is_set():
+                return
+    except BaseException as exc:       # re-raised on the consumer side
+        err.append(exc)
+    finally:
+        while not stop.is_set():
+            try:
+                q.put(sentinel, timeout=0.1)
+                break
+            except queue.Full:
+                continue
+
+
+class _DevicePrefetch:
+    """Iterator form of `prefetch_to_device` exposing `.stats`.  The
+    worker holds no reference to this object, so dropping the last one
+    runs `__del__`, which stops and joins it."""
+
+    def __init__(self, it: Iterator, size: int, device, put: Callable):
+        if size < 1:
+            raise ValueError("prefetch size must be >= 1")
+        self.stats = PrefetchStats(size=size)
+        self._device = torch.device(device)
+        self._q: "queue.Queue" = queue.Queue(maxsize=size)
+        self._stop = threading.Event()
+        self._sentinel = object()
+        self._err: list = []
+        self._done = False
+        stage = _stager(self._device, put)
+        self._th = threading.Thread(
+            target=_worker, name=PREFETCH_THREAD, daemon=True,
+            args=(it, stage, self._q, self._stop, self.stats,
+                  self._sentinel, self._err))
+        self._th.start()
+
+    def __iter__(self) -> "_DevicePrefetch":
+        return self
+
+    def __next__(self):
+        if self._done:
+            raise StopIteration
+        stats = self.stats
+        depth = self._q.qsize()
+        stats.max_depth = max(stats.max_depth, depth)
+        stats.depth_sum += depth
+        t0 = time.perf_counter()
+        got = self._q.get()
+        stats.consumer_wait_s += time.perf_counter() - t0
+        if got is self._sentinel:
+            self._done = True
+            self.close()
+            if self._err:
+                raise self._err[0]
+            raise StopIteration
+        stats.get_count += 1
+        item, ev = got
+        if ev is not None:
+            consumer = torch.cuda.current_stream(self._device)
+            consumer.wait_event(ev)
+
+            def mark(x):
+                if isinstance(x, torch.Tensor) and x.device.type == "cuda":
+                    x.record_stream(consumer)
+                return x
+            _map_leaves(mark, item)
+        return item
+
+    def close(self) -> None:
+        """Stop and join the worker (idempotent)."""
+        self._done = True
+        self._stop.set()
+        while True:             # unblock a worker stuck on q.put
+            try:
+                self._q.get_nowait()
+            except queue.Empty:
+                break
+        self._th.join(timeout=5.0)
+
+    def __del__(self):
+        try:
+            if not self._done:
+                self.close()
+        except Exception:
+            pass
+
+
+def prefetch_to_device(it: Iterator, size: int = 2, device="cuda",
+                       put: Optional[Callable] = None) -> _DevicePrefetch:
+    """Host -> device prefetcher (JAX's): a background thread pulls from
+    `it`, stages each item on `device` (`put(item, device)`, default
+    `to_device`) and parks up to `size` staged items in a bounded queue.
+    Order is preserved and nothing is dropped, so consuming it gives what
+    mapping `put` over `it` gives.  `.stats` is a `PrefetchStats`;
+    `.close()` stops and joins the worker; an exception raised by `it` or
+    by the staging re-raises at the consumer's next pull."""
+    return _DevicePrefetch(it, size, device, put or to_device)

@@ -7,24 +7,24 @@ hand-written flash kernel) and returns (last-position logits, caches
 whose length is the prompt's); `decode_step(caches, inputs, pos)` feeds one
 token per sequence at absolute position `pos` and writes the caches' ring
 slot pos % cache_len in place.  Both run under `torch.inference_mode()`.
-The caller loads or initialises the parameters (`setup.model.init_(seed)`
-or `load_params`).
+The caller loads or initialises the parameters (`setup.model.init_(seed)`,
+JAX's `init_params(PRNGKey(seed))` bit for bit, or `load_params`).
+`instrument_steps` wraps both steps for `obs.ServeTelemetry`.
 
-Still to port: the mesh, the parameter and cache shardings and
-`input_specs` (no one-card counterpart), and `instrument_steps` (with the
-telemetry of ROADMAP A8).
+Not ported: the mesh, the parameter and cache shardings and `input_specs`
+(no one-card counterpart).
 """
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable
+from typing import Any, Callable, Tuple
 
 import torch
 
 from repro_torch.configs.common import ArchSpec, ShapeCfg
 from repro_torch.nn.models import Model
 
-__all__ = ["LONG_SEQ", "ServeSetup", "build_serve_setup"]
+__all__ = ["LONG_SEQ", "ServeSetup", "build_serve_setup", "instrument_steps"]
 
 LONG_SEQ = 1 << 19
 
@@ -60,3 +60,37 @@ def build_serve_setup(spec: ArchSpec, shape: ShapeCfg, smoke: bool = False,
 
     return ServeSetup(model=model, cache_len=cache_len, batch=B, seq_len=S,
                       prefill_step=prefill_step, decode_step=decode_step)
+
+
+def instrument_steps(setup: ServeSetup, telemetry) -> Tuple[Any, Any]:
+    """Prefill/decode wrappers feeding an `obs.ServeTelemetry` (JAX's).
+
+    Returns (prefill, decode) with the signatures of `setup.prefill_step`
+    and `setup.decode_step`; each call waits for the card (a
+    synchronise) and records the wall time as one prefill sample or one
+    decode-token sample, inside a `SpanRecorder` span ("serve/prefill",
+    "serve/decode"), so the samples land in the Chrome trace too.  The
+    wait is the point: the histograms price the step's device time, not
+    the launch.  Use them on measurement paths only."""
+    rec = telemetry.recorder
+    dev = setup.model.theta.device
+
+    def wait():
+        if dev.type == "cuda":
+            torch.cuda.synchronize(dev)
+
+    def prefill(inputs):
+        with rec.span("serve/prefill", tid="serve"):
+            out = setup.prefill_step(inputs)
+            wait()
+        telemetry.add_prefill(rec.spans[-1]["t1"] - rec.spans[-1]["t0"])
+        return out
+
+    def decode(caches, inputs, pos):
+        with rec.span("serve/decode", tid="serve"):
+            out = setup.decode_step(caches, inputs, pos)
+            wait()
+        telemetry.add_decode_token(rec.spans[-1]["t1"] - rec.spans[-1]["t0"])
+        return out
+
+    return prefill, decode

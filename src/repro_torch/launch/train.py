@@ -49,8 +49,9 @@ import torch
 
 from repro_torch.configs.common import ArchSpec, CodingPlan as CodingCfg, \
     ShapeCfg
-from repro_torch.core import coding
-from repro_torch.core.cocoef import (SCHEDULES, CocoEFConfig, check_mode,
+from repro_torch.core import coding, prng
+from repro_torch.core.cocoef import (SCHEDULES, CocoEFConfig, FrameSums,
+                                     check_mode,
                                      cocoef_update, group_buffers,
                                      group_cocoef_update, payload_specs)
 from repro_torch.core.coding_state import CodingPlan, CodingState, \
@@ -59,6 +60,7 @@ from repro_torch.core.plan import PlanSpec
 from repro_torch.data import pipeline
 from repro_torch.kernels import ref
 from repro_torch.nn.models import Model
+from repro_torch.obs.metrics import reduce_frame
 from repro_torch.optim.optimizers import (OptimizerConfig, apply_update,
                                           init_opt_state, lr_schedule)
 from repro_torch.sim import stragglers
@@ -103,8 +105,14 @@ class TrainRun:
     elastic: the live coding plane: the step takes a `CodingState` and
       gathers each example's weight from its W, so rate estimates can move
       the weights (and, past replan_threshold, the allocation) every step.
-    seed: the seed of the parameters, the batches and the masks (JAX's
-      `PRNGKey(seed)`)."""
+    seed: the seed of the parameters (unless `init_state` is given a
+      key), the batches and the masks (JAX's `PRNGKey(seed)`).
+    prefetch: batches `batch_stream` stages ahead on a host thread (0:
+      each made when pulled; the same bits either way).
+    metrics: the step also returns metrics["telemetry"], the reduced
+      `obs.MetricsFrame` (participation, per-rank wire bytes, gradient,
+      error, compression and update norms), from chunked passes around
+      each rank's local step; False runs the step exactly as without it."""
 
     base_lr: float = 1e-3
     schedule: str = "constant"
@@ -127,6 +135,8 @@ class TrainRun:
     rate_aware: bool = True
     elastic: bool = False
     replan_threshold: float = 0.1
+    prefetch: int = 0
+    metrics: bool = False
 
     def __post_init__(self):
         check_mode(self.mode)
@@ -165,6 +175,8 @@ class TrainRun:
         if not self.replan_threshold > 0.0:
             raise ValueError(f"replan_threshold={self.replan_threshold} "
                              f"must be > 0")
+        if self.prefetch < 0:
+            raise ValueError(f"prefetch={self.prefetch} must be >= 0")
 
     def resolve_plan(self, coding_cfg: CodingCfg, n_code: int) -> PlanSpec:
         """The run's PlanSpec on `n_code` coding ranks: `plan` with its
@@ -260,12 +272,14 @@ class TrainSetup:
         return ([self.grid.rank] if self.grid is not None
                 else list(range(self.n_code)))
 
-    def init_state(self) -> Optional[torch.Tensor]:
-        """Random parameters from `run.seed`; returns the zero error
-        vectors of its ranks ((N, n), or (n,) with a grid), or None in the
-        coco and dense modes, which never read them (42.6 GB at the
-        slice's n)."""
-        self.model.init_(self.run.seed)
+    def init_state(self, key=None) -> Optional[torch.Tensor]:
+        """theta = JAX's `init_params(key)` bit for bit (`Model.init_`;
+        key defaults to PRNGKey(run.seed); JAX's driver passes
+        PRNGKey(0)); returns the zero error vectors of its ranks ((N, n),
+        or (n,) with a grid), or None in the coco and dense modes, which
+        never read them (42.6 GB at the slice's n)."""
+        self.model.init_(prng.PRNGKey(self.run.seed) if key is None
+                         else key)
         if self.cocoef_cfg.mode != "cocoef":
             return None
         lead = () if self.grid is not None else (self.n_code,)
@@ -277,16 +291,24 @@ class TrainSetup:
         ranks (`ranks`) on the setup's device; an elastic setup's weights
         are 1 and its batch adds the subset ids (R, b_loc) on the CPU,
         drawn from the coding plan's current allocation."""
+        return self.batch_to_device(self.host_batch(step))
+
+    def host_batch(self, step: int) -> Batch:
+        """`make_batch`'s batch with every tensor still on the CPU."""
         vocab = self.model.cfg.vocab_size
         if self.coding_plan is not None:
-            toks, wts, sids = pipeline.elastic_train_batch(
+            return pipeline.elastic_train_batch(
                 self.run.seed, step, self.coding_plan.allocation,
                 self.per_subset, self.seq_len, vocab, ranks=self.ranks)
-            return toks.to(self.device), wts.to(self.device), sids
-        toks, wts = pipeline.coded_train_batch(
+        return pipeline.coded_train_batch(
             self.run.seed, step, self.allocation, self.W, self.per_subset,
             self.seq_len, vocab, ranks=self.ranks)
-        return toks.to(self.device), wts.to(self.device)
+
+    def batch_to_device(self, batch: Batch, device=None) -> Batch:
+        """Tokens and weights to the setup's device (pinned and
+        non-blocking on a card); subset ids stay on the CPU."""
+        dev = self.device if device is None else torch.device(device)
+        return pipeline.to_device(tuple(batch[:2]), dev) + tuple(batch[2:])
 
     def mask(self, step: int) -> torch.Tensor:
         if self.straggler_process is None:
@@ -324,7 +346,8 @@ class TrainSetup:
         coding_state: the elastic step's live encode weights (needed with
         an elastic batch).  With a grid, batch and e are this rank's.
         Returns {"loss": mean loss of the setup's ranks, "losses": (R,),
-        "mask": (N,), "weights": (R, b_loc) the per-example weights}."""
+        "mask": (N,), "weights": (R, b_loc) the per-example weights}, and
+        with run.metrics "telemetry" (`obs.metrics.reduce_frame`)."""
         tokens = batch[0]
         weights = self.batch_weights(batch, coding_state)
         mask = (self.mask(step) if masks is None else
@@ -339,37 +362,55 @@ class TrainSetup:
             losses.append(loss.detach())
             return params.grad
 
-        self.coded_update(params, grad_of, e, mask, step, kernel_spans)
+        frames: List = []
+        self.coded_update(params, grad_of, e, mask, step, kernel_spans,
+                          frames if self.run.metrics else None)
         ls = torch.stack(losses)
-        return {"loss": ls.mean(), "losses": ls, "mask": mask,
-                "weights": weights}
+        out = {"loss": ls.mean(), "losses": ls, "mask": mask,
+               "weights": weights}
+        if frames:
+            out["telemetry"] = reduce_frame(frames[0])
+        return out
 
     def coded_update(self, params: Model, grad_of,
                      e: Optional[torch.Tensor], mask: torch.Tensor, step: int,
-                     kernel_spans: Optional[List] = None) -> torch.Tensor:
+                     kernel_spans: Optional[List] = None,
+                     frames: Optional[List] = None) -> torch.Tensor:
         """Stage 2 and the server update of one step: `cocoef_update` over
         the ranks' gradients grad_of(i) (with a grid `group_cocoef_update`
         on grad_of(0), this rank's), with ghat written into params.grad
         (on one device, on the dense wire and in dense mode ghat is the
         accumulator, payload[0]), then theta <- theta - ghat in place.
-        mask: (N,) f32 on the setup's device.  Returns ghat."""
+        mask: (N,) f32 on the setup's device.  frames: a list that gets
+        the step's `MetricsFrame` (`FrameSums` around each rank's local
+        step, apply_update's norms); None takes no frame.  Returns ghat."""
         r = self.run
         gamma = lr_schedule(r.schedule, r.base_lr, r.warmup,
                             r.schedule_total)(step)
         # one copy to the device per step, made before stage 1 is queued,
         # instead of one per rank that would block the host between ranks
         gamma_dev = gamma.to(self.device)
+        sums = None
+        if frames is not None:
+            sums = FrameSums(self.cocoef_cfg, mask, gamma_dev, self.ranks,
+                             self.n_code if self.grid is None
+                             else self.grid.nd, self.flat_pad)
         if self.grid is not None:
             ghat = group_cocoef_update(grad_of(0), e, mask, gamma_dev,
                                        self.cocoef_cfg, self.grid,
                                        self.buffers, out=params.grad,
-                                       kernel_spans=kernel_spans)
+                                       kernel_spans=kernel_spans,
+                                       metrics=sums)
         else:
             ghat = cocoef_update(grad_of, e, mask, gamma_dev,
                                  self.cocoef_cfg, self.payload,
-                                 out=params.grad, kernel_spans=kernel_spans)
-        apply_update(self.run.optimizer, params.theta, ghat, self.opt_state,
-                     step, gamma)
+                                 out=params.grad, kernel_spans=kernel_spans,
+                                 metrics=sums)
+        res = apply_update(self.run.optimizer, params.theta, ghat,
+                           self.opt_state, step, gamma,
+                           want_norms=sums is not None)
+        if sums is not None:
+            frames.append(sums.frame.replace(**res[2]))
         return ghat
 
 
@@ -462,15 +503,66 @@ def elastic_coding_state(setup: TrainSetup, rates=None
     return st._replace(W=np.asarray(st.W) / setup.per_subset), info
 
 
-def batch_stream(setup: TrainSetup, start_step: int = 0
+def batch_stream(setup: TrainSetup, start_step: int = 0, prefetch: int = 0
                  ) -> Iterator[Batch]:
-    """`make_batch` of steps start_step, start_step+1, ..., each made when
-    it is pulled (an elastic run's re-allocation reaches the next
-    batch)."""
-    step = start_step
-    while True:
-        yield setup.make_batch(step)
-        step += 1
+    """`make_batch` of steps start_step, start_step+1, ... on the setup's
+    device.  prefetch=0 makes each batch when it is pulled; prefetch >= 1
+    stages that many ahead on a host thread (`pipeline.prefetch_to_device`:
+    pinned buffers, non-blocking copies on a side stream).  Batches are a
+    function of (seed, step) and, in an elastic run, of the coding plan's
+    allocation: a staged elastic batch made before a re-allocation (its
+    epoch is older than the plan's at the pull) is made again on the
+    spot, so a prefetched run trains on the bits a synchronous one does.
+    The returned iterator has `close()` (and, prefetched, `.stats`)."""
+    return _BatchStream(setup, start_step, prefetch)
+
+
+class _BatchStream:
+    def __init__(self, setup: TrainSetup, start_step: int, prefetch: int):
+        if prefetch < 0:
+            raise ValueError(f"prefetch={prefetch} must be >= 0")
+        self.setup, self.step = setup, start_step
+        self._pf = None
+        if prefetch:
+            self._pf = pipeline.prefetch_to_device(
+                self._host(start_step), size=prefetch, device=setup.device,
+                put=self._put)
+
+    @property
+    def stats(self) -> Optional[pipeline.PrefetchStats]:
+        return self._pf.stats if self._pf is not None else None
+
+    def _epoch(self) -> int:
+        plan = self.setup.coding_plan
+        return -1 if plan is None else plan.epoch
+
+    def _host(self, t: int):
+        while True:
+            epoch = self._epoch()
+            yield t, epoch, self.setup.host_batch(t)
+            t += 1
+
+    def _put(self, item, device):
+        t, epoch, batch = item
+        return t, epoch, self.setup.batch_to_device(batch, device)
+
+    def __iter__(self):
+        return self
+
+    def __next__(self) -> Batch:
+        t = self.step
+        self.step += 1
+        if self._pf is None:
+            return self.setup.make_batch(t)
+        made_at, epoch, batch = next(self._pf)
+        assert made_at == t, (made_at, t)
+        if epoch != self._epoch():          # re-allocated since: remake
+            batch = self.setup.make_batch(t)
+        return batch
+
+    def close(self) -> None:
+        if self._pf is not None:
+            self._pf.close()
 
 
 def _payload_buffers(ccfg: CocoEFConfig, n_code: int, n: int,

@@ -16,12 +16,20 @@ estimator and its allocation at epoch 0 and trains on other batches than
 an uninterrupted one.  `run()` is the loop, which `chip_smoke.py` drives
 at full width.
 
-Not ported yet (each exits with a usage error naming its ROADMAP item):
-`--plan auto` (the planner), `--metrics` (telemetry), `--prefetch N > 0`.
+`--plan auto` runs the sim planner (`sim.planner.plan_search`, its
+confirmation on the run's device) over the run's straggler process, prints
+its ranking, writes the emission to `--plan-out` and trains the winner.
+`--prefetch N` stages N batches ahead on a host thread (pinned buffers,
+non-blocking copies on a side stream; the same batches, bit for bit).
+`--metrics` makes the step return its telemetry frame and writes
+`metrics.jsonl` (schema repro.obs/v1) and a Chrome trace `trace.json`
+(measured host spans beside the StepTimer's predicted schedule for the
+observed masks) under `--metrics-dir`.
 """
 from __future__ import annotations
 
 import argparse
+import contextlib
 import dataclasses
 import json
 import os
@@ -30,23 +38,30 @@ import time
 from pathlib import Path
 from typing import Optional
 
+import numpy as np
 import torch
 
 from repro_torch.checkpoint import (latest_step, restore_checkpoint,
                                     save_checkpoint)
 from repro_torch.configs import REGISTRY
 from repro_torch.configs.common import ArchSpec, ShapeCfg
+from repro_torch.core import prng
 from repro_torch.core.coding_state import RateEstimator
 from repro_torch.core.plan import PLAN_SCHEMA, PlanSpec
 from repro_torch.launch.train import (TrainRun, batch_stream,
                                       build_train_setup, elastic_coding_state)
-from repro_torch.sim import (LinkProfile, MarkovBursty, TraceReplay,
+from repro_torch.obs import (MetricsLogger, SpanRecorder, frame_to_host,
+                             run_metadata, span_events, steptimer_timeline,
+                             write_chrome_trace)
+from repro_torch.sim import (LinkProfile, MarkovBursty, StepTimer,
+                             TraceReplay, get_straggler_process, plan_search,
                              solve_k_budgets)
 
 N_CODE = 4                # the coding ranks of JAX's (pod=2, data=2) mesh
 SHAPE = ShapeCfg("train", seq_len=64, global_batch=16)
 CODING_OVERRIDES = dict(group_size=32, block_size=64, k_per_block=8)
 BUDGET_N = 1 << 16        # flat size the per-rank budgets are solved at
+PLAN_N_WIRE = 1 << 16     # flat size the auto-planner prices wires at
 
 
 class UsageError(ValueError):
@@ -90,7 +105,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "was issued (bit-for-bit equal to serial)")
     ap.add_argument("--prefetch", type=int, default=0,
                     help="host->device batches staged ahead of the step "
-                         "(only 0 is ported: ROADMAP 'Next', --prefetch)")
+                         "by a background thread (0 = synchronous; the "
+                         "same batches either way)")
     ap.add_argument("--straggler", default="iid",
                     choices=["iid", "markov", "hetero", "trace"],
                     help="straggler process driving the per-step "
@@ -126,16 +142,26 @@ def build_parser() -> argparse.ArgumentParser:
                          "per-rank wire budgets (sim.solve_k_budgets) so "
                          "slow-uplink ranks send fewer coords per block")
     ap.add_argument("--plan", default=None,
-                    help="a path loads a saved PlanSpec JSON (PlanSpec.save "
-                         "or a planner emission); overrides --compressor/"
-                         "--num-buckets/--bucket-schedule.  'auto' (the "
-                         "sim planner) is not ported yet: ROADMAP 'Next', "
-                         "--plan auto")
+                    help="'auto' runs the sim planner (enumerate -> "
+                         "analytic prune -> simulated confirm) over this "
+                         "run's straggler profile, prints the ranking, and "
+                         "trains the winner; a path loads a saved PlanSpec "
+                         "JSON (PlanSpec.save or a planner emission). "
+                         "Overrides --compressor/--num-buckets/"
+                         "--bucket-schedule")
+    ap.add_argument("--plan-out", default=_tmp("repro_torch_e2e_plan.json"),
+                    help="where --plan auto writes the winner + ranking + "
+                         "run_metadata provenance JSON")
     ap.add_argument("--ckpt-every", type=int, default=20)
     ap.add_argument("--ckpt-dir", default=_tmp("repro_torch_e2e_ckpt"))
     ap.add_argument("--metrics", action="store_true",
-                    help="step-level telemetry; not ported yet: ROADMAP "
-                         "A8")
+                    help="step-level telemetry (repro_torch.obs): the "
+                         "step's MetricsFrame -> JSONL metrics + a Chrome "
+                         "trace of measured host spans alongside the "
+                         "StepTimer-PREDICTED schedule for the observed "
+                         "masks")
+    ap.add_argument("--metrics-dir", default=_tmp("repro_torch_e2e_metrics"),
+                    help="where --metrics writes metrics.jsonl + trace.json")
     return ap
 
 
@@ -172,18 +198,44 @@ def _trace_path(args, spec: ArchSpec) -> Optional[str]:
     return path
 
 
+def _auto_plan(args, spec: ArchSpec, n_code: int, trace_path,
+               plan_out: str) -> PlanSpec:
+    """`--plan auto`: the three-stage sim planner over this run's
+    straggler profile (its confirmation on args.device); prints the
+    ranking, writes the emission (winner + ranking + provenance) and
+    returns the winner."""
+    p = spec.coding.straggler_p
+    if args.straggler != "iid" or p > 0:
+        proc = get_straggler_process(
+            args.straggler, n_code, p, mean_burst=args.straggler_burst,
+            spread=args.straggler_spread, trace=trace_path)
+        res = plan_search(PLAN_N_WIRE, process=proc, confirm_steps=120,
+                          seed=0, device=args.device)
+    else:       # fully reliable fleet: rates-only search, no masks to sim
+        res = plan_search(PLAN_N_WIRE, rates=np.ones((n_code,)),
+                          confirm_steps=120, seed=0, device=args.device)
+    print(f"planner: {res.num_enumerated} candidates -> "
+          f"{res.pruned_to} confirmed; ranking:")
+    for c in res.candidates[:res.pruned_to]:
+        t2t = (f"{c.sim_time_to_target_s:.3f}s"
+               if c.sim_time_to_target_s is not None else "never")
+        print(f"  d={c.plan.d} {c.plan.compressor:10s} "
+              f"alloc={c.plan.allocation:10s} score={c.score:.4f} "
+              f"sim-t2t={t2t}")
+    emission = {**res.to_dict(),
+                "plan": res.best.plan.to_dict(),
+                "meta": run_metadata(
+                    arch=args.arch, straggler=args.straggler,
+                    straggler_p=p, n_code=n_code, n_wire=PLAN_N_WIRE)}
+    Path(plan_out).parent.mkdir(parents=True, exist_ok=True)
+    Path(plan_out).write_text(json.dumps(emission, indent=1) + "\n")
+    print(f"plan emission -> {plan_out}")
+    return res.best.plan
+
+
 def _train_run(args, spec: ArchSpec, trace_path) -> TrainRun:
-    if args.plan == "auto":
-        raise UsageError("--plan auto (the sim planner) is not ported yet: "
-                         "ROADMAP 'Next', --plan auto (sim/planner.py, "
-                         "sim/simulate.py)")
-    if args.metrics:
-        raise UsageError("--metrics (repro.obs telemetry) is not ported "
-                         "yet: ROADMAP A8")
-    if args.prefetch:
-        raise UsageError(f"--prefetch {args.prefetch}: only synchronous "
-                         f"batches (0) are ported: ROADMAP 'Next', "
-                         f"--prefetch")
+    if args.prefetch < 0:
+        raise UsageError(f"--prefetch {args.prefetch} must be >= 0")
     k_budgets = None
     if args.rank_uplink_gbps:
         if args.compressor != "block_topk":
@@ -203,7 +255,8 @@ def _train_run(args, spec: ArchSpec, trace_path) -> TrainRun:
             raise UsageError("--rank-uplink-gbps solves k_budgets, which "
                              "conflicts with an explicit --plan (per-rank "
                              "budgets live in the plan's k_per_block)")
-        plan = _load_plan(args.plan)
+        plan = (_auto_plan(args, spec, N_CODE, trace_path, args.plan_out)
+                if args.plan == "auto" else _load_plan(args.plan))
         print(f"plan: d={plan.d} compressor={plan.compressor} "
               f"alloc={plan.allocation} buckets={plan.num_buckets} "
               f"({plan.bucket_schedule})")
@@ -212,13 +265,15 @@ def _train_run(args, spec: ArchSpec, trace_path) -> TrainRun:
                     num_buckets=args.num_buckets,
                     bucket_schedule=args.bucket_schedule,
                     k_budgets=k_budgets))
-    return TrainRun(base_lr=5e-3, mode="cocoef", straggler=args.straggler,
+    return TrainRun(base_lr=5e-3, mode="cocoef", prefetch=args.prefetch,
+                    straggler=args.straggler,
                     straggler_burst=args.straggler_burst,
                     straggler_spread=args.straggler_spread,
                     straggler_trace=trace_path,
                     rate_aware=not args.mean_rate_coding,
                     elastic=args.elastic,
-                    replan_threshold=args.replan_threshold, **wire_kw)
+                    replan_threshold=args.replan_threshold,
+                    metrics=args.metrics, **wire_kw)
 
 
 def run(args, spec: Optional[ArchSpec] = None,
@@ -231,11 +286,14 @@ def run(args, spec: Optional[ArchSpec] = None,
     "e", "start", "steps": one record per step (loss, step_s (host clock,
     ending in a synchronise), kernel_ms and kernel_spans_ms (stage 2's
     CUDA event spans: each rank's local step, then the decode; 0 and []
-    on the CPU), batch_s (the host's time to make the batch), mask,
-    weights, allocation, and under --elastic the replan info and plane_s
-    (the host's time for the estimator and the replan tick)), "ckpt": one
-    record per save (step, path, bytes, save_s),
-    "restore_s" (None without a resume)}."""
+    on the CPU), batch_s (the host's time to wait for the batch: to make
+    it, or with --prefetch to take it from the queue), mask, weights,
+    allocation, under --elastic the replan info and plane_s (the host's
+    time for the estimator and the replan tick)), "ckpt": one record per
+    save (step, path, bytes, save_s), "restore_s" (None without a
+    resume), "prefetch" (the PrefetchStats snapshot, None without
+    --prefetch), and under --metrics "metrics" (jsonl and trace paths,
+    batch_wait_s per step, the StepTimer's predicted_step_s)}."""
     spec = _driver_spec(args, spec or REGISTRY[args.arch])
     shape = shape or SHAPE
     trace_path = _trace_path(args, spec)
@@ -263,7 +321,7 @@ def run(args, spec: Optional[ArchSpec] = None,
               f"{args.replan_threshold}, epoch 0 rates "
               f"{[round(float(x), 3) for x in state.rates_estimate]}")
 
-    e = setup.init_state()
+    e = setup.init_state(prng.PRNGKey(0))   # JAX driver: PRNGKey(0)
     out = {"setup": setup, "e": e, "start": 0, "steps": [], "ckpt": [],
            "restore_s": None}
 
@@ -278,46 +336,121 @@ def run(args, spec: Optional[ArchSpec] = None,
         out["restore_s"] = time.perf_counter() - t0
         print(f"resumed from step {out['start']}")
 
-    batches = batch_stream(setup, start_step=out["start"])
-    for t in range(out["start"], args.steps):
-        t0 = time.perf_counter()
-        batch = next(batches)
-        batch_s = time.perf_counter() - t0
-        spans = []
-        t0 = time.perf_counter()
-        m = setup.train_step(setup.model, e, batch, t, kernel_spans=spans,
-                             coding_state=state)
-        loss = m["loss"].item()
-        _sync(setup.device)
-        span_ms = [a.elapsed_time(b) for a, b in spans]
-        rec = {"step": t, "loss": loss,
-               "step_s": time.perf_counter() - t0,
-               "kernel_ms": sum(span_ms), "kernel_spans_ms": span_ms,
-               "batch_s": batch_s,
-               "mask": m["mask"].tolist(),
-               "weights": m["weights"].tolist(),
-               "allocation": (setup.coding_plan
-                              or setup).allocation.S.tolist()}
-        if args.elastic:
-            # feed the plane with the mask the step just used
+    logger = rec = None
+    masks = []
+    if args.metrics:
+        meta = run_metadata(
+            arch=args.arch, steps=args.steps, seed=run_cfg.seed,
+            mode=run_cfg.mode, compressor=setup.plan.compressor,
+            num_buckets=setup.plan.num_buckets,
+            bucket_schedule=setup.plan.bucket_schedule,
+            backend_requested=setup.plan.backend,
+            plan=setup.plan.to_dict(), straggler=args.straggler,
+            straggler_p=spec.coding.straggler_p, prefetch=args.prefetch,
+            rate_aware=run_cfg.rate_aware, n_code=setup.n_code,
+            flat_pad=setup.flat_pad, device=str(setup.device))
+        logger = MetricsLogger(str(Path(args.metrics_dir) / "metrics.jsonl"),
+                               run_metadata=meta)
+        rec = SpanRecorder()
+    span = rec.span if rec is not None else _no_span
+    # staged --prefetch steps ahead by the background prefetcher while the
+    # card runs the current step
+    batches = batch_stream(setup, start_step=out["start"],
+                           prefetch=run_cfg.prefetch)
+    try:
+        for t in range(out["start"], args.steps):
             t0 = time.perf_counter()
-            estimator.update(m["mask"].cpu().numpy())
-            state, info = elastic_coding_state(setup, estimator.rates)
-            rec["replan"], rec["plane_s"] = info, time.perf_counter() - t0
-            if info["reallocated"]:
-                print(f"  replan @ step {t}: drift={info['drift']:.3f}"
-                      f" -> allocation epoch {info['epoch']}")
-        out["steps"].append(rec)
-        if t % 10 == 0 or t == args.steps - 1:
-            print(f"step {t:4d} loss={loss:.4f}")
-        if (t + 1) % args.ckpt_every == 0:
+            with span("train/batch_wait", step=t):
+                batch = next(batches)
+            batch_s = time.perf_counter() - t0
+            if rec is not None and batches.stats is not None:
+                rec.counter("prefetch_depth", batches.stats.max_depth)
+            spans = []
             t0 = time.perf_counter()
-            p = save_checkpoint(args.ckpt_dir, t + 1, ckpt_state())
-            out["ckpt"].append({"step": t + 1, "path": str(p),
-                                "bytes": p.stat().st_size,
-                                "save_s": time.perf_counter() - t0})
-            print(f"  checkpointed -> {p.name}")
+            with span("train/step_dispatch", step=t):
+                m = setup.train_step(setup.model, e, batch, t,
+                                     kernel_spans=spans, coding_state=state)
+            with span("train/result_fetch", step=t):
+                loss = m["loss"].item()
+                tel = (frame_to_host(m["telemetry"]) if rec is not None
+                       else None)
+                _sync(setup.device)
+            span_ms = [a.elapsed_time(b) for a, b in spans]
+            rec_t = {"step": t, "loss": loss,
+                     "step_s": time.perf_counter() - t0,
+                     "kernel_ms": sum(span_ms), "kernel_spans_ms": span_ms,
+                     "batch_s": batch_s,
+                     "mask": m["mask"].tolist(),
+                     "weights": m["weights"].tolist(),
+                     "allocation": (setup.coding_plan
+                                    or setup).allocation.S.tolist()}
+            if rec is not None:
+                span_s = {x["name"]: x["t1"] - x["t0"]
+                          for x in rec.spans[-3:]}
+                logger.log_step(t, tel, loss=loss, spans=span_s)
+                masks.append(tel["participation"])
+            if args.elastic:
+                # feed the plane with the mask the step just used
+                t0 = time.perf_counter()
+                estimator.update(m["mask"].cpu().numpy())
+                state, info = elastic_coding_state(setup, estimator.rates)
+                rec_t["replan"] = info
+                rec_t["plane_s"] = time.perf_counter() - t0
+                if logger is not None:
+                    logger.log_replan(t, info)
+                if info["reallocated"]:
+                    print(f"  replan @ step {t}: drift={info['drift']:.3f}"
+                          f" -> allocation epoch {info['epoch']}")
+            out["steps"].append(rec_t)
+            if t % 10 == 0 or t == args.steps - 1:
+                print(f"step {t:4d} loss={loss:.4f}")
+            if (t + 1) % args.ckpt_every == 0:
+                t0 = time.perf_counter()
+                p = save_checkpoint(args.ckpt_dir, t + 1, ckpt_state())
+                out["ckpt"].append({"step": t + 1, "path": str(p),
+                                    "bytes": p.stat().st_size,
+                                    "save_s": time.perf_counter() - t0})
+                print(f"  checkpointed -> {p.name}")
+    finally:
+        if logger is not None and batches.stats is not None:
+            logger.log_prefetch(batches.stats.snapshot())
+        batches.close()     # stop and join the prefetch worker
+    out["prefetch"] = (batches.stats.snapshot() if batches.stats is not None
+                       else None)
+    if rec is not None:
+        out["metrics"] = _write_trace(args, setup, rec, logger, masks, meta)
     return out
+
+
+def _write_trace(args, setup, rec: SpanRecorder, logger: MetricsLogger,
+                 masks, meta) -> dict:
+    """Chrome trace: measured host spans (pid 0) + the StepTimer
+    PREDICTION for the same observed masks (pid 1), priced on the
+    setup's own PlanSpec."""
+    plan = setup.plan
+    wire = plan.wire(setup.flat_pad // plan.num_buckets, 1)
+    timer = StepTimer(wire=wire, n=setup.flat_pad,
+                      num_buckets=plan.num_buckets, overlap=plan.overlap)
+    sim_ev, sim_t = steptimer_timeline(timer, np.asarray(masks, np.float64),
+                                       pid=1)
+    events = span_events(rec.spans, pid=0, counters=rec.counters) + sim_ev
+    tpath = str(Path(args.metrics_dir) / "trace.json")
+    write_chrome_trace(tpath, events, metadata=meta)
+    logger.close()
+    print(f"telemetry -> {logger.path} ({logger.steps_logged} steps); "
+          f"trace -> {tpath}")
+    print(f"EWMA participation rates: "
+          f"{[round(float(x), 3) for x in logger.rates]}")
+    print(f"StepTimer-predicted mean step: {sim_t.mean()*1e3:.2f} ms "
+          f"(simulated link; measured host spans in the trace)")
+    return {"jsonl": logger.path, "trace": tpath,
+            "batch_wait_s": rec.durations("train/batch_wait"),
+            "predicted_step_s": sim_t.tolist()}
+
+
+@contextlib.contextmanager
+def _no_span(name: str, **args):
+    yield
 
 
 def _sync(device: torch.device) -> None:

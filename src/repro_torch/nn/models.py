@@ -4,9 +4,11 @@ from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from repro_torch.core.cocoef import FlatLayout, flat_layout
 from . import transformer as T
 from .config import ModelConfig
@@ -64,9 +66,12 @@ class Model:
         for name, v in views.items():
             v.copy_(state[name])
 
-    def init_(self, seed: int) -> None:
-        gen = torch.Generator(device=self.theta.device).manual_seed(seed)
-        self.net.init_(gen)
+    def init_(self, seed) -> None:
+        """theta = JAX's `init_params(PRNGKey(seed))` (or of a (2,) uint32
+        key), drawn on theta's device (`Transformer.init_`)."""
+        key = (np.asarray(seed, np.uint32) if np.ndim(seed) == 1
+               else prng.PRNGKey(seed))
+        self.net.init_(key)
 
     def loss(self, tokens: torch.Tensor, weights: torch.Tensor
              ) -> Tuple[torch.Tensor, torch.Tensor]:

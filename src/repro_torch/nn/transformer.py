@@ -15,11 +15,13 @@ from __future__ import annotations
 import math
 from typing import Dict, Optional, Tuple
 
+import numpy as np
 import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
+from repro_torch.core import prng
 from . import layers as L
 from .config import ModelConfig
 
@@ -90,11 +92,29 @@ def _layer_cache(caches, l: int):
     return {k: v[l] for k, v in caches["kv"].items()}
 
 
-def _fan_in(name: str, shape) -> int:
-    """Input size of a dense weight (JAX's dense_init scale)."""
-    if name.endswith("attn/wo"):
-        return shape[-3] * shape[-2]
-    return shape[-2] if name.startswith("blocks/mlp") else shape[1]
+def init_keys(cfg: ModelConfig, key: np.ndarray
+              ) -> Dict[str, Tuple[np.ndarray, Optional[int]]]:
+    """name -> (keys, fan_in) of every random leaf, walking the key tree of
+    `repro.nn.transformer.init_params` for the dense stack: split(key, 8);
+    ks[0] to `init_embedding` (split of 2, the token table from the first,
+    unscaled: fan_in None); split(ks[1], L) to the layers (under JAX's
+    vmap, one key per layer), each split in 4 with k1 to `init_attention`
+    (split of 4: wq, wk, wv, wo) and k3 to `init_mlp` (split of 3:
+    w_gate, w_up, w_down).  Block leaves get (L, 2) keys, one per layer;
+    fan_in is `dense_init`'s in_axis_size.  Norm scales are ones."""
+    d = cfg.d_model
+    ks = prng.split(key, 8)
+    out = {"embed/tok": (prng.split(ks[0], 2)[0], None)}
+    per = [prng.split(k, 4) for k in prng.split(ks[1], cfg.num_layers)]
+    attn = np.stack([prng.split(k[0], 4) for k in per])      # (L, 4, 2)
+    mlp = np.stack([prng.split(k[2], 3) for k in per])       # (L, 3, 2)
+    for i, (leaf, fan) in enumerate((("wq", d), ("wk", d), ("wv", d),
+                                     ("wo", cfg.num_heads * cfg.head_dim))):
+        out["blocks/attn/" + leaf] = (attn[:, i], fan)
+    for i, (leaf, fan) in enumerate((("w_gate", d), ("w_up", d),
+                                     ("w_down", cfg.d_ff))):
+        out["blocks/mlp/" + leaf] = (mlp[:, i], fan)
+    return out
 
 
 class Transformer(nn.Module):
@@ -130,16 +150,22 @@ class Transformer(nn.Module):
         self.windows = layer_windows(cfg)
 
     @torch.no_grad()
-    def init_(self, gen: torch.Generator) -> None:
-        """Random init with JAX's distributions (not its bits): dense
-        weights N(0, 1/fan_in), the token table N(0, 1), norm scales 1."""
+    def init_(self, key: np.ndarray) -> None:
+        """JAX's init_params(key) bit for bit, as `jax.jit` compiles it
+        (`init_keys`; each leaf erf_inv(u) * `prng.init_scale(fan_in)`,
+        drawn by `prng.normal_into` on theta's device); norm scales 1."""
+        keys = init_keys(self.cfg, key)
         for name, v in self.stacked.items():
             if name.endswith("/scale"):
                 v.fill_(1.0)
                 continue
-            v.normal_(generator=gen)
-            if name != "embed/tok":
-                v.mul_(1.0 / math.sqrt(max(1, _fan_in(name, v.shape))))
+            k, fan = keys[name]
+            scale = prng.init_scale(fan)
+            if k.ndim == 1:
+                prng.normal_into(v.view(-1), k, scale)
+            else:
+                for l in range(v.shape[0]):
+                    prng.normal_into(v[l].view(-1), k[l], scale)
 
     def _params(self, l: int):
         b = self.layers[l]

@@ -15,6 +15,7 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch import resolve_device
+from repro_torch.obs.metrics import CHUNK
 
 _F32 = torch.float32
 
@@ -51,9 +52,13 @@ def _f32(v) -> torch.Tensor:
 @torch.no_grad()
 def apply_update(cfg: OptimizerConfig, params_flat: torch.Tensor,
                  ghat: torch.Tensor, state: Tuple[torch.Tensor, ...], step,
-                 gamma) -> Tuple[torch.Tensor, Tuple[torch.Tensor, ...]]:
+                 gamma, want_norms: bool = False):
     """params_flat (n,) f32 and the state vectors are updated in place;
-    returns (params_flat, state)."""
+    returns (params_flat, state), and with want_norms a third dict
+    {"update_norm_sq", "param_norm_sq"} (float64 scalars on the device:
+    |theta_new - theta|^2, the decay included, and |theta_new|^2), taken
+    while theta is updated chunk by chunk (the same elementwise
+    operations, so the same bits, and a chunk of temporaries)."""
     gamma = _f32(gamma)
     decay = (params_flat * (cfg.weight_decay * gamma)
              if cfg.weight_decay else None)
@@ -74,10 +79,25 @@ def apply_update(cfg: OptimizerConfig, params_flat: torch.Tensor,
         upd = gamma * mh / (torch.sqrt(vh) + _f32(cfg.eps))
     else:
         raise ValueError(cfg.kind)
-    params_flat.sub_(upd)
-    if decay is not None:
-        params_flat.sub_(decay)
-    return params_flat, state
+    if not want_norms:
+        params_flat.sub_(upd)
+        if decay is not None:
+            params_flat.sub_(decay)
+        return params_flat, state
+    norms = {k: torch.zeros((), dtype=torch.float64,
+                            device=params_flat.device)
+             for k in ("update_norm_sq", "param_norm_sq")}
+    for i in range(0, params_flat.numel(), CHUNK):
+        sl = slice(i, i + CHUNK)
+        p = params_flat[sl]
+        old = p.clone()
+        p.sub_(upd[sl])
+        if decay is not None:
+            p.sub_(decay[sl])
+        old.sub_(p)                        # theta - theta_new
+        norms["update_norm_sq"] += torch.dot(old, old).double()
+        norms["param_norm_sq"] += torch.dot(p, p).double()
+    return params_flat, state, norms
 
 
 SCHEDULES = ("constant", "rsqrt", "cosine")

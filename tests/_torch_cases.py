@@ -300,7 +300,7 @@ def _jax_run(tmp_path_factory, run_kw=None):
     return dict(np.load(path))
 
 
-def _port_setup(wire_dtype="float32", **run_kw):
+def _port_setup(wire_dtype="float32", device="cpu", **run_kw):
     spec = REGISTRY["gemma2-2b"]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
@@ -308,7 +308,7 @@ def _port_setup(wire_dtype="float32", **run_kw):
                                    wire_dtype=wire_dtype))
     return build_train_setup(spec, ShapeCfg("train", 32, 8),
                              TrainRun(base_lr=LR, **run_kw), smoke=True,
-                             n_code=N, device="cpu")
+                             n_code=N, device=device)
 
 
 def _state_dict(ref):

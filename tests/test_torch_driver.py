@@ -10,7 +10,10 @@ coding plane of its setup (`repro_torch/launch/train.py`).
     `test_static_vs_elastic_train_setup_bitwise`);
   - hetero stragglers with a rate-aware plan against JAX's real
     `build_train_setup` + `train_step` on a (data=4, model=1) mesh (a
-    subprocess), 3 steps.
+    subprocess), 3 steps;
+  - `--plan auto --metrics --prefetch 2`: the planner's pick trained,
+    JSONL and trace through JAX's validators, the same bits as the plan
+    trained synchronously without telemetry; the driver's usage errors.
 
 Tolerances and why: the masks, allocations, encode weights and batch
 weights are host-side float64/f32 numpy in JAX's order (bit-equal); the
@@ -21,10 +24,12 @@ near-zero accumulators can move a coordinate, and under 1% of the
 coordinates off by more than 1e-6).  Port against port: bit-equal.
 """
 import dataclasses
+import json
 import os
 import subprocess
 import sys
 import textwrap
+from pathlib import Path
 
 import numpy as np
 import pytest
@@ -90,10 +95,7 @@ def test_elastic_resume_restarts_the_plane(tmp_path, capsys):
 
 
 def test_driver_flags_not_ported_exit_as_usage_errors(tmp_path, capsys):
-    for flags, item in ((("--plan", "auto"), "--plan auto"),
-                        (("--metrics",), "A8"),
-                        (("--prefetch", "2"), "--prefetch"),
-                        (("--rank-uplink-gbps", "10,5,5,5"),
+    for flags, item in ((("--rank-uplink-gbps", "10,5,5,5"),
                          "--compressor block_topk"),
                         (("--straggler", "hetero", "--straggler-spread",
                           "9"), "outside [0, 1)")):
@@ -102,6 +104,51 @@ def test_driver_flags_not_ported_exit_as_usage_errors(tmp_path, capsys):
                             str(tmp_path), *flags])
         assert ex.value.code == 2
         assert item in capsys.readouterr().err
+
+
+def test_driver_plan_auto_metrics_prefetch(tmp_path, capsys):
+    """--plan auto --metrics --prefetch 2 on the CPU: the planner's pick
+    (the search JAX's driver runs, tests/test_torch_planner.py) is the
+    wire trained, every JSONL record passes JAX's `validate_record`, the
+    trace JAX's `validate_chrome_trace`, and the run's bits equal the
+    same plan trained synchronously without telemetry."""
+    from repro.obs import validate_chrome_trace, validate_record
+    from repro_torch.obs import read_jsonl
+    common = ("--steps", "3", "--straggler", "markov", "--straggler-p",
+              "0.25", "--plan-out", str(tmp_path / "plan.json"))
+    out = _run(tmp_path, "all", "--plan", "auto", "--metrics",
+               "--metrics-dir", str(tmp_path / "m"), "--prefetch", "2",
+               *common)
+    text = capsys.readouterr().out
+    assert "planner: 15 candidates -> 4 confirmed; ranking:" in text
+    emission = json.loads((tmp_path / "plan.json").read_text())
+    assert emission["schema"] == "repro.plan_search/v1"
+    plan = PlanSpec.from_dict(emission["plan"])
+    assert out["setup"].plan == dataclasses.replace(plan, num_ranks=4)
+    assert f"plan: d={plan.d} compressor={plan.compressor}" in text
+    recs = read_jsonl(out["metrics"]["jsonl"])
+    for r in recs:
+        validate_record(r)
+    kinds = [r["kind"] for r in recs]
+    assert kinds == ["run_meta"] + ["train_step"] * 3 + ["prefetch"]
+    assert recs[-1]["stats"]["get_count"] == 3
+    for r, st in zip(recs[1:4], out["steps"]):
+        assert r["participation"] == st["mask"] and r["loss"] == st["loss"]
+        assert set(r["spans"]) == {"train/batch_wait", "train/step_dispatch",
+                                   "train/result_fetch"}
+    trace = json.loads(Path(out["metrics"]["trace"]).read_text())
+    validate_chrome_trace(trace)
+    names = {ev["name"] for ev in trace["traceEvents"]}
+    assert {"train/batch_wait", "prefetch_depth"} <= names
+    # the same plan, synchronous and without telemetry: the same bits
+    plan_path = tmp_path / "plan_only.json"
+    plan.save(str(plan_path))
+    plain = _run(tmp_path, "plain", "--plan", str(plan_path), *common)
+    assert [r["loss"] for r in plain["steps"]] == \
+        [r["loss"] for r in out["steps"]]
+    assert torch.equal(plain["setup"].model.theta,
+                       out["setup"].model.theta)
+    assert torch.equal(plain["e"], out["e"])
 
 
 def test_driver_budgets_plan_and_elastic(tmp_path, capsys):

@@ -96,6 +96,58 @@ def test_block_topk_train_step_cuda_matches_cpu(cuda, k_budgets):
     step_parity("cuda", compressor="block_topk", k_budgets=k_budgets)
 
 
+def test_init_on_the_card_equals_the_cpu(cuda):
+    """theta0 = JAX's init_params(PRNGKey(seed)) on both devices (C13)."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.nn.models import Model
+    spec = REGISTRY["gemma2-2b"]
+    for seed in (0, 7):
+        a = Model(spec.smoke, chunk_ranks=4, group_size=32, device="cpu")
+        b = Model(spec.smoke, chunk_ranks=4, group_size=32, device=cuda)
+        a.init_(seed)
+        b.init_(seed)
+        assert torch.equal(a.theta, b.theta.cpu())
+
+
+@pytest.mark.parametrize("compressor,k_budgets,mode", [
+    ("sign", None, "cocoef"), ("block_topk", (8, 8, 4, 2), "cocoef"),
+    ("sign", None, "coco"), ("identity", None, "cocoef"),
+    ("sign", None, "dense"), ("topk", None, "cocoef")])
+def test_metrics_leave_kernels_and_bits_alone(cuda, compressor, k_budgets,
+                                              mode):
+    """TrainRun(metrics=True) on the card: the same kernel launches and
+    theta and e bits as metrics=False, and a frame equal to the CPU's
+    within the float sums' order (the integer fields exactly)."""
+    import numpy as np
+    from _torch_cases import _port_setup
+    from repro_torch.kernels.common import launches
+    from repro_torch.obs import frame_to_host
+    runs = {}
+    for device, metrics in (("cuda", False), ("cuda", True), ("cpu", True)):
+        s = _port_setup(device=device, metrics=metrics, straggler="markov",
+                        compressor=compressor, k_budgets=k_budgets,
+                        mode=mode)
+        e = s.init_state()
+        before = dict(launches)
+        for t in range(2):
+            res = s.train_step(s.model, e, s.make_batch(t), t)
+        runs[(device, metrics)] = (
+            s.model.theta.cpu(), None if e is None else e.cpu(),
+            {k: v - before[k] for k, v in launches.items()},
+            frame_to_host(res["telemetry"]) if metrics else None)
+    off, on, cpu = runs[("cuda", False)], runs[("cuda", True)], \
+        runs[("cpu", True)]
+    assert torch.equal(off[0], on[0]) and off[2] == on[2]
+    assert (off[1] is None) or torch.equal(off[1], on[1])
+    for k, v in cpu[3].items():
+        if k in ("participation", "participants", "wire_bytes_rank",
+                 "bytes_up_total", "bucket_wire_bytes_rank", "bytes_down"):
+            assert on[3][k] == v, k
+        else:
+            np.testing.assert_allclose(on[3][k], v, rtol=1e-4, atol=1e-6,
+                                       err_msg=k)
+
+
 def _bits(t):
     t = t.cpu()
     ints = {torch.float32: torch.int32, torch.bfloat16: torch.int16,
