@@ -66,7 +66,11 @@ Phases (any failure exits non-zero and prints no result line):
                 buckets in both schedules, phase 2 in bf16 and re-packed
                 on the sign wire); the smoke-size serving
                 path (prefill + 4 decode steps, f32 and bf16) on the card
-                against the CPU (`serve_parity`)
+                against the CPU (`serve_parity`); the smoke configs of the
+                new archs (phi3, nemotron, qwen, llava, musicgen on block
+                top-K, olmoe) card against CPU the same way, and the smoke
+                olmoe's MoE layer forward and backward twice on the card,
+                bit for bit and without a host sync (`moe_repeat`)
   5. parity     the parity gate (`launch/parity.py`) on the card: at JAX's
                 parity sizes (linreg dim 1024, group 32, block 64, k 4,
                 N = 4, d = 2, p = 0.25, 2 shards, T = 20) and at dim
@@ -137,7 +141,26 @@ Phases (any failure exits non-zero and prints no result line):
                 `--prefetch 2` against synchronous batches (markov,
                 elastic, 4 steps: theta and e hashed equal); exact launch
                 counts per run
- 10. serve      with the train setups freed: gemma2-2b at full width and
+ 10. families   the MoE family and the dense variants at full width, one
+                setup at a time: olmoe-1b-7b (64 experts of ff 1024,
+                top 8, d 2048, vocab 50304) at depth OLMOE_LAYERS of 16
+                (four f32 error vectors of the full depth would need
+                188 GB) through the driver (`train_e2e.run`, --arch
+                olmoe-1b-7b, its sign wire at g 32, iid stragglers at the
+                arch's p 0.1), N = 4 on the card, 4 steps; musicgen-large
+                at full width and depth (48 layers: LayerNorm, gelu, the
+                embeddings input, an untied head) through
+                `build_train_setup` and `train_step` on block top-K (k 8
+                of 256), 3 steps.  Each prints its steps' seconds,
+                stage-2 ms and launches, theta0's seconds, its peak memory
+                and (olmoe) the assignments its MoE layers dropped; the
+                launch counts must be exact and the losses finite.  Then
+                the kernels of both paths at their shapes, held against
+                their plain versions and timed as on the driver's wire:
+                ef_sign_fused and sign_decode_reduce at olmoe's n and
+                group 32, ef_topk_fused (every rank, one a straggler) and
+                topk_decode_reduce at musicgen's n, block 256, k 8
+ 11. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
                 layer, all on the tensor-core route) then 32 greedy
@@ -207,6 +230,11 @@ DRIVER_UPLINKS = "10,10,5,2.5"    # Gbit/s a rank: k_send = DRIVER_K_BUDGETS
 DRIVER_K_BUDGETS = (8, 8, 3, 1)
 RESUME_LAYERS = 2         # crash and resume: full width, depth cut
 PREFETCH_LAYERS = 2       # prefetched against synchronous: depth cut
+OLMOE_LAYERS = 6          # olmoe-1b-7b's depth on one card (of 16)
+OLMOE_STEPS = 4
+MUSICGEN_STEPS = 3
+NEW_ARCHS = ("phi3-medium-14b", "nemotron-4-15b", "qwen1.5-110b",
+             "llava-next-34b", "musicgen-large", "olmoe-1b-7b")
 INIT_ROWS = 4096          # rows of each end of the token table checked
 INIT_LAYER = 13           # the layer whose w_down is checked
 INIT_PIECE = 256          # rows a numpy thread draws at a time
@@ -801,14 +829,15 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
 def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
                      budgets) -> dict:
     """B3 and B4 at the slice's n on the driver's budgeted block top-K
-    wire (blocks of B, k_max = k, the ranks' k_send = `budgets`), in the
-    train step's layout: each rank's local step writes its payload row
-    with its own k_send (the last rank also as a straggler, mask 0, which
-    must leave e as it was), then B4 decodes the four rows with that
-    rank's mask 0.  Each launch is held against its plain version chunk
-    by chunk, bit for bit, then timed (B3 at the largest and the smallest
-    budget)."""
+    wire (blocks of B, k_max = k, the ranks' k_send = `budgets`, or no
+    budget when None), in the train step's layout: each rank's local step
+    writes its payload row with its own k_send (the last rank also as a
+    straggler, mask 0, which must leave e as it was), then B4 decodes the
+    four rows with that rank's mask 0.  Each launch is held against its
+    plain version chunk by chunk, bit for bit, then timed (B3 at the
+    largest and the smallest budget)."""
     gamma = 5e-3
+    ks = (None,) * N_CODE if budgets is None else budgets
     g, e = topk_inputs(torch, gen, dev, n, rows=2, B=B, k=k)
     gamma_t = torch.tensor(gamma, device=dev)
     nb = n // B
@@ -822,36 +851,36 @@ def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
 
     def launch(r, m):
         tp.ef_topk_fused(g, e[1], gamma_t, m, k, B, out=row(r) + (e[1],),
-                         k_send=budgets[r])
+                         k_send=ks[r])
 
     for r in range(N_CODE):
         for m in ((mask[r],) if r < N_CODE - 1 else (mask[0], mask[r])):
             e[1].copy_(e[0])
             launch(r, m)
             torch.cuda.synchronize()
-            what = (f"ef_topk_fused at n={n}, B {B} (k_send={budgets[r]}, "
+            what = (f"ef_topk_fused at n={n}, B {B} (k_send={ks[r]}, "
                     f"mask={m.item()})")
             if m.item() == 0.0 and not same(e[1], e[0]):
                 fail(f"{what}: a straggler's e changed")
             for i in range(0, n, CHUNK):
                 j = min(i + CHUNK, n)
                 want = ref.ef_topk_fused_ref(g[i:j], e[0, i:j], gamma_t, m,
-                                             k, B, k_send=budgets[r])
+                                             k, B, k_send=ks[r])
                 compare_topk((idx[r, i // B:j // B], val[r, i // B:j // B],
                               sc[r, i // B:j // B], None, e[1, i:j]),
                              want, what)
                 del want
-    lo = min(range(N_CODE), key=lambda r: budgets[r])
-    ms = {r: cuda_ms(lambda: launch(r, mask[0]), 10) for r in (0, lo)}
+    lo = min(range(N_CODE), key=lambda r: ks[r] or k)
+    ms = {r: cuda_ms(lambda: launch(r, mask[0]), 10) for r in {0, lo}}
 
     def plain_ef():
         for i in range(0, n, CHUNK):
             ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
-                                  mask[0], k, B, k_send=budgets[0])
+                                  mask[0], k, B, k_send=ks[0])
     payload_b = nb * (k * (2 + 4) + 4)
     out = {"ef_topk_fused": (ms[0], cuda_ms(plain_ef, 2), 12 * n + payload_b,
                              (6 + k) * n,
-                             {f"ms_k_send_{budgets[lo]}": ms[lo]})}
+                             {f"ms_k_send_{ks[lo]}": ms[lo]} if lo else {})}
     del e
     ghat = torch.empty(n, device=dev)
     tp.topk_decode_reduce(idx, val, sc, mask, B, out=ghat)
@@ -862,7 +891,7 @@ def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
         want = ref.topk_decode_reduce_ref(idx[:, b0:b1], val[:, b0:b1],
                                           sc[:, b0:b1], mask, B)
         if not same(ghat[b0 * B:b1 * B], want):
-            fail(f"topk_decode_reduce at n={n}, B {B} (budgets {budgets}) "
+            fail(f"topk_decode_reduce at n={n}, B {B} (budgets {ks}) "
                  f"differs from the sender-order sum in blocks [{b0}, {b1})")
         del want
     ms = cuda_ms(lambda: tp.topk_decode_reduce(idx, val, sc, mask, B,
@@ -1332,7 +1361,7 @@ SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
               "driver resume straight", "driver resume save",
               "driver resume restored", "driver prefetch 2 layers",
               "driver sync 2 layers", "driver all flags",
-              "driver metrics off")
+              "driver metrics off", "driver olmoe")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -1672,11 +1701,13 @@ def nccl_phase(torch, dev, launches) -> dict:
 
 
 
-def driver_args(ckpt_dir: Path, device: str, *flags):
+def driver_args(ckpt_dir: Path, device: str, *flags,
+                arch: str = "gemma2-2b"):
     """Parsed flags of `python -m repro_torch.launch.train_e2e`."""
     from repro_torch.launch import train_e2e
     return train_e2e.build_parser().parse_args(
-        ["--device", device, "--ckpt-dir", str(ckpt_dir), *flags])
+        ["--device", device, "--arch", arch, "--ckpt-dir", str(ckpt_dir),
+         *flags])
 
 
 def driver_run(torch, launches, label: str, args, spec, shape, want: dict,
@@ -1715,8 +1746,9 @@ def driver_run(torch, launches, label: str, args, spec, shape, want: dict,
                   "step_s": [r["step_s"] for r in res["steps"]],
                   "kernel_ms": [r["kernel_ms"] for r in res["steps"]],
                   "batch_s": [r["batch_s"] for r in res["steps"]]}
-    print(f"driver ({label}): gemma2-2b {setup.model.cfg.num_layers} "
-          f"layers, flat {setup.flat_pad}, peak memory {peak} B "
+    print(f"driver ({label}): {setup.model.cfg.name} "
+          f"{setup.model.cfg.num_layers} layers, flat {setup.flat_pad}, "
+          f"peak memory {peak} B "
           f"({peak / 1e9:.2f} GB) of "
           f"{torch.cuda.get_device_properties(0).total_memory} B", flush=True)
     return res
@@ -1845,6 +1877,99 @@ def driver_phase(torch, spec, dev, launches) -> dict:
     print("driver: " + json.dumps(out), flush=True)
     return {f"driver {k}": v["launches"] for k, v in out.items()
             if isinstance(v, dict) and "launches" in v}
+
+
+def families_kernels(torch, ref, sp, tp, gen, dev, wires) -> dict:
+    """B1 and B2 at olmoe's n and group, B3 and B4 at musicgen's n, block
+    and k (no budget), as phase 10 called them: each held against its
+    plain version chunk by chunk and timed, as on the driver's wire.
+    Returns {arch: (its path, {kernel: numbers})}."""
+    n, G = wires["olmoe"]
+    olmoe = {"ef_sign_fused": {"n": n, "group": G, **ef_at_slice(
+        torch, ref, sp, gen, dev, n, G)}}
+    settle(torch, f"ef_sign_fused at olmoe's n, g {G}")
+    olmoe["sign_decode_reduce"] = {"n": n, "group": G, **decode_at_slice(
+        torch, ref, sp, gen, dev, n, G)}
+    settle(torch, f"sign_decode_reduce at olmoe's n, g {G}")
+    n, B, k = wires["musicgen"]
+    musicgen = {name: {"n": n, "block": B, "k": k, **r} for name, r in
+                budgets_at_slice(torch, ref, tp, gen, dev, n, B, k,
+                                 None).items()}
+    print(f"kernels vs plain and times on the families' wires, train "
+          f"layout: {json.dumps({'olmoe': olmoe, 'musicgen': musicgen})}",
+          flush=True)
+    return {"olmoe": ("driver olmoe", olmoe),
+            "musicgen": ("musicgen block_topk", musicgen)}
+
+
+def families_phase(torch, dev, launches) -> tuple:
+    """Phase 10 of the module docstring; returns the launch counts of its
+    two paths and their kernels' shapes: {"olmoe": (n, g), "musicgen":
+    (n, B, k)}."""
+    import shutil
+    import tempfile
+    from repro_torch.configs import REGISTRY, ShapeCfg
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    from repro_torch.nn.transformer import num_params
+    shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
+    total = torch.cuda.get_device_properties(0).total_memory
+    out = {}
+    spec = REGISTRY["olmoe-1b-7b"]
+    cut = dataclasses.replace(spec, config=dataclasses.replace(
+        spec.config, num_layers=OLMOE_LAYERS))
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_olmoe_"))
+    try:
+        res = driver_run(torch, launches, "olmoe",
+                         driver_args(tmp, "cuda", "--steps", str(OLMOE_STEPS),
+                                     "--ckpt-every", str(1 << 30),
+                                     arch="olmoe-1b-7b"), cut, shape,
+                         {"ef_sign_fused": N_CODE * OLMOE_STEPS,
+                          "sign_decode_reduce": OLMOE_STEPS}, out)
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    setup = res["setup"]
+    cfg = setup.model.cfg
+    wires = {"olmoe": (setup.flat_pad, setup.cocoef_cfg.group_size)}
+    out["olmoe"].update({
+        "layers": f"{cfg.num_layers} of {spec.config.num_layers}",
+        "params": num_params(cfg), "flat": setup.flat_pad,
+        "init_s": res["init_s"],
+        "moe_dropped": [r["moe_dropped"] for r in res["steps"]],
+        "assignments_per_rank": cfg.num_layers * setup.b_loc * SEQ_LEN
+        * cfg.moe_top_k, "total_memory": total})
+    del res, setup
+    settle(torch, "the olmoe run")
+
+    spec = REGISTRY["musicgen-large"]
+    torch.cuda.reset_peak_memory_stats()
+    setup = build_train_setup(spec, shape, TrainRun(
+        base_lr=5e-3, compressor="block_topk"), smoke=False, n_code=N_CODE,
+        device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = setup.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    stats = {}
+    got = train_path(torch, setup, e, 0, MUSICGEN_STEPS,
+                     "musicgen block_topk",
+                     {"ef_topk_fused": N_CODE * MUSICGEN_STEPS,
+                      "topk_decode_reduce": MUSICGEN_STEPS}, launches, stats)
+    peak = torch.cuda.max_memory_allocated()
+    PEAKS["musicgen block_topk"] = peak
+    out["musicgen block_topk"] = {
+        "launches": got, "layers": setup.model.cfg.num_layers,
+        "params": num_params(setup.model.cfg), "flat": setup.flat_pad,
+        "block": spec.coding.block_size, "k": spec.coding.k_per_block,
+        "init_s": init_s, "peak_bytes": peak, "total_memory": total,
+        **stats}
+    wires["musicgen"] = (setup.flat_pad, setup.cocoef_cfg.block_size,
+                         setup.cocoef_cfg.k_per_block)
+    del setup, e
+    settle(torch, "the musicgen run")
+    print("families: " + json.dumps(out), flush=True)
+    return {("driver olmoe" if k == "olmoe" else k): v["launches"]
+            for k, v in out.items()}, wires
 
 
 def init_slices(cfg) -> list:
@@ -2093,7 +2218,7 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
 
 
 def serve(torch, spec, dev, launches) -> int:
-    """The serve phase (10 in the module docstring); returns the
+    """The serve phase (11 in the module docstring); returns the
     flash_attention launches of the whole phase."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.launch.serve import build_serve_setup
@@ -2170,7 +2295,8 @@ def main() -> None:
         sign_pack as sp, topk_pack as tp
     from repro_torch.kernels.common import launches
     from repro_torch.launch import train_e2e
-    from repro_torch.launch.device_parity import serve_parity, step_parity
+    from repro_torch.launch.device_parity import moe_repeat, \
+        serve_parity, step_parity
     from repro_torch.nn.transformer import num_params
 
     dev = torch.device("cuda", 0)
@@ -2280,6 +2406,22 @@ def main() -> None:
         fail(f"smoke-size serving on the card vs the CPU: {err}")
     print(f"reference (serve, relative gaps): {json.dumps(gaps)}",
           flush=True)
+    for arch in NEW_ARCHS:
+        comp = "block_topk" if arch == "musicgen-large" else "sign"
+        try:
+            parity = step_parity("cuda", arch=arch, compressor=comp)
+        except AssertionError as err:
+            fail(f"smoke-size step on the card vs the CPU ({arch}, "
+                 f"{comp}): {err}")
+        print(f"reference ({arch}, {comp}): {json.dumps(parity)}",
+              flush=True)
+    try:
+        rep_moe = {dt: moe_repeat("cuda", dt)
+                   for dt in ("float32", "bfloat16")}
+    except AssertionError as err:
+        fail(f"the MoE layer on the card: {err}")
+    print(f"reference (MoE layer twice, bit for bit, no sync): "
+          f"{json.dumps(rep_moe)}", flush=True)
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     counts = {}
@@ -2297,22 +2439,27 @@ def main() -> None:
     if settle(torch, "the nccl phase") > 1 << 30:
         fail("over 1 GiB still allocated before the driver phase")
     counts.update(driver_phase(torch, spec, dev, launches))
+    if settle(torch, "the driver phase") > 1 << 30:
+        fail("over 1 GiB still allocated before the families phase")
+    fam_counts, fam_wires = families_phase(torch, dev, launches)
+    counts.update(fam_counts)
     if settle(torch, "the train paths") > 1 << 30:
+        fail("over 1 GiB still allocated before the families' kernels")
+    fam = families_kernels(torch, ref, sp, tp, gen, dev, fam_wires)
+    if settle(torch, "the families' kernels") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
                                                         launches)}
 
+    block_paths = ("block_topk", "block_topk b2 pipelined", "driver budgets",
+                   "driver all flags", "driver metrics off",
+                   "musicgen block_topk")
     meta = {
         "ef_sign_fused": ("sign_pack", "sign_pack.py:112", SIGN_PATHS),
         "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", SIGN_PATHS),
-        "ef_topk_fused": ("topk_pack", "topk_pack.py:137",
-                          ("block_topk", "block_topk b2 pipelined",
-                           "driver budgets", "driver all flags",
-                           "driver metrics off")),
+        "ef_topk_fused": ("topk_pack", "topk_pack.py:137", block_paths),
         "topk_decode_reduce": ("topk_pack", "topk_pack.py:186",
-                               ("block_topk", "block_topk b2 pipelined",
-                                "driver budgets", "driver all flags",
-                                "driver metrics off")),
+                               block_paths),
         "topk_pack": ("topk_pack", "topk_pack.py:63",
                       ("block_topk coco", "topk", "topk coco")),
         "sign_pack": ("sign_pack", "sign_pack.py:60",
@@ -2343,17 +2490,24 @@ def main() -> None:
                 "launches": sum(counts.get(p, {}).get(name, 0)
                                 for p in driver_paths[name]),
                 **drv[name]}}}
+        errs = [drv.get(name, r)]
+        for arch, (path, held) in fam.items():   # the families' instances
+            if name in held:
+                errs.append(held[name])
+                r = {**r, "more": {**r.get("more", {}), f"{arch}_wire": {
+                    "launches": counts.get(path, {}).get(name, 0),
+                    **held[name]}}}
         kernels.append({
             "name": name, "route": "cuda",
             "source": f"src/repro_torch/kernels/csrc/{src}.cu",
             "replaces": f"src/repro/kernels/{replaces}",
             "path": " + ".join(paths),
             "launches": sum(counts.get(p, {}).get(name, 0) for p in paths),
-            "max_abs_err": max(checks.get(name, r)["max_abs_err"],
-                               r["max_abs_err"],
-                               drv.get(name, r)["max_abs_err"]),
-            "max_ulp": (max(checks.get(name, r)["max_ulp"], r["max_ulp"],
-                            drv.get(name, r)["max_ulp"])
+            "max_abs_err": max([checks.get(name, r)["max_abs_err"],
+                                r["max_abs_err"]]
+                               + [x["max_abs_err"] for x in errs]),
+            "max_ulp": (max([checks.get(name, r)["max_ulp"], r["max_ulp"]]
+                            + [x["max_ulp"] for x in errs])
                         if "max_ulp" in r else None),
             "ms": r["ms"], "plain_ms": r["plain_ms"],
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],

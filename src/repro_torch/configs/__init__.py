@@ -1,6 +1,9 @@
-"""Architecture registry of the port: gemma2-2b only (the dense family is
-the first slice; the other nine specs of `repro.configs` are still to port)."""
+"""Architecture registry of the port: the dense and MoE families of
+`repro.configs` (the MLA, hybrid and xLSTM specs are still to port)."""
+from . import (gemma2_2b, llava_next_34b, musicgen_large, nemotron4_15b,
+               olmoe_1b_7b, phi3_medium_14b, qwen15_110b)
 from .common import ArchSpec, CodingPlan, ShapeCfg  # noqa: F401
-from .gemma2_2b import ARCH as _GEMMA2_2B
 
-REGISTRY = {_GEMMA2_2B.arch_id: _GEMMA2_2B}
+REGISTRY = {m.ARCH.arch_id: m.ARCH for m in (
+    gemma2_2b, phi3_medium_14b, qwen15_110b, nemotron4_15b, olmoe_1b_7b,
+    musicgen_large, llava_next_34b)}

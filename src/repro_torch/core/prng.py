@@ -32,6 +32,13 @@ with x64 off (the JAX package's setting):
                    permutation(k, n)[:m]
   normal(k, shape) f32 f32(sqrt 2) * erf_inv_f32(u), u = uniform(k, shape,
                    nextafter(-1, 0), 1)  (`jax._src.random._normal_real`)
+  normal_bf16(k, shape)
+                   `jax.random.normal(k, shape, jnp.bfloat16)`: JAX draws
+                   8 bits a bf16 uniform (its mantissa has 7), the low
+                   byte of random_bits; the top 7 of them, m, give
+                   u = m/64 - (1 - 2**-8), exact in bf16, then erf_inv(u)
+                   (f32, rounded to bf16) times bf16(sqrt 2), rounded to
+                   bf16: one of 128 values (not the f32 draw rounded)
   dense_init(k, shape, fan_in)
                    erf_inv_f32(u) * f32(f32(sqrt 2) * f32(1 / sqrt(fan_in))):
                    `repro.nn.layers.dense_init` as `jax.jit` compiles it
@@ -65,6 +72,7 @@ sum that lands on an f32 midpoint is moved toward the exact value).
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Sequence
 
@@ -74,6 +82,7 @@ import torch
 __all__ = ["PRNGKey", "fold_in", "fold_in_many", "split", "threefry2x32",
            "random_bits", "uniform", "uniform_rows", "fma_f32",
            "permutation", "choice", "erf_inv_f32", "normal", "normal_range",
+           "normal_bf16",
            "dense_init", "init_scale", "normal_into"]
 
 _ROTATIONS = ((13, 15, 26, 6), (17, 29, 16, 24))
@@ -412,6 +421,26 @@ def normal(key: np.ndarray, shape: Sequence[int]) -> np.ndarray:
     """f32 of `shape`, as `jax.random.normal(key, shape)`."""
     n = int(np.prod(shape, dtype=np.int64))
     return normal_range(key, 0, n, _SQRT2).reshape(tuple(shape))
+
+
+def _bf16(x) -> torch.Tensor:
+    return torch.from_numpy(np.asarray(x, np.float32)).to(torch.bfloat16)
+
+
+@functools.lru_cache(maxsize=1)
+def _normal_bf16_values() -> torch.Tensor:
+    """The 128 values of a bf16 normal, by the 7 bits m that pick them."""
+    u = (np.arange(128, dtype=np.float32) * np.float32(4.0)
+         - np.float32(255.0)) / np.float32(256.0)
+    e = _bf16(erf_inv_f32(u)).float()
+    return (e * _bf16(_SQRT2).float()).to(torch.bfloat16)
+
+
+def normal_bf16(key: np.ndarray, shape: Sequence[int]) -> torch.Tensor:
+    """bf16 tensor of `shape` on the CPU, as `jax.random.normal(key,
+    shape, jnp.bfloat16)` (module docstring)."""
+    m = (random_bits(key, shape) & np.uint32(0xFF)) >> np.uint32(1)
+    return _normal_bf16_values()[torch.from_numpy(m.astype(np.int64))]
 
 
 def init_scale(fan_in: Optional[int]) -> np.float32:

@@ -2,13 +2,13 @@
 on the CPU.
 
 `step_parity(device, compressor, k_budgets, mode, wire_dtype, num_buckets,
-bucket_schedule, phase2_dtype, phase2_sign)` builds the f32 smoke-size
-gemma2-2b slice (g = 32, N = 4; sign wire, block top-K with k = 8,
-B = 256, uniform or with one k budget per rank, global top-K (one block of
-n / 4 per chunk, k = 16) or the dense wire; values in `wire_dtype`;
-cocoef, coco or dense mode; buckets and phase 2 as `TrainRun` takes them)
-on the CPU and on `device`, from the same parameters, and checks two
-things:
+bucket_schedule, phase2_dtype, phase2_sign, arch)` builds the f32
+smoke-size slice of `arch` (default gemma2-2b; g = 32, N = 4; sign wire,
+block top-K with k = 8, B = 256, uniform or with one k budget per rank,
+global top-K (one block of n / 4 per chunk, k = 16) or the dense wire;
+values in `wire_dtype`; cocoef, coco or dense mode; buckets and phase 2
+as `TrainRun` takes them) on the CPU and on `device`, from the same
+parameters, and checks two things:
 
   full step   one `train_step` from the same batch and mask (rank 1 a
               straggler).  Stage 1 sums in another order on each device, so
@@ -62,6 +62,13 @@ equal, and the greedy tokens wherever the CPU's top-2 logit gap exceeds
 the tolerance.  Every check runs before the first miss is raised, so the
 message lists every gap.
 
+`moe_repeat(device, dtype)` runs the smoke olmoe-1b-7b MoE layer
+(capacity factor 0.5, so assignments are dropped, and one shared expert,
+on seeded weights) forward and backward twice on `device`: out, aux, the
+dropped count and every gradient must repeat bit for bit (no atomics
+decide a float), and on a card nothing inside may synchronise the host
+(CUDA's sync debug mode raises on one).
+
 It raises AssertionError on a miss.  `chip_smoke.py` and the `gpu` tests
 run it with device="cuda"; on the CPU it also runs against itself.
 """
@@ -78,7 +85,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.serve import build_serve_setup
 from repro_torch.launch.train import TrainRun, TrainSetup, build_train_setup
 
-__all__ = ["serve_parity", "step_parity"]
+__all__ = ["moe_repeat", "serve_parity", "step_parity"]
 
 MASK = (1.0, 0.0, 1.0, 1.0)
 
@@ -89,10 +96,11 @@ PAYLOAD = {"sign": ("words", "scales"),
            "topk": ("idx", "values", "scales")}
 
 
-def _setups(device, compressor: str, k_budgets: Optional[Tuple[int, ...]],
-            mode: str, wire_dtype: str, **knobs) -> List[TrainSetup]:
+def _setups(device, arch: str, compressor: str,
+            k_budgets: Optional[Tuple[int, ...]], mode: str,
+            wire_dtype: str, **knobs) -> List[TrainSetup]:
     """Two separate setups, one on the CPU and one on `device`."""
-    spec = REGISTRY["gemma2-2b"]
+    spec = REGISTRY[arch]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
         coding=dataclasses.replace(spec.coding, group_size=32,
@@ -157,14 +165,14 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
                 k_budgets: Optional[Tuple[int, ...]] = None,
                 mode: str = "cocoef", wire_dtype: str = "float32",
                 num_buckets: int = 1, bucket_schedule: str = "pipelined",
-                phase2_dtype: str = "float32", phase2_sign: bool = False
-                ) -> Dict[str, float]:
+                phase2_dtype: str = "float32", phase2_sign: bool = False,
+                arch: str = "gemma2-2b") -> Dict[str, float]:
     """Run both checks (see the module docstring); returns the measured
     gaps of the full step."""
     knobs = dict(num_buckets=num_buckets, bucket_schedule=bucket_schedule,
                  phase2_dtype=phase2_dtype, phase2_sign=phase2_sign)
-    cpu, dev = _setups(device, compressor, k_budgets, mode, wire_dtype,
-                       **knobs)
+    cpu, dev = _setups(device, arch, compressor, k_budgets, mode,
+                       wire_dtype, **knobs)
     folds = cpu.cocoef_cfg.folds
     n_code, n = cpu.n_code, cpu.flat_pad
     cpu.init_state()
@@ -220,7 +228,7 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     for k in got[0]:
         a, b = _bits(got[0][k]), _bits(got[1][k])
         assert torch.equal(a, b), (
-            f"stage 2 on {device} ({mode}, {compressor}, budgets "
+            f"stage 2 on {device} ({arch}, {mode}, {compressor}, budgets "
             f"{k_budgets}, {knobs}): {k} differs from the CPU in "
             f"{int((a != b).sum())} of {a.numel()} entries")
     # cocoef leaves the straggler's error alone, coco and dense every
@@ -305,3 +313,45 @@ def serve_parity(device="cuda", seed: int = 0, steps: int = 4
     assert not misses, f"serving on {device} vs the CPU: " + \
         "; ".join(misses) + f" (all gaps: {gaps})"
     return gaps
+
+
+def moe_repeat(device="cuda", dtype: str = "bfloat16", seed: int = 0
+               ) -> Dict[str, int]:
+    """Run the MoE repeat check (see the module docstring); returns the
+    dropped assignments and the tensors compared."""
+    from repro_torch.nn import moe as MOE
+    dev = torch.device(device)
+    cfg = dataclasses.replace(REGISTRY["olmoe-1b-7b"].smoke, dtype=dtype,
+                              capacity_factor=0.5, moe_shared=1)
+    gen = torch.Generator().manual_seed(seed)
+    flat = {k: (torch.randn(v, generator=gen) * 0.1).to(dev)
+            for k, v in MOE.leaf_shapes(cfg).items()}
+    x0 = torch.randn((4, 32, cfg.d_model), generator=gen).to(
+        dev, getattr(torch, dtype))
+    cot = torch.randn((4, 32, cfg.d_model), generator=gen).to(dev)
+    runs = []
+    for _ in range(2):
+        leaves = {k: v.clone().requires_grad_(True) for k, v in flat.items()}
+        p = {k: v for k, v in leaves.items() if "/" not in k}
+        p["shared"] = {k.split("/")[1]: v for k, v in leaves.items()
+                       if k.startswith("shared/")}
+        x = x0.clone().requires_grad_(True)
+        cuda = dev.type == "cuda"
+        if cuda:
+            torch.cuda.synchronize(dev)
+            torch.cuda.set_sync_debug_mode("error")
+        try:
+            out, aux, dropped = MOE.apply_moe(p, x, cfg)
+            (torch.sum(out.float() * cot) + aux).backward()
+        finally:
+            if cuda:
+                torch.cuda.set_sync_debug_mode("default")
+        runs.append([out, aux, dropped, x.grad] +
+                    [leaves[k].grad for k in sorted(leaves)])
+    for i, (a, b) in enumerate(zip(*runs)):
+        assert torch.equal(_bits(a), _bits(b)), \
+            f"MoE layer on {device} ({dtype}): tensor {i} differs between " \
+            f"two runs"
+    dropped = int(runs[0][2])
+    assert dropped > 0, "the capacity factor 0.5 dropped nothing"
+    return {"dropped": dropped, "tensors": len(runs[0])}

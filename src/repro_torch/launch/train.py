@@ -112,7 +112,9 @@ class TrainRun:
     metrics: the step also returns metrics["telemetry"], the reduced
       `obs.MetricsFrame` (participation, per-rank wire bytes, gradient,
       error, compression and update norms), from chunked passes around
-      each rank's local step; False runs the step exactly as without it."""
+      each rank's local step; False runs the step exactly as without it.
+    The MoE aux loss's weight is `nn.transformer.AUX_WEIGHT` (0.01), as
+    in JAX, where `Model.loss` calls `weighted_loss` at its default."""
 
     base_lr: float = 1e-3
     schedule: str = "constant"
@@ -227,8 +229,9 @@ class TrainRun:
                             bucket_schedule=plan.bucket_schedule)
 
 
-# tokens (R, b, S+1), weights (R, b); elastic runs add subset ids (R, b)
-# int64 on the CPU
+# the inputs, weights (R, b) and, in elastic runs, subset ids (R, b) int64
+# on the CPU; the inputs are tokens (R, b, S+1), or for the embeddings
+# input embeddings (R, b, S, d) bf16 and targets (R, b, S)
 Batch = Tuple[torch.Tensor, ...]
 
 
@@ -257,6 +260,8 @@ class TrainSetup:
     #   allocation is the one the batch maker uses
     grid: Optional[object] = None         # launch.mesh.CodingGrid
     buffers: Optional[List] = None        # group_buffers, with a grid
+    embeddings: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False)         # the embeddings input, made once
 
     @property
     def device(self) -> torch.device:
@@ -286,29 +291,50 @@ class TrainSetup:
         return torch.zeros(lead + (self.flat_pad,), dtype=torch.float32,
                            device=self.device)
 
+    @property
+    def n_inputs(self) -> int:
+        """The batch's leading input tensors: tokens, or embeddings and
+        targets."""
+        return 1 if self.model.cfg.input_mode == "tokens" else 2
+
     def make_batch(self, step: int) -> Batch:
-        """Tokens (R, b_loc, L+1) and weights (R, b_loc) of this setup's R
-        ranks (`ranks`) on the setup's device; an elastic setup's weights
-        are 1 and its batch adds the subset ids (R, b_loc) on the CPU,
-        drawn from the coding plan's current allocation."""
+        """The batch of this setup's R ranks (`ranks`) on the setup's
+        device: tokens (R, b_loc, L+1), or embeddings (R, b_loc, L, d) bf16
+        and targets (R, b_loc, L), then weights (R, b_loc); an elastic
+        setup's weights are 1 and its batch adds the subset ids (R, b_loc)
+        on the CPU, drawn from the coding plan's current allocation."""
         return self.batch_to_device(self.host_batch(step))
 
     def host_batch(self, step: int) -> Batch:
-        """`make_batch`'s batch with every tensor still on the CPU."""
+        """`make_batch`'s batch with every tensor still on the CPU (JAX's
+        `make_batch_for_step`).  The embeddings input is JAX's
+        normal(PRNGKey(seed), (N, b_loc, L, d), bf16) * 0.02, the same at
+        every step, and its targets the coded tokens' first L."""
         vocab = self.model.cfg.vocab_size
         if self.coding_plan is not None:
-            return pipeline.elastic_train_batch(
+            batch = pipeline.elastic_train_batch(
                 self.run.seed, step, self.coding_plan.allocation,
                 self.per_subset, self.seq_len, vocab, ranks=self.ranks)
-        return pipeline.coded_train_batch(
-            self.run.seed, step, self.allocation, self.W, self.per_subset,
-            self.seq_len, vocab, ranks=self.ranks)
+        else:
+            batch = pipeline.coded_train_batch(
+                self.run.seed, step, self.allocation, self.W,
+                self.per_subset, self.seq_len, vocab, ranks=self.ranks)
+        if self.n_inputs == 1:
+            return batch
+        if self.embeddings is None:
+            shape = (self.n_code, self.b_loc, self.seq_len,
+                     self.model.cfg.d_model)
+            emb = prng.normal_bf16(prng.PRNGKey(self.run.seed), shape) * \
+                torch.tensor(0.02, dtype=torch.bfloat16)
+            self.embeddings = emb[self.ranks]
+        return (self.embeddings, batch[0][..., :-1]) + tuple(batch[1:])
 
     def batch_to_device(self, batch: Batch, device=None) -> Batch:
-        """Tokens and weights to the setup's device (pinned and
+        """The inputs and weights to the setup's device (pinned and
         non-blocking on a card); subset ids stay on the CPU."""
         dev = self.device if device is None else torch.device(device)
-        return pipeline.to_device(tuple(batch[:2]), dev) + tuple(batch[2:])
+        k = self.n_inputs + 1
+        return pipeline.to_device(tuple(batch[:k]), dev) + tuple(batch[k:])
 
     def mask(self, step: int) -> torch.Tensor:
         if self.straggler_process is None:
@@ -322,15 +348,16 @@ class TrainSetup:
         an elastic batch W_scaled[rank, subset_id] from `coding_state`
         (`elastic_coding_state`), gathered on the host in f32 (JAX's
         `take_along_axis`; the ones multiply exactly)."""
-        if (len(batch) == 3) != (coding_state is not None):
+        w = self.n_inputs
+        if (len(batch) == w + 2) != (coding_state is not None):
             raise ValueError("an elastic setup's batch needs a coding_state "
                              "and a static one takes none")
         if coding_state is None:
-            return batch[1]
+            return batch[w]
         rows = np.asarray(self.ranks)[:, None]
         coef = np.asarray(coding_state.W, np.float32)[rows,
-                                                      batch[2].numpy()]
-        return batch[1] * torch.from_numpy(coef).to(batch[1].device)
+                                                      batch[w + 1].numpy()]
+        return batch[w] * torch.from_numpy(coef).to(batch[w].device)
 
     def train_step(self, params: Model, e: Optional[torch.Tensor],
                    batch: Batch, step: int,
@@ -346,20 +373,25 @@ class TrainSetup:
         coding_state: the elastic step's live encode weights (needed with
         an elastic batch).  With a grid, batch and e are this rank's.
         Returns {"loss": mean loss of the setup's ranks, "losses": (R,),
-        "mask": (N,), "weights": (R, b_loc) the per-example weights}, and
-        with run.metrics "telemetry" (`obs.metrics.reduce_frame`)."""
-        tokens = batch[0]
+        "mask": (N,), "weights": (R, b_loc) the per-example weights}, with
+        run.metrics "telemetry" (`obs.metrics.reduce_frame`), and in the
+        MoE family "moe_dropped": (R,) int64, each rank's assignments the
+        MoE layers dropped (over capacity), summed over the layers."""
+        inputs = batch[:self.n_inputs]
         weights = self.batch_weights(batch, coding_state)
         mask = (self.mask(step) if masks is None else
                 torch.as_tensor(masks, dtype=torch.float32))
         mask = mask.to(self.device).contiguous()
-        losses = []
+        losses, dropped = [], []
 
         def grad_of(i: int) -> torch.Tensor:
             params.grad.zero_()
-            loss, _ = params.loss(tokens[i], weights[i])
+            xs = [x[i] for x in inputs]
+            loss, _ = params.loss(xs[0], weights[i], *xs[1:])
             loss.backward()
             losses.append(loss.detach())
+            if params.net.moe_dropped is not None:
+                dropped.append(params.net.moe_dropped)
             return params.grad
 
         frames: List = []
@@ -370,6 +402,8 @@ class TrainSetup:
                "weights": weights}
         if frames:
             out["telemetry"] = reduce_frame(frames[0])
+        if dropped:
+            out["moe_dropped"] = torch.stack(dropped)
         return out
 
     def coded_update(self, params: Model, grad_of,

@@ -85,10 +85,8 @@ def build_parser() -> argparse.ArgumentParser:
         prog="python -m repro_torch.launch.train_e2e",
         description="COCO-EF training with checkpoint/restart (the "
                     "PyTorch port of examples/train_e2e.py)")
-    ap.add_argument("--arch", default="gemma2-2b", choices=sorted(REGISTRY),
-                    help="architecture (its smoke config); the port has "
-                         "the dense gemma2 family only, so gemma2-2b "
-                         "(JAX's default olmoe-1b-7b waits for ROADMAP A5)")
+    ap.add_argument("--arch", default="olmoe-1b-7b", choices=sorted(REGISTRY),
+                    help="architecture (its smoke config)")
     ap.add_argument("--device", default="cuda",
                     help="torch device the run lives on (cuda, or cpu for "
                          "the plain PyTorch versions of the kernels)")
@@ -289,10 +287,12 @@ def run(args, spec: Optional[ArchSpec] = None,
     on the CPU), batch_s (the host's time to wait for the batch: to make
     it, or with --prefetch to take it from the queue), mask, weights,
     allocation, under --elastic the replan info and plane_s (the host's
-    time for the estimator and the replan tick)), "ckpt": one record per
-    save (step, path, bytes, save_s), "restore_s" (None without a
-    resume), "prefetch" (the PrefetchStats snapshot, None without
-    --prefetch), and under --metrics "metrics" (jsonl and trace paths,
+    time for the estimator and the replan tick), in the MoE family
+    moe_dropped (each rank's assignments over capacity)), "ckpt": one
+    record per save (step, path, bytes, save_s), "init_s" (theta0 and
+    e's allocation, synchronised), "restore_s" (None without a resume),
+    "prefetch" (the PrefetchStats snapshot, None without --prefetch),
+    and under --metrics "metrics" (jsonl and trace paths,
     batch_wait_s per step, the StepTimer's predicted_step_s)}."""
     spec = _driver_spec(args, spec or REGISTRY[args.arch])
     shape = shape or SHAPE
@@ -321,9 +321,11 @@ def run(args, spec: Optional[ArchSpec] = None,
               f"{args.replan_threshold}, epoch 0 rates "
               f"{[round(float(x), 3) for x in state.rates_estimate]}")
 
+    t0 = time.perf_counter()
     e = setup.init_state(prng.PRNGKey(0))   # JAX driver: PRNGKey(0)
+    _sync(setup.device)
     out = {"setup": setup, "e": e, "start": 0, "steps": [], "ckpt": [],
-           "restore_s": None}
+           "restore_s": None, "init_s": time.perf_counter() - t0}
 
     def ckpt_state():
         return {"params": setup.model.params(),
@@ -384,6 +386,8 @@ def run(args, spec: Optional[ArchSpec] = None,
                      "weights": m["weights"].tolist(),
                      "allocation": (setup.coding_plan
                                     or setup).allocation.S.tolist()}
+            if "moe_dropped" in m:
+                rec_t["moe_dropped"] = m["moe_dropped"].tolist()
             if rec is not None:
                 span_s = {x["name"]: x["t1"] - x["t0"]
                           for x in rec.spans[-3:]}

@@ -1,8 +1,11 @@
-"""Dense layers in the JAX package's layouts (port of the dense parts of
-`repro.nn.layers`).
+"""Dense layers in the JAX package's layouts (port of `repro.nn.layers` but
+MLA): RMSNorm and LayerNorm, RoPE, GQA attention with optional qkv bias,
+the swiglu, geglu, relu2 and gelu MLPs, token or embeddings input, a tied
+or untied head.
 
 Layouts match JAX: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d),
-w_gate/w_up (d, ff), w_down (ff, d), products written x @ W.  Parameters
+bq (H, hd), bk/bv (Hkv, hd), w_gate/w_up (d, ff), w_down (ff, d),
+proj (d, d), head (d, vocab), products written x @ W.  Parameters
 are f32 and cast to the compute dtype at use; compute runs in cfg.dtype.
 Training attention is plain einsum + softmax, as JAX's XLA path is.  The
 prefill runs the hand-written flash kernel (`kernels.flash_attention`), as
@@ -34,12 +37,23 @@ def _cs(v: float, dtype: torch.dtype) -> torch.Tensor:
     return torch.tensor(v, dtype=dtype)
 
 
-def apply_norm(scale: torch.Tensor, x: torch.Tensor, eps: float = 1e-6
+def apply_norm(p, x: torch.Tensor, cfg: ModelConfig, eps: float = 1e-6
                ) -> torch.Tensor:
-    """RMSNorm in f32: x * rsqrt(mean(x^2) + eps) * scale (not 1+scale)."""
+    """In f32, rounded to x's dtype: LayerNorm (cfg.norm "layer")
+    (x - mean) * rsqrt(var + eps) * scale + bias, else RMSNorm
+    x * rsqrt(mean(x^2) + eps) * scale (not 1+scale).  p: {"scale"[,
+    "bias"]}."""
     xf = x.float()
-    ms = (xf * xf).mean(-1, keepdim=True)
-    return (xf * torch.rsqrt(ms + eps) * scale.float()).to(x.dtype)
+    if cfg.norm == "layer":
+        mu = xf.mean(-1, keepdim=True)
+        xc = xf - mu
+        var = (xc * xc).mean(-1, keepdim=True)
+        out = xc * torch.rsqrt(var + eps) * p["scale"].float() \
+            + p["bias"].float()
+    else:
+        ms = (xf * xf).mean(-1, keepdim=True)
+        out = xf * torch.rsqrt(ms + eps) * p["scale"].float()
+    return out.to(x.dtype)
 
 
 def rope(x: torch.Tensor, positions: torch.Tensor, theta: float
@@ -63,6 +77,10 @@ def _qkv(p, x, cfg: ModelConfig, positions):
     q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
     k = torch.einsum("bsd,dhk->bshk", x, p["wk"].to(ct))
     v = torch.einsum("bsd,dhk->bshk", x, p["wv"].to(ct))
+    if cfg.qkv_bias:
+        q = q + p["bq"].to(ct)
+        k = k + p["bk"].to(ct)
+        v = v + p["bv"].to(ct)
     q = rope(q, positions, cfg.rope_theta) * _cs(cfg.head_dim ** -0.5, ct)
     k = rope(k, positions, cfg.rope_theta)
     return q, k, v
@@ -159,30 +177,40 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, window: int = 0
 
 
 def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """GeGLU (gemma2's MLP; the other kinds are still to port).  jax.nn.gelu
-    defaults to the tanh approximation, hence approximate="tanh"."""
-    if cfg.mlp != "geglu":
-        raise NotImplementedError(f"mlp={cfg.mlp!r} is not ported yet")
+    """cfg.mlp: swiglu silu(x Wg) * x Wu, geglu gelu(x Wg) * x Wu, relu2
+    relu(x Wu)^2, gelu gelu(x Wu); then @ W_down.  jax.nn.gelu defaults to
+    the tanh approximation, hence approximate="tanh"."""
     ct = x.dtype
-    h = F.gelu(x @ p["w_gate"].to(ct), approximate="tanh") * \
-        (x @ p["w_up"].to(ct))
+    if cfg.mlp == "swiglu":
+        h = F.silu(x @ p["w_gate"].to(ct)) * (x @ p["w_up"].to(ct))
+    elif cfg.mlp == "geglu":
+        h = F.gelu(x @ p["w_gate"].to(ct), approximate="tanh") * \
+            (x @ p["w_up"].to(ct))
+    elif cfg.mlp == "relu2":
+        h = F.relu(x @ p["w_up"].to(ct)).square()
+    elif cfg.mlp == "gelu":
+        h = F.gelu(x @ p["w_up"].to(ct), approximate="tanh")
+    else:
+        raise ValueError(f"unknown mlp {cfg.mlp!r}")
     return h @ p["w_down"].to(ct)
 
 
-def embed(tok: torch.Tensor, inputs: torch.Tensor, cfg: ModelConfig
-          ) -> torch.Tensor:
-    """Token embedding: the table cast to the compute dtype, then gathered
-    (the JAX order, so its gradient also sums in the compute dtype).
-    Gemma scales by sqrt(d_model) in the compute dtype."""
+def embed(p, inputs: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """Token input: the table p["tok"] cast to the compute dtype, then
+    gathered (the JAX order, so its gradient also sums in the compute
+    dtype); Gemma scales by sqrt(d_model) in the compute dtype.
+    Embeddings input (B, S, d): cast, then @ p["proj"]."""
     ct = compute_dtype(cfg)
-    x = tok.to(ct)[inputs]
+    if cfg.input_mode != "tokens":
+        return inputs.to(ct) @ p["proj"].to(ct)
+    x = p["tok"].to(ct)[inputs]
     if cfg.name.startswith("gemma"):
         x = x * _cs(cfg.d_model ** 0.5, ct)
     return x
 
 
-def logits_from(tok: torch.Tensor, x: torch.Tensor, cfg: ModelConfig
-                ) -> torch.Tensor:
-    """Tied head: x @ tok^T, then the final softcap in the compute dtype."""
-    logits = x @ tok.to(x.dtype).T
-    return _softcap(logits, cfg.final_softcap)
+def logits_from(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x @ tok^T (tied) or x @ head, then the final softcap in the compute
+    dtype."""
+    w = p["tok"].T if cfg.tie_embeddings else p["head"]
+    return _softcap(x @ w.to(x.dtype), cfg.final_softcap)

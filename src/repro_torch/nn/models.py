@@ -1,5 +1,6 @@
-"""Public model facade (port of `repro.nn.models.Model`, dense family):
-training loss, and serving (caches, prefill, decode)."""
+"""Public model facade (port of `repro.nn.models.Model`, the dense and MoE
+families): training loss, and serving (caches, prefill, decode) of
+gemma2's stack."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple
@@ -73,9 +74,12 @@ class Model:
                else prng.PRNGKey(seed))
         self.net.init_(key)
 
-    def loss(self, tokens: torch.Tensor, weights: torch.Tensor
+    def loss(self, inputs: torch.Tensor, weights: torch.Tensor,
+             targets: Optional[torch.Tensor] = None
              ) -> Tuple[torch.Tensor, torch.Tensor]:
-        return self.net.weighted_loss(tokens, weights)
+        """(loss, per_example) of a batch: tokens (B, S+1), or with the
+        embeddings input (B, S, d) and its targets (B, S)."""
+        return self.net.weighted_loss(inputs, weights, targets)
 
     # ---- serving ---------------------------------------------------------
     def init_caches(self, batch: int, cache_len: int, dtype=torch.bfloat16):

@@ -1,6 +1,7 @@
 """Inputs, comparisons and the JAX reference harness shared by the port's
 tests.  Nothing here imports JAX (the harness runs it in a subprocess), so
 the GPU tests, which run without JAX, can use this module too."""
+import contextlib
 import dataclasses
 import json
 import os
@@ -14,6 +15,20 @@ import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.launch.train import TrainRun, build_train_setup
+
+
+@contextlib.contextmanager
+def one_thread():
+    """torch on one CPU thread inside: smoke-size steps gain nothing from
+    more, and under the suite's parallel workers every OpenMP barrier of
+    a many-thread process waits for descheduled threads (a driver resume
+    test took 600-800 s that way)."""
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    try:
+        yield
+    finally:
+        torch.set_num_threads(threads)
 
 
 def ef_inputs(n: int, group_size: int, seed: int, denormals: bool = True):
@@ -204,9 +219,12 @@ def topk_payload(N: int, nb: int, k: int, block_size: int, seed: int):
 
 
 # The slice end to end against JAX's real train step
-# (tests/test_torch_train.py, tests/test_torch_coco.py): f32 gemma2-2b
-# smoke config, g = G, N coding ranks, STEPS steps at the constant
-# learning rate LR.
+# (tests/test_torch_train.py, tests/test_torch_coco.py,
+# tests/test_torch_families.py): the f32 smoke config of an arch (gemma2-2b
+# unless the run's keywords name another under "arch"), g = G, N coding
+# ranks, STEPS steps at the constant learning rate LR.  With the
+# embeddings input JAX's batch is dumped as emb{t} (bf16 bits, uint16) and
+# targets{t} in place of tokens{t}.
 SRC = str(Path(__file__).resolve().parents[1] / "src")
 STEPS, N, G, LR = 3, 4, 32, 5e-3
 
@@ -222,13 +240,13 @@ JAX_RUN = textwrap.dedent(f"""
     from repro.launch.train import (TrainRun, build_train_setup,
                                     make_batch_for_step, setup_encode_weights)
     warnings.simplefilter("ignore")
-    spec = REGISTRY["gemma2-2b"]
+    kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
+    spec = REGISTRY[kw.pop("arch", "gemma2-2b")]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
         coding=dataclasses.replace(spec.coding, group_size={G}))
     mesh = make_mesh((4, 1), ("data", "model"))
     shape = ShapeCfg("train", 32, 8)
-    kw = json.loads(sys.argv[2]) if len(sys.argv) > 2 else {{}}
     if "k_budgets" in kw:
         kw["k_budgets"] = tuple(kw["k_budgets"])
     if "wire_dtype" in kw:
@@ -257,7 +275,11 @@ JAX_RUN = textwrap.dedent(f"""
         g = grads(params, batch)
         out[f"g{{t}}"] = np.stack([flat([l[i] for l in jax.tree.leaves(g)])
                                   for i in range(4)])
-        out[f"tokens{{t}}"] = np.asarray(batch["inputs"])
+        if "targets" in batch:
+            out[f"emb{{t}}"] = np.asarray(batch["inputs"]).view(np.uint16)
+            out[f"targets{{t}}"] = np.asarray(batch["targets"])
+        else:
+            out[f"tokens{{t}}"] = np.asarray(batch["inputs"])
         out[f"weights{{t}}"] = np.asarray(batch["weights"])
         out[f"mask{{t}}"] = np.asarray(setup.straggler_process.mask(key, t))
         params, e, opt, m = step(params, e, opt, batch, jnp.int32(t), key)
@@ -300,8 +322,9 @@ def _jax_run(tmp_path_factory, run_kw=None):
     return dict(np.load(path))
 
 
-def _port_setup(wire_dtype="float32", device="cpu", **run_kw):
-    spec = REGISTRY["gemma2-2b"]
+def _port_setup(wire_dtype="float32", device="cpu", arch="gemma2-2b",
+                **run_kw):
+    spec = REGISTRY[arch]
     spec = dataclasses.replace(
         spec, smoke=dataclasses.replace(spec.smoke, dtype="float32"),
         coding=dataclasses.replace(spec.coding, group_size=G,
@@ -309,6 +332,17 @@ def _port_setup(wire_dtype="float32", device="cpu", **run_kw):
     return build_train_setup(spec, ShapeCfg("train", 32, 8),
                              TrainRun(base_lr=LR, **run_kw), smoke=True,
                              n_code=N, device=device)
+
+
+def jax_batch(ref, t: int):
+    """JAX's dumped batch of step t in the port's form: (tokens, weights),
+    or (embeddings bf16, targets, weights)."""
+    w = torch.from_numpy(ref[f"weights{t}"])
+    if f"emb{t}" not in ref:
+        return torch.from_numpy(ref[f"tokens{t}"]).long(), w
+    emb = torch.from_numpy(ref[f"emb{t}"].view(np.int16)).view(
+        torch.bfloat16)
+    return emb, torch.from_numpy(ref[f"targets{t}"]).long(), w
 
 
 def _state_dict(ref):

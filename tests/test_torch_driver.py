@@ -35,7 +35,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_cases import G, LR, N, SRC, _port_setup, _state_dict
+from _torch_cases import (G, LR, N, SRC, _port_setup, _state_dict,
+                          one_thread)
 from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.core.plan import PlanSpec
 from repro_torch.launch import train_e2e
@@ -43,10 +44,13 @@ from repro_torch.launch.train import (TrainRun, build_train_setup,
                                       elastic_coding_state)
 
 
-def _run(tmp_path, name, *flags):
+def _run(tmp_path, name, *flags, arch="gemma2-2b"):
+    """train_e2e.run on the CPU, on one thread (`_torch_cases.one_thread`)."""
     args = train_e2e.build_parser().parse_args(
-        ["--device", "cpu", "--ckpt-dir", str(tmp_path / name), *flags])
-    return train_e2e.run(args)
+        ["--device", "cpu", "--arch", arch, "--ckpt-dir",
+         str(tmp_path / name), *flags])
+    with one_thread():
+        return train_e2e.run(args)
 
 
 @pytest.mark.parametrize("straggler", ("iid", "markov"))
@@ -100,8 +104,8 @@ def test_driver_flags_not_ported_exit_as_usage_errors(tmp_path, capsys):
                         (("--straggler", "hetero", "--straggler-spread",
                           "9"), "outside [0, 1)")):
         with pytest.raises(SystemExit) as ex:
-            train_e2e.main(["--device", "cpu", "--ckpt-dir",
-                            str(tmp_path), *flags])
+            train_e2e.main(["--device", "cpu", "--arch", "gemma2-2b",
+                            "--ckpt-dir", str(tmp_path), *flags])
         assert ex.value.code == 2
         assert item in capsys.readouterr().err
 

@@ -96,6 +96,46 @@ def test_block_topk_train_step_cuda_matches_cpu(cuda, k_budgets):
     step_parity("cuda", compressor="block_topk", k_budgets=k_budgets)
 
 
+NEW_ARCHS = ("phi3-medium-14b", "nemotron-4-15b", "qwen1.5-110b",
+             "llava-next-34b", "musicgen-large", "olmoe-1b-7b")
+
+
+@pytest.mark.parametrize("arch", NEW_ARCHS)
+def test_new_arch_train_step_cuda_matches_cpu(cuda, arch):
+    """Each new arch's smoke step on the card against the CPU: the full
+    step within step_parity's tolerances, stage 2 bit for bit (musicgen on
+    its block top-K path)."""
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda", arch=arch, compressor="block_topk"
+                if arch == "musicgen-large" else "sign")
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_moe_layer_repeats_bit_for_bit_without_a_sync(cuda, dtype):
+    """The smoke olmoe's MoE layer forward and backward twice on the card:
+    the same bits, no host synchronisation inside
+    (`device_parity.moe_repeat`)."""
+    from repro_torch.launch.device_parity import moe_repeat
+    moe_repeat("cuda", dtype)
+
+
+def test_moe_router_refuses_tf32(cuda):
+    """With TF32 turned on the MoE layer refuses to route rather than run
+    its router in TF32."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.nn import moe as MOE
+    cfg = REGISTRY["olmoe-1b-7b"].smoke
+    p = {k: torch.zeros(v, device=cuda)
+         for k, v in MOE.leaf_shapes(cfg).items()}
+    x = torch.zeros((1, 8, cfg.d_model), device=cuda)
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        with pytest.raises(RuntimeError, match="allow_tf32"):
+            MOE.apply_moe(p, x, cfg)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+
+
 def test_init_on_the_card_equals_the_cpu(cuda):
     """theta0 = JAX's init_params(PRNGKey(seed)) on both devices (C13)."""
     from repro_torch.configs import REGISTRY

@@ -28,7 +28,7 @@ import pytest
 import torch
 
 from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
-                          _port_setup, _state_dict)
+                          _port_setup, _state_dict, jax_batch)
 from _torch_gloo import TRAIN_STEPS, run_gloo, train_spec
 from repro.core import coding as jcoding
 from repro.core.collectives import SparseWire as JaxSparseWire
@@ -91,6 +91,11 @@ def test_stage2_with_jax_gradients(ref_run):
     bitwise where every scale agrees.  Against JAX's mesh step, whose
     stage-1 gradients come from another jit of the same function, theta
     and e' within the sign-flip bound 2*N*(max scale)."""
+    sign_stage2_checks(ref_run)
+
+
+def sign_stage2_checks(ref_run):
+    """The checks of test_stage2_with_jax_gradients on a JAX sign run."""
     cfg = CocoEFConfig(group_size=G)
     n = int(ref_run["flat_pad"])
     for t in range(STEPS):
@@ -138,20 +143,24 @@ def test_end_to_end_matches_jax(ref_run):
     step; theta within steps * 2*N*gamma*(max group scale), the most that
     sign bits flipped by near-zero accumulators can move a coordinate, and
     almost every coordinate far closer."""
-    s = _port_setup()
-    s.model.load_params(_state_dict(ref_run))
+    end_to_end_checks(ref_run, _port_setup(), 2 * N)
+
+
+def end_to_end_checks(ref, s, flip: float):
+    """The port's step `s` for STEPS steps from JAX's params, batches and
+    masks: loss within rtol 1e-4 per step; theta within steps * flip *
+    (the payload's max scale) and under 1% of it off by more than 1e-6."""
+    s.model.load_params(_state_dict(ref))
     e = torch.zeros((N, s.flat_pad))
     max_scale = 0.0
     for t in range(STEPS):
-        batch = (torch.from_numpy(ref_run[f"tokens{t}"]).long(),
-                 torch.from_numpy(ref_run[f"weights{t}"]))
-        m = s.train_step(s.model, e, batch, t,
-                         masks=torch.from_numpy(ref_run[f"mask{t}"]))
-        np.testing.assert_allclose(m["loss"].item(), ref_run[f"loss{t}"],
+        m = s.train_step(s.model, e, jax_batch(ref, t), t,
+                         masks=torch.from_numpy(ref[f"mask{t}"]))
+        np.testing.assert_allclose(m["loss"].item(), ref[f"loss{t}"],
                                    rtol=1e-4)
-        max_scale = max(max_scale, s.payload[1].max().item())
-        d = np.abs(s.model.theta.numpy() - ref_run[f"theta{t + 1}"])
-        assert d.max() <= (t + 1) * 2 * N * max_scale
+        max_scale = max(max_scale, s.payload[-1].max().item())
+        d = np.abs(s.model.theta.numpy() - ref[f"theta{t + 1}"])
+        assert d.max() <= (t + 1) * flip * max_scale
         assert np.mean(d > 1e-6) < 0.01
 
 
@@ -189,7 +198,12 @@ def test_block_topk_stage2_with_jax_gradients(sparse_run):
     of the same function: theta and e' within N * (max block scale), the
     most that selections flipped at near-ties can move a coordinate."""
     run_kw, ref = sparse_run
-    s = _port_setup(**run_kw)
+    block_stage2_checks(ref, _port_setup(**run_kw))
+
+
+def block_stage2_checks(ref, s):
+    """The checks of test_block_topk_stage2_with_jax_gradients on a JAX
+    block top-K run and the port's setup `s` of the same wire."""
     cfg, n = s.cocoef_cfg, s.flat_pad
     jw = JaxSparseWire(cfg.k_per_block, 256)
     for t in range(STEPS):
@@ -244,21 +258,7 @@ def test_block_topk_end_to_end_matches_jax(sparse_run):
     flipped at near-ties can move a coordinate, and almost every
     coordinate far closer."""
     run_kw, ref = sparse_run
-    s = _port_setup(**run_kw)
-    s.model.load_params(_state_dict(ref))
-    e = torch.zeros((N, s.flat_pad))
-    max_scale = 0.0
-    for t in range(STEPS):
-        batch = (torch.from_numpy(ref[f"tokens{t}"]).long(),
-                 torch.from_numpy(ref[f"weights{t}"]))
-        m = s.train_step(s.model, e, batch, t,
-                         masks=torch.from_numpy(ref[f"mask{t}"]))
-        np.testing.assert_allclose(m["loss"].item(), ref[f"loss{t}"],
-                                   rtol=1e-4)
-        max_scale = max(max_scale, s.payload[2].max().item())
-        d = np.abs(s.model.theta.numpy() - ref[f"theta{t + 1}"])
-        assert d.max() <= (t + 1) * N * max_scale
-        assert np.mean(d > 1e-6) < 0.01
+    end_to_end_checks(ref, _port_setup(**run_kw), N)
 
 
 @pytest.mark.parametrize("compressor,k_budgets", [
