@@ -68,9 +68,12 @@ Phases (any failure exits non-zero and prints no result line):
                 path (prefill + 4 decode steps, f32 and bf16) on the card
                 against the CPU (`serve_parity`); the smoke configs of the
                 new archs (phi3, nemotron, qwen, llava, musicgen on block
-                top-K, olmoe) card against CPU the same way, and the smoke
+                top-K, olmoe, deepseek, zamba2, xlstm on block top-K) card
+                against CPU the same way, and the smoke
                 olmoe's MoE layer forward and backward twice on the card,
-                bit for bit and without a host sync (`moe_repeat`)
+                bit for bit and without a host sync (`moe_repeat`), and
+                the smoke deepseek, zamba2 and xlstm losses and backward
+                passes in bf16 without a host sync (`loss_no_sync`)
   5. parity     the parity gate (`launch/parity.py`) on the card: at JAX's
                 parity sizes (linreg dim 1024, group 32, block 64, k 4,
                 N = 4, d = 2, p = 0.25, 2 shards, T = 20) and at dim
@@ -141,25 +144,36 @@ Phases (any failure exits non-zero and prints no result line):
                 `--prefetch 2` against synchronous batches (markov,
                 elastic, 4 steps: theta and e hashed equal); exact launch
                 counts per run
- 10. families   the MoE family and the dense variants at full width, one
-                setup at a time: olmoe-1b-7b (64 experts of ff 1024,
-                top 8, d 2048, vocab 50304) at depth OLMOE_LAYERS of 16
-                (four f32 error vectors of the full depth would need
-                188 GB) through the driver (`train_e2e.run`, --arch
-                olmoe-1b-7b, its sign wire at g 32, iid stragglers at the
-                arch's p 0.1), N = 4 on the card, 4 steps; musicgen-large
-                at full width and depth (48 layers: LayerNorm, gelu, the
-                embeddings input, an untied head) through
-                `build_train_setup` and `train_step` on block top-K (k 8
-                of 256), 3 steps.  Each prints its steps' seconds,
-                stage-2 ms and launches, theta0's seconds, its peak memory
-                and (olmoe) the assignments its MoE layers dropped; the
+ 10. families   every family beyond the dense one at full width, one
+                setup at a time (FAMILY_CELLS): olmoe-1b-7b (64 experts
+                of ff 1024, top 8, d 2048, vocab 50304) at depth
+                OLMOE_LAYERS of 16 (four f32 error vectors of the full
+                depth would need 188 GB) and deepseek-v2-lite-16b (MLA of
+                rank 512 with q.k 192 and v 128 wide, 64 experts of ff
+                1408, top 6, 2 shared, a dense block0 of ff 10944, vocab
+                102400) at depth DEEPSEEK_LAYERS of 27 (block0 and 4 MoE
+                blocks; the full depth's 15.7e9 parameters need about
+                400 GB) through the driver (`train_e2e.run`, --arch, its
+                sign wire at g 32, iid stragglers at the arch's p 0.1), N
+                = 4 on the card, 4 steps each; musicgen-large (48 layers:
+                LayerNorm, gelu, the embeddings input, an untied head) and
+                xlstm-1.3b (48 layers: 42 mLSTM blocks of head width 1024,
+                6 sLSTM blocks, 512 sequential steps each) at full depth
+                through `build_train_setup` and `train_step` on block
+                top-K (k 8 of 256), zamba2-2.7b (54 Mamba2 layers in 9
+                groups, each followed by the one shared attention block)
+                at full depth the same way on its sign wire (g 512), 3
+                steps each.  Each prints its steps' seconds, stage-2 ms
+                and launches, theta0's seconds, its peak memory and (olmoe,
+                deepseek) the assignments its MoE layers dropped; the
                 launch counts must be exact and the losses finite.  Then
-                the kernels of both paths at their shapes, held against
+                the kernels of every path at its shapes, held against
                 their plain versions and timed as on the driver's wire:
-                ef_sign_fused and sign_decode_reduce at olmoe's n and
-                group 32, ef_topk_fused (every rank, one a straggler) and
-                topk_decode_reduce at musicgen's n, block 256, k 8
+                ef_sign_fused and sign_decode_reduce at olmoe's and
+                deepseek's n (group 32) and zamba2's (group 512),
+                ef_topk_fused (every rank, one a straggler) and
+                topk_decode_reduce at musicgen's and xlstm's n, block 256,
+                k 8
  11. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
@@ -233,8 +247,28 @@ PREFETCH_LAYERS = 2       # prefetched against synchronous: depth cut
 OLMOE_LAYERS = 6          # olmoe-1b-7b's depth on one card (of 16)
 OLMOE_STEPS = 4
 MUSICGEN_STEPS = 3
+DEEPSEEK_LAYERS = 5       # deepseek-v2-lite-16b's depth on one card (of
+DEEPSEEK_STEPS = 4        # 27): block0 and 4 MLA + MoE blocks
+ZAMBA2_STEPS = 3
+XLSTM_STEPS = 3
 NEW_ARCHS = ("phi3-medium-14b", "nemotron-4-15b", "qwen1.5-110b",
-             "llava-next-34b", "musicgen-large", "olmoe-1b-7b")
+             "llava-next-34b", "musicgen-large", "olmoe-1b-7b",
+             "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
+BLOCK_TOPK_ARCHS = ("musicgen-large", "xlstm-1.3b")
+LATER_ARCHS = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
+# phase 10's cells at full width, one at a time: key -> (arch, driven by
+# the "driver" (train_e2e.run: its sign wire, g 32) or a "setup"
+# (build_train_setup + train_step on the arch's CodingPlan), depth (None:
+# full), steps, compressor)
+FAMILY_CELLS = {
+    "olmoe": ("olmoe-1b-7b", "driver", OLMOE_LAYERS, OLMOE_STEPS, "sign"),
+    "musicgen": ("musicgen-large", "setup", None, MUSICGEN_STEPS,
+                 "block_topk"),
+    "deepseek": ("deepseek-v2-lite-16b", "driver", DEEPSEEK_LAYERS,
+                 DEEPSEEK_STEPS, "sign"),
+    "zamba2": ("zamba2-2.7b", "setup", None, ZAMBA2_STEPS, "sign"),
+    "xlstm": ("xlstm-1.3b", "setup", None, XLSTM_STEPS, "block_topk"),
+}
 INIT_ROWS = 4096          # rows of each end of the token table checked
 INIT_LAYER = 13           # the layer whose w_down is checked
 INIT_PIECE = 256          # rows a numpy thread draws at a time
@@ -1361,7 +1395,8 @@ SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
               "driver resume straight", "driver resume save",
               "driver resume restored", "driver prefetch 2 layers",
               "driver sync 2 layers", "driver all flags",
-              "driver metrics off", "driver olmoe")
+              "driver metrics off", "driver olmoe", "driver deepseek",
+              "zamba2 sign")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -1879,33 +1914,50 @@ def driver_phase(torch, spec, dev, launches) -> dict:
             if isinstance(v, dict) and "launches" in v}
 
 
+def family_path(key: str) -> str:
+    """The path label of phase 10's cell `key` (its launch counts'
+    key)."""
+    arch, how, _, _, comp = FAMILY_CELLS[key]
+    return f"driver {key}" if how == "driver" else f"{key} {comp}"
+
+
 def families_kernels(torch, ref, sp, tp, gen, dev, wires) -> dict:
-    """B1 and B2 at olmoe's n and group, B3 and B4 at musicgen's n, block
-    and k (no budget), as phase 10 called them: each held against its
-    plain version chunk by chunk and timed, as on the driver's wire.
-    Returns {arch: (its path, {kernel: numbers})}."""
-    n, G = wires["olmoe"]
-    olmoe = {"ef_sign_fused": {"n": n, "group": G, **ef_at_slice(
-        torch, ref, sp, gen, dev, n, G)}}
-    settle(torch, f"ef_sign_fused at olmoe's n, g {G}")
-    olmoe["sign_decode_reduce"] = {"n": n, "group": G, **decode_at_slice(
-        torch, ref, sp, gen, dev, n, G)}
-    settle(torch, f"sign_decode_reduce at olmoe's n, g {G}")
-    n, B, k = wires["musicgen"]
-    musicgen = {name: {"n": n, "block": B, "k": k, **r} for name, r in
-                budgets_at_slice(torch, ref, tp, gen, dev, n, B, k,
-                                 None).items()}
+    """The kernels of phase 10's paths at their shapes, as its cells called
+    them: B1 and B2 at each sign cell's n and group (olmoe and deepseek
+    g 32, zamba2 g 512), B3 and B4 at each block top-K cell's n, block
+    and k (musicgen, xlstm; no budget), each held against its plain
+    version chunk by chunk and timed, as on the driver's wire.  Returns
+    {key: (its path, {kernel: numbers})}."""
+    out = {}
+    for key, w in wires.items():
+        if len(w) == 2:
+            n, G = w
+            held = {"ef_sign_fused": {"n": n, "group": G, **ef_at_slice(
+                torch, ref, sp, gen, dev, n, G)}}
+            settle(torch, f"ef_sign_fused at {key}'s n, g {G}")
+            held["sign_decode_reduce"] = {"n": n, "group": G,
+                                          **decode_at_slice(
+                                              torch, ref, sp, gen, dev, n,
+                                              G)}
+            settle(torch, f"sign_decode_reduce at {key}'s n, g {G}")
+        else:
+            n, B, k = w
+            held = {name: {"n": n, "block": B, "k": k, **r} for name, r in
+                    budgets_at_slice(torch, ref, tp, gen, dev, n, B, k,
+                                     None).items()}
+            settle(torch, f"the block top-K kernels at {key}'s n")
+        out[key] = (family_path(key), held)
     print(f"kernels vs plain and times on the families' wires, train "
-          f"layout: {json.dumps({'olmoe': olmoe, 'musicgen': musicgen})}",
+          f"layout: {json.dumps({k: v[1] for k, v in out.items()})}",
           flush=True)
-    return {"olmoe": ("driver olmoe", olmoe),
-            "musicgen": ("musicgen block_topk", musicgen)}
+    return out
 
 
-def families_phase(torch, dev, launches) -> tuple:
-    """Phase 10 of the module docstring; returns the launch counts of its
-    two paths and their kernels' shapes: {"olmoe": (n, g), "musicgen":
-    (n, B, k)}."""
+def families_phase(torch, dev, launches, cells=FAMILY_CELLS) -> tuple:
+    """Phase 10 of the module docstring over `cells` (FAMILY_CELLS'
+    layout), one setup at a time, each freed before the next; returns the
+    launch counts of their paths and their kernels' shapes: {key: (n, g)}
+    on the sign wire, {key: (n, B, k)} on block top-K."""
     import shutil
     import tempfile
     from repro_torch.configs import REGISTRY, ShapeCfg
@@ -1913,63 +1965,69 @@ def families_phase(torch, dev, launches) -> tuple:
     from repro_torch.nn.transformer import num_params
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     total = torch.cuda.get_device_properties(0).total_memory
-    out = {}
-    spec = REGISTRY["olmoe-1b-7b"]
-    cut = dataclasses.replace(spec, config=dataclasses.replace(
-        spec.config, num_layers=OLMOE_LAYERS))
-    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_olmoe_"))
-    try:
-        res = driver_run(torch, launches, "olmoe",
-                         driver_args(tmp, "cuda", "--steps", str(OLMOE_STEPS),
-                                     "--ckpt-every", str(1 << 30),
-                                     arch="olmoe-1b-7b"), cut, shape,
-                         {"ef_sign_fused": N_CODE * OLMOE_STEPS,
-                          "sign_decode_reduce": OLMOE_STEPS}, out)
-    finally:
-        shutil.rmtree(tmp, ignore_errors=True)
-    setup = res["setup"]
-    cfg = setup.model.cfg
-    wires = {"olmoe": (setup.flat_pad, setup.cocoef_cfg.group_size)}
-    out["olmoe"].update({
-        "layers": f"{cfg.num_layers} of {spec.config.num_layers}",
-        "params": num_params(cfg), "flat": setup.flat_pad,
-        "init_s": res["init_s"],
-        "moe_dropped": [r["moe_dropped"] for r in res["steps"]],
-        "assignments_per_rank": cfg.num_layers * setup.b_loc * SEQ_LEN
-        * cfg.moe_top_k, "total_memory": total})
-    del res, setup
-    settle(torch, "the olmoe run")
-
-    spec = REGISTRY["musicgen-large"]
-    torch.cuda.reset_peak_memory_stats()
-    setup = build_train_setup(spec, shape, TrainRun(
-        base_lr=5e-3, compressor="block_topk"), smoke=False, n_code=N_CODE,
-        device=dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    e = setup.init_state()
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
-    stats = {}
-    got = train_path(torch, setup, e, 0, MUSICGEN_STEPS,
-                     "musicgen block_topk",
-                     {"ef_topk_fused": N_CODE * MUSICGEN_STEPS,
-                      "topk_decode_reduce": MUSICGEN_STEPS}, launches, stats)
-    peak = torch.cuda.max_memory_allocated()
-    PEAKS["musicgen block_topk"] = peak
-    out["musicgen block_topk"] = {
-        "launches": got, "layers": setup.model.cfg.num_layers,
-        "params": num_params(setup.model.cfg), "flat": setup.flat_pad,
-        "block": spec.coding.block_size, "k": spec.coding.k_per_block,
-        "init_s": init_s, "peak_bytes": peak, "total_memory": total,
-        **stats}
-    wires["musicgen"] = (setup.flat_pad, setup.cocoef_cfg.block_size,
-                         setup.cocoef_cfg.k_per_block)
-    del setup, e
-    settle(torch, "the musicgen run")
+    out, counts, wires = {}, {}, {}
+    for key, (arch, how, layers, steps, comp) in cells.items():
+        spec = REGISTRY[arch]
+        full = spec.config.num_layers
+        if layers:
+            spec = dataclasses.replace(spec, config=dataclasses.replace(
+                spec.config, num_layers=layers))
+        sign = comp == "sign"
+        want = ({"ef_sign_fused": N_CODE * steps,
+                 "sign_decode_reduce": steps} if sign else
+                {"ef_topk_fused": N_CODE * steps,
+                 "topk_decode_reduce": steps})
+        path = family_path(key)
+        if how == "driver":
+            tmp = Path(tempfile.mkdtemp(prefix=f"chip_smoke_{key}_"))
+            try:
+                res = driver_run(torch, launches, key, driver_args(
+                    tmp, "cuda", "--steps", str(steps), "--ckpt-every",
+                    str(1 << 30), arch=arch), spec, shape, want, out)
+            finally:
+                shutil.rmtree(tmp, ignore_errors=True)
+            setup, cell = res["setup"], out.pop(key)
+            cell.update(init_s=res["init_s"])
+            if "moe_dropped" in res["steps"][0]:
+                cfg = setup.model.cfg
+                moe_layers = cfg.num_layers - (cfg.family == "deepseek")
+                cell.update(
+                    moe_dropped=[r["moe_dropped"] for r in res["steps"]],
+                    assignments_per_rank=moe_layers * setup.b_loc
+                    * SEQ_LEN * cfg.moe_top_k)
+            del res
+        else:
+            torch.cuda.reset_peak_memory_stats()
+            setup = build_train_setup(spec, shape, TrainRun(
+                base_lr=5e-3, compressor=comp), smoke=False, n_code=N_CODE,
+                device=dev)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            e = setup.init_state()
+            torch.cuda.synchronize()
+            init_s = time.perf_counter() - t0
+            stats = {}
+            got = train_path(torch, setup, e, 0, steps, path, want,
+                             launches, stats)
+            peak = torch.cuda.max_memory_allocated()
+            PEAKS[path] = peak
+            cell = {"launches": got, "init_s": init_s, "peak_bytes": peak,
+                    **stats}
+            del e
+        cfg, ccfg = setup.model.cfg, setup.cocoef_cfg
+        cell.update({"layers": f"{cfg.num_layers} of {full}",
+                     "params": num_params(cfg), "flat": setup.flat_pad,
+                     "total_memory": total})
+        wires[key] = ((setup.flat_pad, ccfg.group_size) if sign else
+                      (setup.flat_pad, ccfg.block_size, ccfg.k_per_block))
+        if not sign:
+            cell.update(block=ccfg.block_size, k=ccfg.k_per_block)
+        out[path] = cell
+        counts[path] = cell["launches"]
+        del setup
+        settle(torch, f"the {key} run")
     print("families: " + json.dumps(out), flush=True)
-    return {("driver olmoe" if k == "olmoe" else k): v["launches"]
-            for k, v in out.items()}, wires
+    return counts, wires
 
 
 def init_slices(cfg) -> list:
@@ -2295,8 +2353,8 @@ def main() -> None:
         sign_pack as sp, topk_pack as tp
     from repro_torch.kernels.common import launches
     from repro_torch.launch import train_e2e
-    from repro_torch.launch.device_parity import moe_repeat, \
-        serve_parity, step_parity
+    from repro_torch.launch.device_parity import loss_no_sync, \
+        moe_repeat, serve_parity, step_parity
     from repro_torch.nn.transformer import num_params
 
     dev = torch.device("cuda", 0)
@@ -2407,7 +2465,7 @@ def main() -> None:
     print(f"reference (serve, relative gaps): {json.dumps(gaps)}",
           flush=True)
     for arch in NEW_ARCHS:
-        comp = "block_topk" if arch == "musicgen-large" else "sign"
+        comp = "block_topk" if arch in BLOCK_TOPK_ARCHS else "sign"
         try:
             parity = step_parity("cuda", arch=arch, compressor=comp)
         except AssertionError as err:
@@ -2422,6 +2480,14 @@ def main() -> None:
         fail(f"the MoE layer on the card: {err}")
     print(f"reference (MoE layer twice, bit for bit, no sync): "
           f"{json.dumps(rep_moe)}", flush=True)
+    no_sync = {}
+    for arch in LATER_ARCHS:
+        try:
+            no_sync[arch] = loss_no_sync("cuda", arch)
+        except (AssertionError, RuntimeError) as err:
+            fail(f"{arch}'s smoke loss and backward on the card: {err}")
+    print(f"reference (smoke loss and backward, bf16, no sync): "
+          f"{json.dumps(no_sync)}", flush=True)
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     counts = {}
@@ -2453,7 +2519,7 @@ def main() -> None:
 
     block_paths = ("block_topk", "block_topk b2 pipelined", "driver budgets",
                    "driver all flags", "driver metrics off",
-                   "musicgen block_topk")
+                   "musicgen block_topk", "xlstm block_topk")
     meta = {
         "ef_sign_fused": ("sign_pack", "sign_pack.py:112", SIGN_PATHS),
         "sign_decode_reduce": ("sign_pack", "sign_pack.py:162", SIGN_PATHS),

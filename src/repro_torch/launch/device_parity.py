@@ -69,6 +69,12 @@ dropped count and every gradient must repeat bit for bit (no atomics
 decide a float), and on a card nothing inside may synchronise the host
 (CUDA's sync debug mode raises on one).
 
+`loss_no_sync(device, arch, dtype)` runs the smoke config of `arch` (its
+θ0 and a seeded token batch) forward and backward once on `device`; on a
+card nothing inside may synchronise the host (the sync debug mode raises),
+so the recurrent families' Python loops (the SSD's chunk carries, the
+mLSTM's chunks, the sLSTM's steps) queue their kernels without waiting.
+
 It raises AssertionError on a miss.  `chip_smoke.py` and the `gpu` tests
 run it with device="cuda"; on the CPU it also runs against itself.
 """
@@ -85,7 +91,7 @@ from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.serve import build_serve_setup
 from repro_torch.launch.train import TrainRun, TrainSetup, build_train_setup
 
-__all__ = ["moe_repeat", "serve_parity", "step_parity"]
+__all__ = ["loss_no_sync", "moe_repeat", "serve_parity", "step_parity"]
 
 MASK = (1.0, 0.0, 1.0, 1.0)
 
@@ -355,3 +361,31 @@ def moe_repeat(device="cuda", dtype: str = "bfloat16", seed: int = 0
     dropped = int(runs[0][2])
     assert dropped > 0, "the capacity factor 0.5 dropped nothing"
     return {"dropped": dropped, "tensors": len(runs[0])}
+
+
+def loss_no_sync(device="cuda", arch: str = "xlstm-1.3b",
+                 dtype: str = "bfloat16", seed: int = 0) -> Dict[str, float]:
+    """The no-sync check of the module docstring; returns the loss and the
+    gradient's norm (both finite)."""
+    from repro_torch.nn.models import Model
+    dev = torch.device(device)
+    cfg = dataclasses.replace(REGISTRY[arch].smoke, dtype=dtype)
+    m = Model(cfg, device=dev)
+    m.init_(seed)
+    gen = torch.Generator().manual_seed(seed)
+    toks = torch.randint(0, cfg.vocab_size, (2, 33), generator=gen).to(dev)
+    w = torch.rand(2, generator=gen).to(dev)
+    cuda = dev.type == "cuda"
+    if cuda:
+        torch.cuda.synchronize(dev)
+        torch.cuda.set_sync_debug_mode("error")
+    try:
+        loss, _ = m.loss(toks, w)
+        loss.backward()
+    finally:
+        if cuda:
+            torch.cuda.set_sync_debug_mode("default")
+    out = {"loss": loss.item(), "grad_norm": m.grad.norm().item()}
+    assert np.isfinite(out["loss"]) and np.isfinite(out["grad_norm"]), \
+        f"{arch} ({dtype}) on {device}: {out}"
+    return out

@@ -1,11 +1,13 @@
-"""Dense layers in the JAX package's layouts (port of `repro.nn.layers` but
-MLA): RMSNorm and LayerNorm, RoPE, GQA attention with optional qkv bias,
-the swiglu, geglu, relu2 and gelu MLPs, token or embeddings input, a tied
-or untied head.
+"""Dense layers in the JAX package's layouts (port of `repro.nn.layers`):
+RMSNorm and LayerNorm, RoPE, GQA attention with optional qkv bias,
+deepseek-v2's MLA (training path), the swiglu, geglu, relu2 and gelu
+MLPs, token or embeddings input, a tied or untied head.
 
 Layouts match JAX: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d),
 bq (H, hd), bk/bv (Hkv, hd), w_gate/w_up (d, ff), w_down (ff, d),
-proj (d, d), head (d, vocab), products written x @ W.  Parameters
+proj (d, d), head (d, vocab); MLA's wq (d, H, qk_nope + qk_rope),
+w_dkv (d, r + qk_rope), w_uk (r, H, qk_nope), w_uv (r, H, v), wo (H, v,
+d), kv_norm (r,); products written x @ W.  Parameters
 are f32 and cast to the compute dtype at use; compute runs in cfg.dtype.
 Training attention is plain einsum + softmax, as JAX's XLA path is.  The
 prefill runs the hand-written flash kernel (`kernels.flash_attention`), as
@@ -174,6 +176,54 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, window: int = 0
     out = torch.einsum("bsngt,bntk->bsngk", wts, cv.to(ct))
     out = out.reshape(B, 1, cfg.num_heads, cfg.head_dim)
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
+
+
+def mla_latent(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
+    """MLA's compressed latent [c_kv ; k_rope] (B, S, r + qk_rope) (JAX
+    `_mla_latent`): x @ w_dkv, c_kv RMS-normed in f32 by kv_norm, k_rope
+    rotated once for every head."""
+    ct = x.dtype
+    r = cfg.kv_lora_rank
+    ckv = x @ p["w_dkv"].to(ct)
+    c, k_rope = ckv[..., :r], ckv[..., r:]
+    cf = c.float()
+    c = (cf * torch.rsqrt((cf * cf).mean(-1, keepdim=True) + 1e-6)
+         * p["kv_norm"].float()).to(ct)
+    k_rope = rope(k_rope[..., None, :], positions, cfg.rope_theta)[..., 0, :]
+    return torch.cat([c, k_rope], dim=-1)
+
+
+def mla_attend(p, x, lat, cfg: ModelConfig, positions, keep
+               ) -> torch.Tensor:
+    """Attention of x's queries against the latent `lat` (JAX
+    `_mla_attend`): k_nope and v expanded from c_kv per head, scores
+    (q_nope . k_nope + q_rope . k_rope) * (qk_nope + qk_rope)^-0.5 in the
+    compute dtype, masked by keep (1, S, T), softmax in f32, the weights
+    back in the compute dtype; v's width (v_head_dim) is not q.k's."""
+    ct = x.dtype
+    r, nope = cfg.kv_lora_rank, cfg.qk_nope_dim
+    q = torch.einsum("bsd,dhk->bshk", x, p["wq"].to(ct))
+    q_nope, q_rope = q[..., :nope], q[..., nope:]
+    q_rope = rope(q_rope, positions, cfg.rope_theta)
+    c_all, krope_all = lat[..., :r], lat[..., r:]
+    k_nope = torch.einsum("btr,rhk->bthk", c_all, p["w_uk"].to(ct))
+    v = torch.einsum("btr,rhk->bthk", c_all, p["w_uv"].to(ct))
+    scale = _cs((cfg.qk_nope_dim + cfg.qk_rope_dim) ** -0.5, ct)
+    scores = (torch.einsum("bshk,bthk->bsht", q_nope, k_nope)
+              + torch.einsum("bshk,btk->bsht", q_rope, krope_all)) * scale
+    scores = torch.where(keep[:, :, None, :], scores, NEG_INF)
+    wts = torch.softmax(scores.float(), dim=-1).to(ct)
+    out = torch.einsum("bsht,bthk->bshk", wts, v)
+    return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
+
+
+def mla_train(p, x, cfg: ModelConfig) -> torch.Tensor:
+    """Full causal MLA over x (B, S, d) (JAX `mla_train`)."""
+    S = x.shape[1]
+    pos = torch.arange(S, device=x.device)
+    lat = mla_latent(p, x, cfg, pos[None])
+    keep = (pos[None, :] <= pos[:, None])[None]                  # (1,S,S)
+    return mla_attend(p, x, lat, cfg, pos[None], keep)
 
 
 def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:

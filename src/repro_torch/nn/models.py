@@ -1,6 +1,6 @@
-"""Public model facade (port of `repro.nn.models.Model`, the dense and MoE
-families): training loss, and serving (caches, prefill, decode) of
-gemma2's stack."""
+"""Public model facade (port of `repro.nn.models.Model`, every family):
+training loss, and serving (caches, prefill, decode) of gemma2's
+stack."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple

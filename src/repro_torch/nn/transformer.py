@@ -1,20 +1,26 @@
-"""The dense and MoE decoder stacks (port of those families of
-`repro.nn.transformer`): parameter shapes, init, forward, the coded
-weighted loss, and serving (prefill, KV caches, decode) of gemma2's
-stack.  The dense family takes every variant of `nn.layers` (RMSNorm or
-LayerNorm, qkv bias, the four MLPs, token or embeddings input, a tied or
-untied head); the MoE family swaps each block's MLP for `nn.moe`.
+"""The decoder stacks of every family (port of `repro.nn.transformer`'s
+training path): parameter shapes, init, forward, the coded weighted loss,
+and serving (prefill, KV caches, decode) of gemma2's stack.  The dense
+family takes every variant of `nn.layers` (RMSNorm or LayerNorm, qkv
+bias, the four MLPs, token or embeddings input, a tied or untied head);
+the MoE family swaps each block's MLP for `nn.moe`; deepseek puts MLA
+(`layers.mla_train`) before the MoE, after one dense block0; hybrid
+(zamba2) interleaves groups of Mamba2 blocks (`nn.ssm`) with one shared
+attention block; xlstm groups mLSTM blocks before an sLSTM block
+(`nn.xlstm`).
 
-Block parameters are stacked (L, ...) exactly as JAX lays them out
-(`blocks/attn/wq` is (L, d, H, hd), ...), and every leaf is a view into one
-padded flat f32 buffer in JAX's leaf order (`core.cocoef.flat_layout`).
-Autograd sees one leaf per layer — a view of layer l of the stacked tensor
-— whose `.grad` is the matching view of one flat gradient buffer, so the
-backward pass accumulates straight into the flat gradient with no
-concatenation and no full-size per-layer temporaries.
+Block parameters are stacked exactly as JAX lays them out
+(`blocks/attn/wq` is (L, d, H, hd), hybrid's `blocks/mamba/w_x` (G,
+period, d, di), ...), and every leaf is a view into one padded flat f32
+buffer in JAX's leaf order (`core.cocoef.flat_layout`).  Autograd sees one
+leaf per block — a view of block (g, i) of the stacked tensor — whose
+`.grad` is the matching view of one flat gradient buffer, so the backward
+pass accumulates straight into the flat gradient with no concatenation
+and no full-size per-layer temporaries.
 """
 from __future__ import annotations
 
+import itertools
 import math
 from typing import Dict, Optional, Tuple
 
@@ -27,30 +33,41 @@ from repro_torch import resolve_device
 from repro_torch.core import prng
 from . import layers as L
 from . import moe as MOE
+from . import ssm as SSM
+from . import xlstm as XL
 from .config import ModelConfig
 
-FAMILIES = ("dense", "moe")
+FAMILIES = ("dense", "moe", "deepseek", "hybrid", "xlstm")
 AUX_WEIGHT = 0.01          # JAX weighted_loss's default aux_weight
+ONES = frozenset(("scale", "D", "norm_scale", "kv_norm"))   # init to 1
 
-def _block_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
-    """One block's leaves (JAX `init_attention`, `init_norm`, `init_mlp`
-    or `moe.init_moe`), without the layer axis."""
-    d, H, Hkv, hd, ff = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
-                         cfg.head_dim, cfg.d_ff)
-    blk = {"attn/wq": (d, H, hd), "attn/wk": (d, Hkv, hd),
-           "attn/wv": (d, Hkv, hd), "attn/wo": (H, hd, d)}
+
+def _attn_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """JAX `init_attention`'s leaves."""
+    d, H, Hkv, hd = cfg.d_model, cfg.num_heads, cfg.num_kv_heads, \
+        cfg.head_dim
+    out = {"wq": (d, H, hd), "wk": (d, Hkv, hd), "wv": (d, Hkv, hd),
+           "wo": (H, hd, d)}
     if cfg.qkv_bias:
-        blk.update({"attn/bq": (H, hd), "attn/bk": (Hkv, hd),
-                    "attn/bv": (Hkv, hd)})
-    for norm in ("norm1", "norm2"):
-        blk.update(_norm_shapes(cfg, norm))
-    if cfg.family == "moe":
-        blk.update({"moe/" + k: v for k, v in MOE.leaf_shapes(cfg).items()})
-    else:
-        if cfg.mlp in ("swiglu", "geglu"):
-            blk["mlp/w_gate"] = (d, ff)
-        blk.update({"mlp/w_up": (d, ff), "mlp/w_down": (ff, d)})
-    return blk
+        out.update({"bq": (H, hd), "bk": (Hkv, hd), "bv": (Hkv, hd)})
+    return out
+
+
+def _mla_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """JAX `init_mla`'s leaves."""
+    d, H, r = cfg.d_model, cfg.num_heads, cfg.kv_lora_rank
+    return {"wq": (d, H, cfg.qk_nope_dim + cfg.qk_rope_dim),
+            "w_dkv": (d, r + cfg.qk_rope_dim),
+            "w_uk": (r, H, cfg.qk_nope_dim), "w_uv": (r, H, cfg.v_head_dim),
+            "wo": (H, cfg.v_head_dim, d), "kv_norm": (r,)}
+
+
+def _mlp_shapes(cfg: ModelConfig, ff: int) -> Dict[str, Tuple[int, ...]]:
+    """JAX `init_mlp`'s leaves at width ff."""
+    d = cfg.d_model
+    out = {"w_gate": (d, ff)} if cfg.mlp in ("swiglu", "geglu") else {}
+    out.update({"w_up": (d, ff), "w_down": (ff, d)})
+    return out
 
 
 def _norm_shapes(cfg: ModelConfig, name: str) -> Dict[str, Tuple[int, ...]]:
@@ -60,23 +77,75 @@ def _norm_shapes(cfg: ModelConfig, name: str) -> Dict[str, Tuple[int, ...]]:
     return out
 
 
+def _under(prefix: str, shapes: Dict[str, Tuple[int, ...]]):
+    return {f"{prefix}/{k}": v for k, v in shapes.items()}
+
+
+def _block(cfg: ModelConfig, attn: Dict, ffn: Dict) -> Dict:
+    """norm1, attn, norm2 and the MLP or MoE leaves `ffn` of one block."""
+    out = {**_norm_shapes(cfg, "norm1"), **_under("attn", attn),
+           **_norm_shapes(cfg, "norm2")}
+    out.update(ffn)
+    return out
+
+
+def _moe(cfg: ModelConfig) -> Dict:
+    return _under("moe", MOE.leaf_shapes(cfg))
+
+
+def _stacks(cfg: ModelConfig
+            ) -> Dict[str, Tuple[Tuple[int, ...], Dict[str, Tuple[int, ...]]]]:
+    """prefix -> (leading axes, one block's leaves) of each block group of
+    JAX's param tree (`init_params`): the dense and MoE stacks one group
+    "blocks" (L); deepseek "block0" (MLA + a dense MLP of dense_ff, no
+    axis) and "blocks" (L - 1, MLA + MoE); hybrid "blocks" (G, period) of
+    Mamba2 and one "shared_attn" block; xlstm "mlstm_blocks" (G,
+    slstm_every - 1) and "slstm_blocks" (G)."""
+    f, Lyr = cfg.family, cfg.num_layers
+    if f in ("dense", "moe"):
+        ffn = (_moe(cfg) if f == "moe"
+               else _under("mlp", _mlp_shapes(cfg, cfg.d_ff)))
+        return {"blocks": ((Lyr,), _block(cfg, _attn_shapes(cfg), ffn))}
+    if f == "deepseek":
+        return {"block0": ((), _block(cfg, _mla_shapes(cfg), _under(
+                    "mlp", _mlp_shapes(cfg, cfg.dense_ff)))),
+                "blocks": ((Lyr - 1,), _block(cfg, _mla_shapes(cfg),
+                                              _moe(cfg)))}
+    if f == "hybrid":
+        per = cfg.hybrid_attn_period
+        return {"blocks": ((Lyr // per, per), {
+                    **_norm_shapes(cfg, "norm1"),
+                    **_under("mamba", SSM.leaf_shapes(cfg))}),
+                "shared_attn": ((), _block(cfg, _attn_shapes(cfg), _under(
+                    "mlp", _mlp_shapes(cfg, cfg.d_ff))))}
+    per = cfg.slstm_every
+    return {"mlstm_blocks": ((Lyr // per, per - 1), {
+                **_norm_shapes(cfg, "norm1"),
+                **_under("mlstm", XL.mlstm_shapes(cfg))}),
+            "slstm_blocks": ((Lyr // per,), {
+                **_norm_shapes(cfg, "norm1"),
+                **_under("slstm", XL.slstm_shapes(cfg))})}
+
+
 def check_family(cfg: ModelConfig) -> None:
-    """The port has the dense and MoE families (ROADMAP A5: MLA, the
-    hybrid and xLSTM stacks are still to port)."""
-    if cfg.family not in FAMILIES or cfg.mla:
+    """The port has every family of JAX's `init_params`: dense, moe,
+    deepseek (MLA + MoE), hybrid (Mamba2 + a shared attention block) and
+    xlstm (mLSTM + sLSTM)."""
+    if cfg.family not in FAMILIES or (cfg.mla and cfg.family != "deepseek"):
         raise NotImplementedError(f"the port has the {FAMILIES} families, "
                                   f"not {cfg.family!r}")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
     """name -> shape of every parameter leaf (the JAX param tree's key
-    paths joined by '/'): the blocks stacked over layers, the embedding
-    (a token table or the embeddings input's projection, and the head
-    unless tied) and the final norm."""
+    paths joined by '/'): the block groups of `_stacks` with their
+    leading axes, the embedding (a token table or the embeddings input's
+    projection, and the head unless tied) and the final norm."""
     check_family(cfg)
-    Lyr, d, V = cfg.num_layers, cfg.d_model, cfg.vocab_size
-    shapes = {"blocks/" + k: (Lyr,) + v
-              for k, v in _block_shapes(cfg).items()}
+    d, V = cfg.d_model, cfg.vocab_size
+    shapes = {f"{prefix}/{k}": lead + v
+              for prefix, (lead, blk) in _stacks(cfg).items()
+              for k, v in blk.items()}
     if cfg.input_mode == "tokens":
         shapes["embed/tok"] = (V, d)
     else:
@@ -122,52 +191,115 @@ def _layer_cache(caches, l: int):
     return {k: v[l] for k, v in caches["kv"].items()}
 
 
+def _split(parents: np.ndarray, n: int) -> np.ndarray:
+    """`prng.split(k, n)` of every key of parents (..., 2) -> (..., n, 2)
+    (JAX's split under vmap)."""
+    flat = parents.reshape(-1, 2)
+    return np.stack([prng.split(k, n) for k in flat]).reshape(
+        parents.shape[:-1] + (n, 2))
+
+
 def init_keys(cfg: ModelConfig, key: np.ndarray
               ) -> Dict[str, Tuple[np.ndarray, Optional[int]]]:
     """name -> (keys, fan_in) of every random leaf, walking the key tree of
-    `repro.nn.transformer.init_params` for the dense and MoE stacks:
-    split(key, 8); ks[0] to `init_embedding` (split of 2: the token table,
-    unscaled (fan_in None), or the embeddings input's proj from the
-    first, the untied head from the second); split(ks[1], L) to the
-    layers (under JAX's vmap, one key per layer), each split in 4 with k1
-    to `init_attention` (split of 4: wq, wk, wv, wo), k2 to `init_moe`
-    (split of 5: router, w_gate, w_up, w_down, and the shared experts'
-    split of 3 from the fifth) and k3 to `init_mlp` (split of 3: w_gate,
-    w_up, w_down; without a gate w_up, w_down).  Block leaves get (L, 2)
-    keys, one per layer; fan_in is `dense_init`'s in_axis_size.  Norm
-    scales are ones, biases zeros (no key)."""
-    d, ff = cfg.d_model, cfg.d_ff
+    `repro.nn.transformer.init_params`: split(key, 8); ks[0] to
+    `init_embedding` (split of 2: the token table, unscaled (fan_in
+    None), or the embeddings input's proj from the first, the untied head
+    from the second).  A stacked leaf gets one key per block, (*lead, 2)
+    (JAX's vmap over split keys, then reshaped); fan_in is `dense_init`'s
+    in_axis_size.  The blocks:
+      dense, moe  split(ks[1], L), each split in 4: k1 to
+                  `init_attention` (split of 4: wq, wk, wv, wo), k2 to
+                  `init_moe` (split of 5: router, w_gate, w_up, w_down, and
+                  the shared experts' split of 3 from the fifth), k3 to
+                  `init_mlp` (split of 3: w_gate, w_up, w_down; without a
+                  gate w_up, w_down);
+      deepseek    split(ks[1]): `init_mla` (split of 5: wq, w_dkv, w_uk,
+                  w_uv, wo) and `init_mlp` at dense_ff for block0; then
+                  split(ks[2], L - 1), each split in 2: `init_mla`,
+                  `init_moe`;
+      hybrid      split(ks[1], L) to `init_mamba2` (split of 8), reshaped
+                  (G, period); split(ks[2]): `init_attention` and
+                  `init_mlp` of the shared block;
+      xlstm       split(ks[1], G * (slstm_every - 1)) to `init_mlstm`
+                  (split of 8, 7 used), reshaped (G, slstm_every - 1);
+                  split(ks[2], G) to `init_slstm` (split of 3).
+    The constant leaves (names in ONES: 1; the rest 0) take no key."""
+    d, H = cfg.d_model, cfg.num_heads
     ks = prng.split(key, 8)
     emb = prng.split(ks[0], 2)
     out = ({"embed/tok": (emb[0], None)} if cfg.input_mode == "tokens"
            else {"embed/proj": (emb[0], d)})
     if not cfg.tie_embeddings:
         out["embed/head"] = (emb[1], d)
-    per = [prng.split(k, 4) for k in prng.split(ks[1], cfg.num_layers)]
 
-    def leaves(prefix, parents, n, names_fans):
-        keys = np.stack([prng.split(k, n) for k in parents])    # (L, n, 2)
+    def leaves(prefix, parents, names_fans):
+        keys = _split(parents, len(names_fans))
         for i, (leaf, fan) in enumerate(names_fans):
-            out[prefix + leaf] = (keys[:, i], fan)
+            if leaf is not None:
+                out[prefix + leaf] = (keys[..., i, :], fan)
         return keys
 
-    leaves("blocks/attn/", [k[0] for k in per], 4,
-           (("wq", d), ("wk", d), ("wv", d),
-            ("wo", cfg.num_heads * cfg.head_dim)))
-    if cfg.family == "moe":
-        mk = leaves("blocks/moe/", [k[1] for k in per], 5,
-                    (("router", d), ("w_gate", d), ("w_up", d),
-                     ("w_down", cfg.moe_ff)))
+    def attn(prefix, parents):
+        leaves(prefix, parents, (("wq", d), ("wk", d), ("wv", d),
+                                 ("wo", H * cfg.head_dim)))
+
+    def mla(prefix, parents):
+        r = cfg.kv_lora_rank
+        leaves(prefix, parents, (("wq", d), ("w_dkv", d), ("w_uk", r),
+                                 ("w_uv", r), ("wo", H * cfg.v_head_dim)))
+
+    def mlp(prefix, parents, ff):
+        gate = cfg.mlp in ("swiglu", "geglu")
+        leaves(prefix, parents,
+               (("w_gate", d), ("w_up", d), ("w_down", ff)) if gate
+               else (("w_up", d), ("w_down", ff), (None, None)))
+
+    def moe(prefix, parents):
+        mk = leaves(prefix, parents, (("router", d), ("w_gate", d),
+                                      ("w_up", d), ("w_down", cfg.moe_ff),
+                                      (None, None)))
         if cfg.moe_shared > 0:
-            leaves("blocks/moe/shared/", mk[:, 4], 3,
+            leaves(prefix + "shared/", mk[..., 4, :],
                    (("w_gate", d), ("w_up", d),
                     ("w_down", cfg.moe_ff * cfg.moe_shared)))
-    elif cfg.mlp in ("swiglu", "geglu"):
-        leaves("blocks/mlp/", [k[2] for k in per], 3,
-               (("w_gate", d), ("w_up", d), ("w_down", ff)))
+
+    f, Lyr = cfg.family, cfg.num_layers
+    if f in ("dense", "moe"):
+        per = _split(prng.split(ks[1], Lyr), 4)
+        attn("blocks/attn/", per[:, 0])
+        if f == "moe":
+            moe("blocks/moe/", per[:, 1])
+        else:
+            mlp("blocks/mlp/", per[:, 2], cfg.d_ff)
+    elif f == "deepseek":
+        k0 = prng.split(ks[1], 2)
+        mla("block0/attn/", k0[0])
+        mlp("block0/mlp/", k0[1], cfg.dense_ff)
+        per = _split(prng.split(ks[2], Lyr - 1), 2)
+        mla("blocks/attn/", per[:, 0])
+        moe("blocks/moe/", per[:, 1])
+    elif f == "hybrid":
+        per = cfg.hybrid_attn_period
+        di, cw = cfg.d_inner, cfg.conv_width
+        leaves("blocks/mamba/",
+               prng.split(ks[1], Lyr).reshape(Lyr // per, per, 2),
+               (("w_z", d), ("w_x", d), ("w_B", d), ("w_C", d), ("w_dt", d),
+                ("conv_x", cw), ("conv_bc", cw), ("w_out", di)))
+        k = prng.split(ks[2], 2)
+        attn("shared_attn/attn/", k[0])
+        mlp("shared_attn/mlp/", k[1], cfg.d_ff)
     else:
-        leaves("blocks/mlp/", [k[2] for k in per], 3,
-               (("w_up", d), ("w_down", ff)))
+        per = cfg.slstm_every
+        G = Lyr // per
+        di = int(d * cfg.proj_factor)
+        leaves("mlstm_blocks/mlstm/",
+               prng.split(ks[1], G * (per - 1)).reshape(G, per - 1, 2),
+               (("w_xin", d), ("w_zgate", d), ("w_q", di // H),
+                ("w_k", di // H), ("w_v", di // H), ("w_if", di),
+                ("w_down", di), (None, None)))
+        leaves("slstm_blocks/slstm/", prng.split(ks[2], G),
+               (("w_x", d), ("w_h", d), ("w_down", d)))
     return out
 
 
@@ -202,31 +334,37 @@ class Transformer(nn.Module):
         self.stacked = layout.views(theta)
         gviews = layout.views(grad) if grad is not None else None
 
-        def param(name: str, l: Optional[int]) -> nn.Parameter:
+        def param(name: str, idx: Tuple[int, ...]) -> nn.Parameter:
             def at(v):
-                return v if l is None else v[l]
+                return v[idx] if idx else v
             p = nn.Parameter(at(self.stacked[name]))
             if gviews is not None:
                 p.grad = at(gviews[name])
             return p
 
-        blocks = {n for n in layout.names if n.startswith("blocks/")}
+        # every block group of `_stacks`: one ParameterDict and one nested
+        # dict of parameters a block, in the order of its leading axes
         self.layers = nn.ModuleList()
-        self._blocks = []
-        for l in range(cfg.num_layers):
-            blk, named = nn.ParameterDict(), {}
-            for name in layout.names:
-                if name not in blocks:
-                    continue
-                leaf = name[len("blocks/"):]
-                blk[leaf.replace("/", "_")] = named[leaf] = param(name, l)
-            self.layers.append(blk)
-            self._blocks.append(_nest(named))
+        self.groups: Dict[str, list] = {}
+        grouped = set()
+        for prefix, (lead, _) in _stacks(cfg).items():
+            names = [n for n in layout.names if n.startswith(prefix + "/")]
+            grouped.update(names)
+            self.groups[prefix] = []
+            for idx in itertools.product(*map(range, lead)):
+                blk, named = nn.ParameterDict(), {}
+                for name in names:
+                    leaf = name[len(prefix) + 1:]
+                    blk[leaf.replace("/", "_")] = named[leaf] = \
+                        param(name, idx)
+                self.layers.append(blk)
+                self.groups[prefix].append(_nest(named))
+        self._blocks = self.groups.get("blocks", [])
         self.top, named = nn.ParameterDict(), {}
         for name in layout.names:
-            if name not in blocks:
+            if name not in grouped:
                 self.top[name.replace("/", "_")] = named[name] = \
-                    param(name, None)
+                    param(name, ())
         named = _nest(named)
         self.embed_p, self.final_p = named["embed"], named["final_norm"]
         self.windows = layer_windows(cfg)
@@ -240,55 +378,102 @@ class Transformer(nn.Module):
     def init_(self, key: np.ndarray) -> None:
         """JAX's init_params(key) bit for bit, as `jax.jit` compiles it
         (`init_keys`; each leaf erf_inv(u) * `prng.init_scale(fan_in)`,
-        drawn by `prng.normal_into` on theta's device); norm scales 1,
-        biases 0."""
+        drawn by `prng.normal_into` on theta's device, one draw a block of
+        a stacked leaf); the constant leaves 1 (names in ONES) or 0."""
         keys = init_keys(self.cfg, key)
         for name, v in self.stacked.items():
             if name not in keys:
-                v.fill_(1.0 if name.endswith("/scale") else 0.0)
+                v.fill_(1.0 if name.rsplit("/", 1)[-1] in ONES else 0.0)
                 continue
             k, fan = keys[name]
             scale = prng.init_scale(fan)
-            if k.ndim == 1:
-                prng.normal_into(v.view(-1), k, scale)
-            else:
-                for l in range(v.shape[0]):
-                    prng.normal_into(v[l].view(-1), k[l], scale)
+            k = k.reshape(-1, 2)
+            rows = v.view(k.shape[0], -1)
+            for i in range(k.shape[0]):
+                prng.normal_into(rows[i], k[i], scale)
 
-    def _block(self, x: torch.Tensor, l: int):
-        """Layer l: (x, the MoE layer's aux and dropped assignments, or
-        None in the dense family)."""
-        p, cfg = self._blocks[l], self.cfg
-        x = x + L.attn_train(p["attn"], L.apply_norm(p["norm1"], x, cfg),
-                             cfg, window=self.windows[l])
+    def _remat(self, fn, *args):
+        """fn(*args), rematerialised in the backward pass when cfg.remat
+        (JAX's `_maybe_remat` of its scanned blocks)."""
+        if self.cfg.remat and torch.is_grad_enabled():
+            return checkpoint(fn, *args, use_reentrant=False)
+        return fn(*args)
+
+    def _attn_ffn(self, x: torch.Tensor, p, window: int = 0):
+        """An attention block (GQA, or MLA in the deepseek family) and its
+        MLP or MoE: (x, the MoE layer's aux and dropped assignments, or
+        None without one)."""
+        cfg = self.cfg
+        h = L.apply_norm(p["norm1"], x, cfg)
+        x = x + (L.mla_train(p["attn"], h, cfg) if cfg.mla
+                 else L.attn_train(p["attn"], h, cfg, window=window))
         h = L.apply_norm(p["norm2"], x, cfg)
-        if cfg.family == "moe":
+        if "moe" in p:
             h, aux, dropped = MOE.apply_moe(p["moe"], h, cfg)
             return x + h, aux, dropped
         return x + L.apply_mlp(p["mlp"], h, cfg), None, None
 
+    def _mamba(self, x: torch.Tensor, p) -> torch.Tensor:
+        return x + SSM.apply_mamba2(
+            p["mamba"], L.apply_norm(p["norm1"], x, self.cfg), self.cfg)
+
+    def _mlstm(self, x: torch.Tensor, p) -> torch.Tensor:
+        return x + XL.apply_mlstm(
+            p["mlstm"], L.apply_norm(p["norm1"], x, self.cfg), self.cfg)
+
+    def _slstm(self, x: torch.Tensor, p) -> torch.Tensor:
+        return x + XL.apply_slstm(
+            p["slstm"], L.apply_norm(p["norm1"], x, self.cfg), self.cfg)
+
     def forward(self, inputs: torch.Tensor
                 ) -> Tuple[torch.Tensor, Optional[torch.Tensor]]:
         """inputs (B, S) tokens or (B, S, d) embeddings -> ((B, S, d) final
-        normed hidden states, the MoE aux loss summed over the layers from
-        0 in f32, or None in the dense family).  Each block is
-        rematerialised in the backward pass when cfg.remat.  The MoE
-        layers' dropped assignments of this pass (an int64 device scalar,
-        summed over layers) are left in `moe_dropped`."""
-        x = L.embed(self.embed_p, inputs, self.cfg)
+        normed hidden states, the MoE aux loss summed over the MoE layers
+        from 0 in f32, or None without MoE layers), as JAX's `forward`:
+          dense, moe  the L blocks;
+          deepseek    block0 (MLA + dense MLP), then the L - 1 MLA + MoE
+                      blocks;
+          hybrid      G groups of `hybrid_attn_period` Mamba2 blocks, each
+                      group followed by the one shared attention block
+                      (full causal attention + MLP; its gradient sums over
+                      its G uses);
+          xlstm       G groups of slstm_every - 1 mLSTM blocks, each
+                      followed by the group's sLSTM block.
+        The blocks JAX scans are rematerialised in the backward pass when
+        cfg.remat (`_remat`); deepseek's block0, the shared block and the
+        sLSTM blocks are not, as in JAX.  The MoE layers' dropped
+        assignments of this pass (an int64 device scalar, summed over
+        layers) are left in `moe_dropped`."""
+        cfg = self.cfg
+        f = cfg.family
+        x = L.embed(self.embed_p, inputs, cfg)
         aux = dropped = None
-        if self.cfg.family == "moe":
+        if f in ("moe", "deepseek"):
             aux = torch.zeros((), dtype=torch.float32, device=x.device)
             dropped = torch.zeros((), dtype=torch.int64, device=x.device)
-        for l in range(self.cfg.num_layers):
-            if self.cfg.remat and torch.is_grad_enabled():
-                x, a, dr = checkpoint(self._block, x, l, use_reentrant=False)
-            else:
-                x, a, dr = self._block(x, l)
-            if a is not None:
-                aux, dropped = aux + a, dropped + dr
+        if f in ("dense", "moe", "deepseek"):
+            if f == "deepseek":
+                x, _, _ = self._attn_ffn(x, self.groups["block0"][0])
+            for p, w in zip(self._blocks, self.windows):    # MLA: no window
+                x, a, dr = self._remat(self._attn_ffn, x, p, w)
+                if a is not None:
+                    aux, dropped = aux + a, dropped + dr
+        elif f == "hybrid":
+            per = cfg.hybrid_attn_period
+            shared = self.groups["shared_attn"][0]
+            for g in range(cfg.num_layers // per):
+                for p in self._blocks[g * per:(g + 1) * per]:
+                    x = self._remat(self._mamba, x, p)
+                x, _, _ = self._attn_ffn(x, shared)
+        else:
+            per = cfg.slstm_every - 1
+            mlstm = self.groups["mlstm_blocks"]
+            for g, sp in enumerate(self.groups["slstm_blocks"]):
+                for p in mlstm[g * per:(g + 1) * per]:
+                    x = self._remat(self._mlstm, x, p)
+                x = self._slstm(x, sp)
         self.moe_dropped = dropped
-        return L.apply_norm(self.final_p, x, self.cfg), aux
+        return L.apply_norm(self.final_p, x, cfg), aux
 
     def weighted_loss(self, inputs: torch.Tensor, weights: torch.Tensor,
                       targets: Optional[torch.Tensor] = None

@@ -1,0 +1,281 @@
+"""xLSTM blocks, training path (port of `repro.nn.xlstm`): mLSTM (matrix
+memory) and sLSTM (scalar memory).
+
+mLSTM per head, with exponential gating and a running stabiliser m:
+  C_t = f_t C_{t-1} + i_t v_t k_t^T ,  n_t = f_t n_{t-1} + i_t k_t
+  h_t = (C_t q_t) / max(|n_t^T q_t|, exp(-m_t))
+in JAX's chunkwise form: quadratic within a chunk, a loop over chunks
+carrying (C, n, m), C and n stored scaled by exp(-m), m floored at -30.
+The head width is di // H (at xlstm-1.3b's width 4096 / 4 = 1024; the
+config's head_dim is not read), so the carry C is (B, H, 1024, 1024) f32.
+
+sLSTM: a scalar-memory recurrent cell with exponential gating, sequential
+over time.  `SLSTMScan` is an autograd Function that mirrors JAX's
+`custom_vjp`: the forward loop saves each step's pre-state, the backward
+loop recomputes each step's pre-activation, applies the cell's vjp
+(written out: no autograd graph a step) and stacks dpre, then dW_h is one contraction over the stacked sequence and
+db one sum (autograd through the loop would accumulate dW_h step by step:
+other sums, and a graph of S steps a block).
+
+JAX has no Pallas kernel here; this is plain PyTorch.  The decode step
+(S == 1 with a state) and the caches are ROADMAP A9.
+"""
+from __future__ import annotations
+
+from typing import Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from .config import ModelConfig
+from .ssm import softplus
+
+__all__ = ["mlstm_shapes", "slstm_shapes", "mlstm_chunk_scan",
+           "apply_mlstm", "slstm_cell", "slstm_cell_vjp", "SLSTMScan",
+           "apply_slstm", "mlstm_state", "slstm_state"]
+
+M_FLOOR = -30.0
+
+
+def mlstm_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name -> shape of one mLSTM block's leaves (JAX `init_mlstm`):
+    block-diagonal per-head q, k, v of (di // H)^2 each."""
+    d, H = cfg.d_model, cfg.num_heads
+    di = int(d * cfg.proj_factor)
+    hd = di // H
+    return {"w_xin": (d, di), "w_zgate": (d, di), "w_q": (H, hd, hd),
+            "w_k": (H, hd, hd), "w_v": (H, hd, hd), "w_if": (di, 2 * H),
+            "b_if": (2 * H,), "norm_scale": (di,), "w_down": (di, d)}
+
+
+def slstm_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
+    """name -> shape of one sLSTM block's leaves (JAX `init_slstm`)."""
+    d = cfg.d_model
+    return {"w_x": (d, 4 * d), "w_h": (d, 4 * d), "b": (4 * d,),
+            "w_down": (d, d)}
+
+
+def log_sigmoid(x: torch.Tensor) -> torch.Tensor:
+    """jax.nn.log_sigmoid as JAX writes it: -softplus(-x)."""
+    return -softplus(-x)
+
+
+def _floor(m: torch.Tensor) -> torch.Tensor:
+    """max(m, -30) with jnp.maximum's gradient (torch.maximum, not
+    clamp_min: split in two at a tie).  The bound is filled on m's device:
+    `new_tensor` would copy it from the host, which synchronises the
+    stream."""
+    return torch.maximum(m, m.new_full((), M_FLOOR))
+
+
+# --------------------------------------------------------------------------
+# mLSTM
+# --------------------------------------------------------------------------
+
+def mlstm_state(B: int, H: int, hd: int, device) -> tuple:
+    """JAX `init_mlstm_cache_raw`: C, n zeros, m at the floor."""
+    f32 = torch.float32
+    return (torch.zeros((B, H, hd, hd), dtype=f32, device=device),
+            torch.zeros((B, H, hd), dtype=f32, device=device),
+            torch.full((B, H), M_FLOOR, dtype=f32, device=device))
+
+
+def mlstm_chunk_scan(q, k, v, ig, log_f, state, chunk: int):
+    """Chunkwise mLSTM (JAX `_mlstm_chunk_scan`), f32.
+    q, k, v (B, S, H, hd); ig, log_f (B, S, H) (log-space gates); state
+    (C (B, H, hd, hd), n (B, H, hd), m (B, H)), C and n scaled by exp(-m).
+    Returns (y (B, S, H, hd), the new state).
+
+    JAX's three-operand einsums are written pairwise, each intermediate of
+    at most four axes: num = (s_qk * W) (b,i,j,h) over j against v;
+    C_new's update = (k * wj) (b,j,h,d) over j against v."""
+    B, S, H, hd = q.shape
+    nc = max(1, S // chunk)
+    c = S // nc
+
+    def rs(t):
+        return t.reshape((B, nc, c) + t.shape[2:])
+    qc, kc, vc, igc, lfc = rs(q), rs(k), rs(v), rs(ig), rs(log_f)
+    b_cum = torch.cumsum(lfc, dim=2)                  # (B,nc,c,H) inclusive
+    g = igc - b_cum                                   # ig_j - b_j
+    total = b_cum[:, :, -1]                           # (B,nc,H)
+    causal = torch.ones((c, c), dtype=torch.bool, device=q.device).tril()
+    causal = causal[None, :, :, None]
+    C, n, m = state
+    ys = []
+    for i in range(nc):
+        qn, kn, vn = qc[:, i], kc[:, i], vc[:, i]     # (B,c,H,hd)
+        bn, gn, tot = b_cum[:, i], g[:, i], total[:, i]
+        bg = bn[:, :, None, :] + gn[:, None, :, :]    # (B,i,j,H)
+        m_intra = torch.where(causal, bg, -torch.inf).amax(dim=2)
+        m_i = _floor(torch.maximum(m_intra, bn + m[:, None, :]))
+        W = torch.exp(torch.where(causal, bg - m_i[:, :, None, :],
+                                  -torch.inf))        # (B,i,j,H)
+        s_qk = torch.einsum("bihd,bjhd->bijh", qn, kn)
+        sw = s_qk * W
+        num = torch.einsum("bijh,bjhv->bihv", sw, vn)
+        den_i = (W * s_qk).sum(dim=2)                 # (B,c,H)
+        scale_c = torch.exp(bn + m[:, None, :] - m_i)
+        num = num + scale_c[..., None] * torch.einsum("bihd,bhdv->bihv",
+                                                      qn, C)
+        den_i = den_i + scale_c * torch.einsum("bihd,bhd->bih", qn, n)
+        ys.append(num / torch.maximum(den_i.abs(),
+                                      torch.exp(-m_i))[..., None])
+        m_next = _floor(torch.maximum(
+            tot + m, (gn + tot[:, None, :]).amax(dim=1)))
+        wj = torch.exp(gn + tot[:, None, :] - m_next[:, None, :])  # (B,c,H)
+        decay = torch.exp(tot + m - m_next)
+        C = decay[..., None, None] * C + torch.einsum(
+            "bjhd,bjhv->bhdv", kn * wj[..., None], vn)
+        n = decay[..., None] * n + torch.einsum("bjh,bjhd->bhd", wj, kn)
+        m = m_next
+    y = torch.stack(ys, dim=1).reshape(B, S, H, hd)
+    return y, (C, n, m)
+
+
+def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256
+                ) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d), the training path of JAX `apply_mlstm`
+    from the zero state: the up-projection and gate in the compute dtype,
+    per-head q, k (scaled by hd^-0.5), v and the gates in f32, the chunk
+    scan at chunk min(chunk, S), RMSNorm in f32, * silu(z), then
+    @ w_down."""
+    ct = x.dtype
+    B, S, d = x.shape
+    di = int(d * cfg.proj_factor)
+    H = cfg.num_heads
+    hd = di // H
+
+    xin = x @ p["w_xin"].to(ct)
+    z = x @ p["w_zgate"].to(ct)
+    xh = xin.reshape(B, S, H, hd)
+    q = torch.einsum("bshd,hde->bshe", xh, p["w_q"].to(ct)).float()
+    k = torch.einsum("bshd,hde->bshe", xh,
+                     p["w_k"].to(ct)).float() * (hd ** -0.5)
+    v = torch.einsum("bshd,hde->bshe", xh, p["w_v"].to(ct)).float()
+    gates = (xin @ p["w_if"].to(ct) + p["b_if"].to(ct)).float()
+    ig, fg = gates[..., :H], gates[..., H:]
+    y, _ = mlstm_chunk_scan(q, k, v, ig, log_sigmoid(fg),
+                            mlstm_state(B, H, hd, x.device),
+                            chunk=min(chunk, S))
+    y = y.to(ct).reshape(B, S, di)
+    yf = y.float()
+    yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
+    y = (yf * p["norm_scale"].float()).to(ct)
+    y = y * F.silu(z)
+    return y @ p["w_down"].to(ct)
+
+
+# --------------------------------------------------------------------------
+# sLSTM
+# --------------------------------------------------------------------------
+
+def slstm_state(B: int, d: int, device) -> tuple:
+    """JAX `init_slstm_cache_raw`: (c, n, h, m) = (0, 1, 0, 0)."""
+    z = torch.zeros((B, d), dtype=torch.float32, device=device)
+    return (z, torch.ones_like(z), z, z)
+
+
+def slstm_cell(pre, c, n, m):
+    """One sLSTM cell update (JAX `_slstm_cell`): pre (B, 4d) holds the
+    i, f, z, o pre-activations -> (c, n, h, m) of the next step."""
+    ig, fg, zg, og = pre.chunk(4, dim=-1)
+    log_f = log_sigmoid(fg)
+    m_new = torch.maximum(log_f + m, ig)
+    i_s = torch.exp(ig - m_new)
+    f_s = torch.exp(log_f + m - m_new)
+    c2 = f_s * c + i_s * torch.tanh(zg)
+    n2 = f_s * n + i_s
+    h2 = torch.sigmoid(og) * c2 / torch.maximum(n2, n2.new_ones(()))
+    return c2, n2, h2, m_new
+
+
+def slstm_cell_vjp(pre, c, n, m, gc2, gn2, gh2, gm2):
+    """The vjp of `slstm_cell` at (pre, c, n, m) for the cotangents of
+    (c2, n2, h2, m_new) -> (dpre, dc, dn, dm), written out (no autograd
+    graph a step: the backward loop runs it S times a block).  The
+    maxima split their cotangent in two at a tie, as jnp.maximum's
+    derivative does."""
+    ig, fg, zg, og = pre.chunk(4, dim=-1)
+    a = log_sigmoid(fg) + m
+    m_new = torch.maximum(a, ig)
+    e_i = torch.exp(ig - m_new)
+    e_f = torch.exp(a - m_new)
+    tz = torch.tanh(zg)
+    c2 = e_f * c + e_i * tz
+    n2 = e_f * n + e_i
+    so = torch.sigmoid(og)
+    nm = torch.maximum(n2, n2.new_ones(()))
+    q = gh2 / nm                                  # d h2 / d (so c2)
+    g_c2 = gc2 + q * so
+    g_n2 = gn2 - q * (so * c2 / nm) * (torch.sign(n2 - 1.0) + 1.0) * 0.5
+    d_i = (g_c2 * tz + g_n2) * e_i                # d / d (ig - m_new)
+    d_f = (g_c2 * c + g_n2 * n) * e_f             # d / d (a - m_new)
+    g_m = gm2 - d_i - d_f                         # d / d m_new
+    w = (torch.sign(a - ig) + 1.0) * 0.5          # m_new's share to a
+    g_a = d_f + g_m * w
+    dpre = torch.cat([d_i + g_m * (1.0 - w),
+                      g_a * torch.sigmoid(-fg),   # d log_sigmoid
+                      g_c2 * e_i * (1.0 - tz * tz),
+                      q * c2 * so * (1.0 - so)], dim=-1)
+    return dpre, g_c2 * e_f, g_n2 * e_f, g_a
+
+
+class SLSTMScan(torch.autograd.Function):
+    """The sLSTM over time (JAX `_slstm_scan` with its custom_vjp):
+    px (S, B, 4d) f32, wh (d, 4d), b (4d,), the state (c, n, h, m) (B, d)
+    each -> (hs (S, B, d), c, n, h, m of the last step).
+
+    forward   pre_t = px_t + h_{t-1} @ wh + b, the cell; saves each step's
+              pre-state (c, n, h, m), stacked (S, B, d);
+    backward  in reverse: pre_t recomputed from the saved h, the cell's
+              vjp (`slstm_cell_vjp`) at the saved state with cotangents
+              (dc, dn, dh + dhs_t, dm), dh_{t-1} = dpre_t @ wh^T; dpre
+              stacked over time; then dwh = h_stack^T dpre as one (B
+              S)-long contraction and db = dpre summed over (S, B)."""
+
+    @staticmethod
+    def forward(ctx, px, wh, b, c, n, h, m):
+        S, B, d4 = px.shape
+        d = d4 // 4
+        saved = px.new_empty((4, S, B, d))
+        hs = px.new_empty((S, B, d))
+        for t in range(S):
+            saved[0, t], saved[1, t], saved[2, t], saved[3, t] = c, n, h, m
+            pre = px[t] + h @ wh + b
+            c, n, h, m = slstm_cell(pre, c, n, m)
+            hs[t] = h
+        ctx.save_for_backward(px, wh, b, saved)
+        return hs, c, n, h, m
+
+    @staticmethod
+    def backward(ctx, dhs, dc, dn, dh, dm):
+        px, wh, b, saved = ctx.saved_tensors
+        S = px.shape[0]
+        dpre = torch.empty_like(px)
+        for t in reversed(range(S)):
+            c_p, n_p, h_p, m_p = (saved[j, t] for j in range(4))
+            pre = px[t] + h_p @ wh + b
+            dpre[t], dc, dn, dm = slstm_cell_vjp(pre, c_p, n_p, m_p, dc, dn,
+                                                 dh + dhs[t], dm)
+            dh = dpre[t] @ wh.T
+        h_stack = saved[2]
+        dwh = h_stack.reshape(-1, h_stack.shape[-1]).T @ \
+            dpre.reshape(-1, dpre.shape[-1])
+        db = dpre.sum((0, 1))
+        return dpre, dwh, db, dc, dn, dh, dm
+
+
+def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d), JAX `apply_slstm` from the initial state:
+    x @ w_x in the compute dtype, the scan in f32, then @ w_down."""
+    ct = x.dtype
+    B, S, d = x.shape
+    pre_x = (x @ p["w_x"].to(ct)).float()
+    # W_h into an allocation of its own: a view into the flat parameter
+    # buffer starts at any 16-byte boundary, and the scan's 2 S small
+    # products with it (h @ W_h, dpre @ W_h^T) are its hot loop
+    hs = SLSTMScan.apply(pre_x.transpose(0, 1).contiguous(),
+                         p["w_h"].float().clone(), p["b"].float(),
+                         *slstm_state(B, d, x.device))[0]
+    return hs.transpose(0, 1).to(ct) @ p["w_down"].to(ct)

@@ -27,11 +27,16 @@ and olmoe-1b-7b (64 experts of top 8 at full size; 8 of top 2 here).
     tests/test_torch_train.py;
   - card-against-CPU parity run CPU against CPU for each new arch (stage 2
     bit for bit, `launch/device_parity.py`);
-  - the chip cells' parameter counts (olmoe at depth 6 of 16, musicgen
-    at full depth) without allocating;
+  - the chip cells' parameter counts (olmoe at depth 6 of 16, musicgen,
+    zamba2 and xlstm at full depth, deepseek at depth 5 of 27) without
+    allocating; serving refuses every arch but gemma2's stack;
   - the driver's default arch is olmoe-1b-7b, and its run resumes bit for
     bit; an embeddings arch through the driver, elastic and prefetched,
     trains the synchronous run's bits.
+
+The `check_*` helpers, `check_module` and `assert_close` are shared with
+tests/test_torch_mla.py, test_torch_ssm.py and test_torch_xlstm.py (the
+deepseek, zamba2 and xlstm families, one file each).
 """
 import dataclasses
 
@@ -74,12 +79,112 @@ def _key_name(path) -> str:
     return "/".join(k.key for k in path)
 
 
+def to_torch(tree):
+    """A JAX array or nested dicts, tuples and lists of them as torch
+    tensors (bf16 through a 16-bit view), the same nesting."""
+    if isinstance(tree, dict):
+        return {k: to_torch(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return type(tree)(to_torch(v) for v in tree)
+    a = np.asarray(tree)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16).copy()).view(torch.bfloat16)
+    return torch.from_numpy(a.copy())
+
+
+def assert_close(got, want, dtype: str, what: str = "", want32=None
+                 ) -> None:
+    """A module's output or gradient against JAX's.  f32: rtol 1e-5 and
+    atol 1e-6 times the larger of 1 and JAX's largest magnitude (a 1-ulp
+    difference of exp, log1p or silu between XLA:CPU and torch, carried
+    through a sum of unit-scale terms, lands a few ulps of the largest
+    term away from an output near zero).  bf16: within 5% of JAX's largest
+    magnitude (tests/test_torch_model.py), or, given JAX's f32 result
+    `want32`, within twice JAX's own bf16 error against it (each
+    framework rounds as often, at other places: their distance is at most
+    the sum of two such errors).  Finite either way."""
+    got = (got.detach().float().numpy() if isinstance(got, torch.Tensor)
+           else np.asarray(got, np.float32))
+    want = np.asarray(want).astype(np.float32)
+    assert got.shape == want.shape, what
+    assert np.isfinite(got).all(), what
+    scale = np.abs(want).max(initial=0.0)
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=1e-5,
+                                   atol=1e-6 * max(1.0, scale), err_msg=what)
+        return
+    bound = 0.05 * scale
+    if want32 is not None:
+        want32 = np.asarray(want32).astype(np.float32)
+        bound = max(bound, 2.0 * np.abs(want - want32).max(initial=0.0))
+    assert np.abs(got - want).max(initial=0.0) <= bound, what
+
+
 def _jax_params(cfg):
     return jax.jit(JModel(cfg).init)(jax.random.PRNGKey(0))
 
 
+def _leaves(tree) -> list:
+    """Leaves of nested dicts, tuples and lists in JAX's order (dict keys
+    sorted)."""
+    if isinstance(tree, dict):
+        return [x for k in sorted(tree) for x in _leaves(tree[k])]
+    if isinstance(tree, (tuple, list)):
+        return [x for v in tree for x in _leaves(v)]
+    return [tree]
+
+
+def check_module(jfn, pfn, args, dtype: str, seed: int = 0) -> None:
+    """A module of the JAX package against the port's: jfn(*args) under
+    `jax.jit` and pfn on the same values as torch tensors (nested dicts of
+    params allowed); every output leaf, and the gradient of every input
+    leaf under one seeded random cotangent (`jax.vjp` against
+    `torch.autograd.grad`), within `assert_close`."""
+    jargs = jax.tree.map(jnp.asarray, list(args))
+    rng = np.random.default_rng(seed)
+    cts = jax.tree.map(lambda o: jnp.asarray(
+        rng.standard_normal(o.shape), jnp.float32).astype(o.dtype),
+        jax.eval_shape(jfn, *jargs))
+
+    def f(*a):
+        out, vjp = jax.vjp(jfn, *a)
+        return out, vjp(jax.tree.map(lambda c, o: c.astype(o.dtype), cts,
+                                     out))
+    jout, jgrads = jax.jit(f)(*jargs)
+    ref32 = [None] * (len(jax.tree.leaves(jout))
+                      + len(jax.tree.leaves(jgrads)))
+    if dtype != "float32":       # the same values in f32: JAX's f32 result
+        up = jax.tree.map(lambda a: a.astype(jnp.float32), jargs)
+        ref32 = jax.tree.leaves(jax.jit(f)(*up))
+    targs = [to_torch(a) for a in jargs]
+    inputs = _leaves(targs)
+    for t in inputs:
+        t.requires_grad_()
+    outs = _leaves(pfn(*targs))
+    want = jax.tree.leaves(jout)
+    assert len(outs) == len(want)
+    for i, (a, b) in enumerate(zip(outs, want)):
+        assert_close(a, b, dtype, f"output {i}", ref32[i])
+    grads = torch.autograd.grad(outs, inputs,
+                                [to_torch(c) for c in jax.tree.leaves(cts)],
+                                allow_unused=True)
+    grads = [torch.zeros_like(t) if g is None else g
+             for g, t in zip(grads, inputs)]
+    want = jax.tree.leaves(jgrads)
+    assert len(grads) == len(want)
+    for i, (a, b) in enumerate(zip(grads, want)):
+        assert_close(a, b, dtype, f"gradient of input leaf {i}",
+                     ref32[len(outs) + i])
+
+
 @pytest.mark.parametrize("arch", ("gemma2-2b",) + NEW)
 def test_specs_match_the_jax_package(arch):
+    check_specs(arch)
+
+
+def check_specs(arch):
+    """The port's ArchSpec of `arch` equals JAX's: config, smoke config,
+    coding plan, shapes, skips and notes."""
     got, want = REGISTRY[arch], JREG[arch]
     assert dataclasses.asdict(got.config) == dataclasses.asdict(want.config)
     assert dataclasses.asdict(got.smoke) == dataclasses.asdict(want.smoke)
@@ -91,6 +196,13 @@ def test_specs_match_the_jax_package(arch):
 
 @pytest.mark.parametrize("arch", NEW)
 def test_param_tree_and_theta0_equal_jax(arch):
+    check_param_tree_and_theta0(arch)
+
+
+def check_param_tree_and_theta0(arch):
+    """Leaf names, shapes and order of the smoke config's flat layout equal
+    JAX's `tree_flatten_with_path`; `Model.init_(0)` equals
+    `jax.jit(init_params)(PRNGKey(0))` bit for bit; the padding is 0."""
     cfg = REGISTRY[arch].smoke
     flat = jax.tree_util.tree_flatten_with_path(_jax_params(JREG[arch].smoke)
                                                 )[0]
@@ -139,9 +251,10 @@ def _feed_jax_routing(monkeypatch, cfg, params, batch, pm):
     """Record each MoE layer's gate ids (T, k) from JAX's own forward, then
     route both models by them: JAX's `apply_moe` becomes the step-by-step
     copy `_jax_parts` taking the ids from a `fixed_idx` leaf (the returned
-    `fill` adds it), and the port's `top_k` returns them.  Returns
-    `fill`."""
-    assert cfg.moe_shared == 0
+    `fill` adds it), plus `apply_moe`'s shared experts where the layer has
+    them, and the port's `top_k` returns them.  The MoE layers are the
+    stack "blocks" (every layer in the moe family, all but block0 in
+    deepseek's).  Returns `fill`."""
     rec = []
 
     def jax_apply(p, x, cfg):
@@ -153,20 +266,26 @@ def _feed_jax_routing(monkeypatch, cfg, params, batch, pm):
         aux = cfg.moe_experts * jnp.sum(
             parts["probs"].mean(0) * parts["counts"].astype(jnp.float32)
             / (B * S))
-        return parts["out"].reshape(B, S, d), aux
+        out = parts["out"]
+        if "shared" in p:
+            sp, ct, xt = p["shared"], x.dtype, x.reshape(B * S, d)
+            hs = jax.nn.silu(xt @ sp["w_gate"].astype(ct)) * \
+                (xt @ sp["w_up"].astype(ct))
+            out = out + hs @ sp["w_down"].astype(ct)
+        return out.reshape(B, S, d), aux
 
     monkeypatch.setattr(JMOE, "apply_moe", jax_apply)
     jax.jit(lambda p: JModel(cfg).loss(p, batch))(params)
     jax.effects_barrier()
     ids = np.stack(rec)
-    assert ids.shape[0] == cfg.num_layers
+    assert ids.shape[0] == len(pm.net._blocks)
 
     def fill(p):
         moe = dict(p["blocks"]["moe"], fixed_idx=jnp.asarray(ids))
         return dict(p, blocks=dict(p["blocks"], moe=moe))
 
-    by_layer = {id(pm.net._blocks[l]["moe"]): torch.from_numpy(ids[l]).long()
-                for l in range(cfg.num_layers)}
+    by_layer = {id(blk["moe"]): torch.from_numpy(ids[l]).long()
+                for l, blk in enumerate(pm.net._blocks)}
     port_apply, port_top_k = MOE.apply_moe, MOE.top_k
 
     def apply(p, x, cfg):
@@ -184,6 +303,16 @@ def _feed_jax_routing(monkeypatch, cfg, params, batch, pm):
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("arch", NEW)
 def test_loss_and_grads_match_jax(arch, dtype, monkeypatch):
+    check_loss_and_grads(arch, dtype, monkeypatch)
+
+
+def check_loss_and_grads(arch, dtype, monkeypatch, bf16_ref32=False):
+    """Loss and every gradient leaf of the smoke config against JAX's
+    `weighted_loss` from the same weights and batch (the tolerances of the
+    module docstring); the MoE families in bf16 on JAX's routing.  With
+    `bf16_ref32` a bf16 leaf may also pass `assert_close`'s second bf16
+    bound: within twice JAX's own bf16 error against its f32 gradient of
+    the same weights, batch and routing."""
     jcfg = dataclasses.replace(JREG[arch].smoke, dtype=dtype)
     pcfg = dataclasses.replace(REGISTRY[arch].smoke, dtype=dtype)
     params = _jax_params(jcfg)
@@ -191,12 +320,14 @@ def test_loss_and_grads_match_jax(arch, dtype, monkeypatch):
     pm = Model(pcfg, chunk_ranks=4, group_size=32, device="cpu")
     pm.init_(0)
     fill = (_feed_jax_routing(monkeypatch, jcfg, params, jbatch, pm)
-            if jcfg.family == "moe" and dtype == "bfloat16" else None)
+            if jcfg.moe_experts and dtype == "bfloat16" else None)
     jl, jg = _jax_grads(jcfg, params, jbatch, fill)
     pl, _ = pm.loss(*pargs)
     pl.backward()
     pg = {k: v.numpy() for k, v in pm.grads().items()}
     assert set(pg) == set(jg)
+    for k, v in pg.items():
+        assert np.isfinite(v).all(), k
     if dtype == "float32":
         np.testing.assert_allclose(pl.item(), jl, rtol=1e-5)
         for k in jg:
@@ -204,6 +335,12 @@ def test_loss_and_grads_match_jax(arch, dtype, monkeypatch):
                                        err_msg=k)
         return
     np.testing.assert_allclose(pl.item(), jl, rtol=1e-2)
+    if bf16_ref32:
+        _, jg32 = _jax_grads(dataclasses.replace(jcfg, dtype="float32"),
+                             params, jbatch, fill)
+        for k in jg:
+            assert_close(pg[k], jg[k], dtype, k, jg32[k])
+        return
     for k in jg:
         assert np.abs(pg[k] - jg[k]).max() <= 0.05 * np.abs(jg[k]).max(), k
 
@@ -224,9 +361,10 @@ def test_bf16_normal_equals_jax():
 
 
 def test_chip_cells_parameter_counts():
-    """olmoe-1b-7b at full width and depth 6 of 16 and musicgen-large at
-    full width and depth (the card's cells), and full-depth olmoe against
-    JAX's count (shapes only, nothing allocated)."""
+    """The card's cells at full width: olmoe-1b-7b at depth 6 of 16,
+    musicgen-large, zamba2-2.7b and xlstm-1.3b at full depth,
+    deepseek-v2-lite-16b at depth 5 of 27; the full-depth counts against
+    JAX's (shapes only, nothing allocated)."""
     olmoe = REGISTRY["olmoe-1b-7b"].config
     assert num_params(olmoe) == JModel(JREG["olmoe-1b-7b"].config
                                        ).num_params() == 6_919_096_320
@@ -234,6 +372,18 @@ def test_chip_cells_parameter_counts():
         2_723_440_640
     assert num_params(REGISTRY["musicgen-large"].config) == \
         JModel(JREG["musicgen-large"].config).num_params() == 2_424_705_024
+    # deepseek-v2-lite-16b at depth 5 of 27 (block0 and 4 MLA + MoE
+    # blocks), zamba2-2.7b and xlstm-1.3b at full depth
+    want = {"deepseek-v2-lite-16b": 15_706_484_224,
+            "zamba2-2.7b": 2_422_670_240, "xlstm-1.3b": 2_019_682_640}
+    for arch, n in want.items():
+        assert num_params(REGISTRY[arch].config) == \
+            JModel(JREG[arch].config).num_params() == n, arch
+    cut = dataclasses.replace(REGISTRY["deepseek-v2-lite-16b"].config,
+                              num_layers=5)
+    assert num_params(cut) == JModel(dataclasses.replace(
+        JREG["deepseek-v2-lite-16b"].config, num_layers=5)).num_params() \
+        == 2_839_831_040
 
 
 @pytest.fixture(scope="module", params=list(MESH_RUNS))
@@ -244,8 +394,10 @@ def mesh_run(request, tmp_path_factory):
                                    MESH_RUNS[request.param])
 
 
-def _setup(arch):
-    kw = {k: v for k, v in MESH_RUNS[arch].items() if k != "arch"}
+def _setup(arch, run=None):
+    """The port's smoke setup of a mesh run (`MESH_RUNS[arch]` unless
+    `run` names another)."""
+    kw = {k: v for k, v in (run or MESH_RUNS[arch]).items() if k != "arch"}
     return _port_setup(arch=arch, **kw)
 
 
@@ -254,7 +406,12 @@ def test_mesh_setup_batches_and_masks_equal_jax(mesh_run):
     every batch tensor (for musicgen the bf16 embeddings) exactly
     JAX's."""
     arch, ref = mesh_run
-    s = _setup(arch)
+    check_mesh_setup(_setup(arch), ref)
+
+
+def check_mesh_setup(s, ref):
+    """The checks of test_mesh_setup_batches_and_masks_equal_jax on the
+    port's setup `s` of JAX's mesh run `ref`."""
     assert s.flat_pad == int(ref["flat_pad"])
     np.testing.assert_array_equal(s.W, ref["W"])
     s.init_state()
@@ -276,22 +433,34 @@ def test_mesh_stage2_with_jax_gradients(mesh_run):
     """JAX's stage-1 gradients and state into the port's stage 2: the
     checks of tests/test_torch_train.py for the run's wire."""
     arch, ref = mesh_run
-    if arch == "olmoe-1b-7b":
+    check_mesh_stage2(arch, ref, MESH_RUNS[arch])
+
+
+def check_mesh_stage2(arch, ref, run):
+    if run.get("compressor", "sign") == "sign":
         sign_stage2_checks(ref)
     else:
-        block_stage2_checks(ref, _setup(arch))
+        block_stage2_checks(ref, _setup(arch, run))
 
 
 def test_mesh_end_to_end_matches_jax(mesh_run):
     """The port's whole step from JAX's params, batches and masks, 3 steps:
     loss rtol 1e-4 and theta within the wire's flip bound."""
     arch, ref = mesh_run
-    s = _setup(arch)
-    end_to_end_checks(ref, s, 2 * N if arch == "olmoe-1b-7b" else N)
+    s = check_mesh_end_to_end(arch, ref, MESH_RUNS[arch])
     if arch == "olmoe-1b-7b":
         m = s.train_step(s.model, torch.zeros((N, s.flat_pad)),
                          jax_batch(ref, 0), 0)
         assert m["moe_dropped"].tolist() == [0] * N     # capacity 4.0
+
+
+def check_mesh_end_to_end(arch, ref, run):
+    """`end_to_end_checks` at the run's wire's flip bound (sign 2 N, block
+    top-K N); returns the setup."""
+    s = _setup(arch, run)
+    end_to_end_checks(ref, s, 2 * N if run.get("compressor", "sign") ==
+                      "sign" else N)
+    return s
 
 
 @pytest.mark.parametrize("arch", NEW)
@@ -310,6 +479,14 @@ def test_checkpoint_and_convert_carry_the_new_trees(tmp_path, arch):
     checkpoint of an olmoe or musicgen run restores in JAX (its template:
     `Model(cfg).param_shapes()`) bit for bit, and convert's round trip
     through JAX's tree is the identity."""
+    check_checkpoint_and_convert(tmp_path, arch)
+
+
+def check_checkpoint_and_convert(tmp_path, arch):
+    """One sign step of the smoke setup, its RPR1 checkpoint restored by
+    JAX's `restore_checkpoint` into its template and by the port's into a
+    fresh setup, bit for bit, and `params_from_jax` / `params_to_jax`
+    round trips."""
     from repro.checkpoint import checkpoint as jck
     from repro_torch import convert
     from repro_torch.checkpoint import checkpoint as ck
@@ -331,13 +508,24 @@ def test_checkpoint_and_convert_carry_the_new_trees(tmp_path, arch):
                                   e.numpy())
     back = convert.params_to_jax(got)
     assert jax.tree.structure(back) == jax.tree.structure(tree)
+    fresh = _port_setup(arch=arch)
+    e2 = torch.zeros_like(e)
+    step, _ = ck.restore_checkpoint(tmp_path, {"params": fresh.model.params(),
+                                               "e": e2.view(N, 1, -1)})
+    assert step == 1 and torch.equal(e2, e)
+    for k, v in fresh.model.params().items():
+        assert torch.equal(v, want[k]), k
+
+
+LATER = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
 
 
 def test_serving_refuses_the_new_families():
     """Prefill and decode of every new arch (the MoE family, the embeddings
-    input, LayerNorm, qkv bias, the other MLPs, the untied head) are
-    ROADMAP A9: only gemma2's stack is served."""
-    for arch in NEW:
+    input, LayerNorm, qkv bias, the other MLPs, the untied head; MLA, the
+    Mamba2 hybrid and xLSTM) are ROADMAP A9: only gemma2's stack is
+    served."""
+    for arch in NEW + LATER:
         m = Model(REGISTRY[arch].smoke, device="cpu", with_grad=False)
         with pytest.raises(NotImplementedError, match="A9"):
             m.prefill(torch.zeros((1, 4), dtype=torch.long))

@@ -97,17 +97,29 @@ def test_block_topk_train_step_cuda_matches_cpu(cuda, k_budgets):
 
 
 NEW_ARCHS = ("phi3-medium-14b", "nemotron-4-15b", "qwen1.5-110b",
-             "llava-next-34b", "musicgen-large", "olmoe-1b-7b")
+             "llava-next-34b", "musicgen-large", "olmoe-1b-7b",
+             "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
+BLOCK_TOPK_ARCHS = ("musicgen-large", "xlstm-1.3b")
 
 
 @pytest.mark.parametrize("arch", NEW_ARCHS)
 def test_new_arch_train_step_cuda_matches_cpu(cuda, arch):
     """Each new arch's smoke step on the card against the CPU: the full
-    step within step_parity's tolerances, stage 2 bit for bit (musicgen on
-    its block top-K path)."""
+    step within step_parity's tolerances, stage 2 bit for bit (musicgen
+    and xlstm on their block top-K path)."""
     from repro_torch.launch.device_parity import step_parity
     step_parity("cuda", arch=arch, compressor="block_topk"
-                if arch == "musicgen-large" else "sign")
+                if arch in BLOCK_TOPK_ARCHS else "sign")
+
+
+@pytest.mark.parametrize("arch", ("deepseek-v2-lite-16b", "zamba2-2.7b",
+                                  "xlstm-1.3b"))
+def test_recurrent_and_mla_stacks_train_without_a_sync(cuda, arch):
+    """The smoke loss and backward of the MLA, Mamba2 and xLSTM stacks on
+    the card in bf16 under CUDA's sync debug mode "error": their Python
+    loops over chunks and steps never wait for the card."""
+    from repro_torch.launch.device_parity import loss_no_sync
+    loss_no_sync("cuda", arch)
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
