@@ -35,7 +35,10 @@ Phases (any failure exits non-zero and prints no result line):
                 1/2/4, softcap 0/50 with scores far past it, window
                 0/1/64/S, S 1/1000/4096, the largest raw score of most
                 rows at a masked position, f32 on the CUDA-core kernel and
-                bf16 on the tensor-core kernel, each case on its route),
+                bf16 on the tensor-core kernel, each case on its route;
+                then the served archs' head widths hd 80 and 128 at groups
+                1/2/4/6/7/8 and hd 64 at groups 6/7/8, S 1/1000/4096,
+                softcap 0 and 50 with q_scale 100, window 0/64),
                 then at the serve slice's global and local layer shapes
                 (B 32, H 8, Hkv 4, S 8192, hd 288, bf16, softcap 50,
                 window 0 and 4096) against the plain version run per
@@ -66,7 +69,12 @@ Phases (any failure exits non-zero and prints no result line):
                 buckets in both schedules, phase 2 in bf16 and re-packed
                 on the sign wire); the smoke-size serving
                 path (prefill + 4 decode steps, f32 and bf16) on the card
-                against the CPU (`serve_parity`); the smoke configs of the
+                against the CPU (`serve_parity`), then the same for each
+                of the nine other archs (their caches: KV and MLA rings,
+                Mamba2 and xLSTM states; each device decoding from its
+                own caches; in bf16 the MoE archs routed by the CPU's
+                gate ids; in f32 once more with every cache in f32); the
+                smoke configs of the
                 new archs (phi3, nemotron, qwen, llava, musicgen on block
                 top-K, olmoe, deepseek, zamba2, xlstm on block top-K) card
                 against CPU the same way, and the smoke
@@ -173,7 +181,8 @@ Phases (any failure exits non-zero and prints no result line):
                 deepseek's n (group 32) and zamba2's (group 512),
                 ef_topk_fused (every rank, one a straggler) and
                 topk_decode_reduce at musicgen's and xlstm's n, block 256,
-                k 8
+                k 8.  The "setup" cells' theta after training goes to
+                the host for phase 12
  11. serve      with the train setups freed: gemma2-2b at full width and
                 depth serves 3 requests, each 32 seeded prompts of 8192
                 tokens prefilled (26 flash_attention launches, one per
@@ -184,6 +193,32 @@ Phases (any failure exits non-zero and prints no result line):
                 seconds, decode ms per token (and the host's time to
                 enqueue the decode steps), tokens per second and the peak
                 memory
+ 12. serve the other archs, one setup at a time (SERVE_CELLS):
+                phi3-medium-14b at full width and depth (40 layers, JAX's
+                theta0 drawn on the card) serves 3 requests of 1 x 32768
+                tokens (PREFILL_32K's S; B cut from 32 by memory) and
+                request 0 again; olmoe-1b-7b at 6 of 16 layers and
+                deepseek-v2-lite-16b at 5 of 27 (theta0), musicgen-large
+                (the embeddings input), zamba2-2.7b at full depth on
+                4 x 4096 and xlstm-1.3b at full depth on 4 x 2048 (phase
+                10's theta) serve 1 request and request 0 again: each
+                prefill, then 32 decode steps (greedy; musicgen fed seeded
+                embeddings), one flash_attention launch per GQA attention
+                layer on the tensor-core route (phi3 40, olmoe 6, zamba2's
+                shared block 9, musicgen 48, none for MLA and the xLSTM),
+                none in the decode, the caches' positions the ring JAX
+                writes, finite logits, request 0 again bit for bit; prints
+                theta's seconds, prefill seconds, decode and enqueue ms per
+                token, the peak memory (at most 80 GB) and phi3's decode
+                floor (f32 theta read once a step; with the bf16 casts'
+                writes).  Then B8 at each GQA cell's layer shape against
+                the plain version, timed beside the library call
+                (flex_attention's own tiles, the fastest at these widths
+                in `tools/flex_tiles.py --cells`);
+                and `launch.serve_batched` on the card: its default run
+                (phi3's smoke config, bf16) under --metrics (records and
+                trace validated) and its f32 run, tokens equal to the
+                CPU's
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -269,6 +304,26 @@ FAMILY_CELLS = {
     "zamba2": ("zamba2-2.7b", "setup", None, ZAMBA2_STEPS, "sign"),
     "xlstm": ("xlstm-1.3b", "setup", None, XLSTM_STEPS, "block_topk"),
 }
+# phase 12's cells, one at a time: key -> (arch, depth (None: full),
+# batch, prompt length, requests before request 0 again, where theta
+# comes from: "init" (JAX's theta0 drawn on the card) or phase 10's cell
+# of that key (its theta after training, held on the host))
+SERVE_CELLS = {
+    "phi3": ("phi3-medium-14b", None, 1, 32768, REQUESTS, "init"),
+    "olmoe": ("olmoe-1b-7b", OLMOE_LAYERS, 4, 4096, 1, "init"),
+    "deepseek": ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS, 4, 4096, 1,
+                 "init"),
+    "musicgen": ("musicgen-large", None, 4, 4096, 1, "musicgen"),
+    "zamba2": ("zamba2-2.7b", None, 4, 4096, 1, "zamba2"),
+    "xlstm": ("xlstm-1.3b", None, 4, 2048, 1, "xlstm"),
+}
+HELD_THETA = {}           # phase 10's "setup" cells' theta, on the host
+# flash_attention's sweep beyond hd 16/64/288 x groups 1/2/4: the served
+# archs' head widths (hd 128: phi3, nemotron, qwen, llava, olmoe; 80:
+# zamba2's shared block; 64: musicgen) and group ratios (6: nemotron, 7:
+# llava, 8)
+FLASH_EXTRA = [(hd, g) for hd in (80, 128) for g in (1, 2, 4, 6, 7, 8)] + \
+    [(64, g) for g in (6, 7, 8)]
 INIT_ROWS = 4096          # rows of each end of the token table checked
 INIT_LAYER = 13           # the layer whose w_down is checked
 INIT_PIECE = 256          # rows a numpy thread draws at a time
@@ -1208,9 +1263,20 @@ def compare_flash(torch, fa, got, want, what: str) -> dict:
     return {"max_abs_err": err.max().item()}
 
 
+def flash_case(torch, ref, fa, q, k, v, softcap, window, groups,
+               what: str) -> dict:
+    """One launch against the plain version (`compare_flash`)."""
+    got = fa.flash_attention(q, k, v, softcap=softcap, window=window,
+                             groups=groups)
+    torch.cuda.synchronize()
+    want = ref.flash_attention_ref(q, k, v, softcap, window, groups)
+    return compare_flash(torch, fa, got, want, what)
+
+
 def check_flash(torch, ref, fa, gen, dev) -> dict:
     """The adversarial sweep (B 2, Hkv 2) against the plain version, each
-    case on its dtype's route (bf16: tensor cores, f32: CUDA cores)."""
+    case on its dtype's route (bf16: tensor cores, f32: CUDA cores), then
+    the served archs' head widths and group ratios (FLASH_EXTRA)."""
     from repro_torch.kernels.common import flash_routes
     worst = {"max_abs_err": 0.0}
     cases = 0
@@ -1225,18 +1291,25 @@ def check_flash(torch, ref, fa, gen, dev) -> dict:
                                                    groups, S, hd, dtype,
                                                    q_scale)
                         for window in (0, 1, 64, S):
-                            got = fa.flash_attention(
-                                q, k, v, softcap=softcap, window=window,
-                                groups=groups)
-                            torch.cuda.synchronize()
-                            want = ref.flash_attention_ref(
-                                q, k, v, softcap, window, groups)
-                            worst = merge(worst, compare_flash(
-                                torch, fa, got, want,
-                                f"flash_attention ({dtype}, S={S}, hd={hd}, "
-                                f"groups={groups}, softcap={softcap}, "
-                                f"q_scale={q_scale}, window={window})"))
+                            worst = merge(worst, flash_case(
+                                torch, ref, fa, q, k, v, softcap, window,
+                                groups, f"flash_attention ({dtype}, S={S}, "
+                                f"hd={hd}, groups={groups}, softcap="
+                                f"{softcap}, q_scale={q_scale}, window="
+                                f"{window})"))
                             cases += 1
+        for S in (1, 1000, 4096):      # the served archs' widths and groups
+            for hd, groups in FLASH_EXTRA:
+                for softcap, q_scale in ((0.0, 1.0), (50.0, 100.0)):
+                    q, k, v = attention_inputs(torch, gen, dev, 2, 2, groups,
+                                               S, hd, dtype, q_scale)
+                    for window in (0, 64):
+                        worst = merge(worst, flash_case(
+                            torch, ref, fa, q, k, v, softcap, window,
+                            groups, f"flash_attention ({dtype}, S={S}, "
+                            f"hd={hd}, groups={groups}, softcap={softcap}, "
+                            f"q_scale={q_scale}, window={window})"))
+                        cases += 1
     routes = {k: flash_routes[k] - routes0[k] for k in flash_routes}
     if routes != {"tensor_core": cases // 2, "cuda_core": cases // 2}:
         fail(f"flash_attention sweep: routes {routes}, want half of the "
@@ -2014,6 +2087,10 @@ def families_phase(torch, dev, launches, cells=FAMILY_CELLS) -> tuple:
             cell = {"launches": got, "init_s": init_s, "peak_bytes": peak,
                     **stats}
             del e
+            if any(c[5] == key for c in SERVE_CELLS.values()):
+                # phase 12 serves this theta: onto the host until then
+                HELD_THETA[key] = {k: v.to("cpu") for k, v in
+                                   setup.model.params().items()}
         cfg, ccfg = setup.model.cfg, setup.cocoef_cfg
         cell.update({"layers": f"{cfg.num_layers} of {full}",
                      "params": num_params(cfg), "flat": setup.flat_pad,
@@ -2226,16 +2303,21 @@ def all_flags_phase(torch, launches, spec, shape, tmp: Path, out: dict
     settle(torch, "the driver's metrics-off run")
 
 
-def serve_request(torch, setup, prompts, launches, n_layers: int):
-    """Prefill `prompts`, then NEW_TOKENS greedy decode steps, with the
-    launch counts reset just before and checked after each part: one
-    flash_attention launch per layer in the prefill, each on the
-    tensor-core route, none in the decode.
+def serve_request(torch, setup, prompts, launches, n_attn: int,
+                  feeds=None):
+    """Prefill `prompts` ((B, S) tokens or (B, S, d) embeddings), then
+    NEW_TOKENS decode steps: greedy, or fed `feeds` (NEW_TOKENS, B, 1, d)
+    (the embeddings input), with the launch counts reset just before and
+    checked after each part: one flash_attention launch per GQA attention
+    layer (`n_attn`) in the prefill, each on the tensor-core route, none
+    in the decode.  Every cache position leaf must be the ring JAX
+    writes (slot pos % S of each step).
     Returns (tokens (B, NEW_TOKENS + 1), logits (NEW_TOKENS + 1, B, V),
     prefill seconds, decode seconds, seconds the host took to enqueue the
     decode steps)."""
     from repro_torch.kernels.common import flash_routes
-    B, S = prompts.shape
+    from repro_torch.launch.device_parity import cache_leaves
+    B, S = prompts.shape[:2]
     torch.cuda.synchronize()
     for counts in (launches, flash_routes):
         for k in counts:
@@ -2244,16 +2326,17 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
     logits, caches = setup.prefill_step(prompts)
     torch.cuda.synchronize()
     prefill_s = time.perf_counter() - t0
-    want = {"flash_attention": n_layers}
+    want = {"flash_attention": n_attn} if n_attn else {}
     if any(launches[k] != want.get(k, 0) for k in launches):
         fail(f"serve prefill: launch counts {dict(launches)}, want {want}")
-    if flash_routes != {"tensor_core": n_layers, "cuda_core": 0}:
+    if flash_routes != {"tensor_core": n_attn, "cuda_core": 0}:
         fail(f"serve prefill: flash_attention routes {flash_routes}, want "
-             f"all {n_layers} on the tensor cores")
+             f"all {n_attn} on the tensor cores")
     toks, outs = [logits.argmax(-1)], [logits]
     t0 = time.perf_counter()
     for i in range(NEW_TOKENS):
-        logits, caches = setup.decode_step(caches, toks[-1][:, None], S + i)
+        inp = toks[-1][:, None] if feeds is None else feeds[i]
+        logits, caches = setup.decode_step(caches, inp, S + i)
         toks.append(logits.argmax(-1))
         outs.append(logits)
     enqueue_s = time.perf_counter() - t0   # the host never waits in the
@@ -2267,11 +2350,13 @@ def serve_request(torch, setup, prompts, launches, n_layers: int):
         fail(f"serve: logits of shape {tuple(outs.shape)}")
     if not bool(torch.isfinite(outs.float()).all()):
         fail("serve: non-finite logits")
-    pos = caches["kv"]["pos"]
-    want_pos = torch.arange(S, device=pos.device, dtype=pos.dtype)
-    want_pos[:NEW_TOKENS] += S          # ring slots pos % S of the decode
-    if not bool((pos == want_pos).all()):
-        fail("serve: cache positions are not the ring JAX writes")
+    for path, pos in cache_leaves(caches):
+        if path.endswith("pos"):
+            want_pos = torch.arange(S, device=pos.device, dtype=pos.dtype)
+            want_pos[:NEW_TOKENS] += S      # ring slots pos % S of the decode
+            if not bool((pos == want_pos).all()):
+                fail(f"serve: cache positions {path} are not the ring JAX "
+                     f"writes")
     return torch.stack(toks, 1), outs, prefill_s, decode_s, enqueue_s
 
 
@@ -2314,6 +2399,222 @@ def serve(torch, spec, dev, launches) -> int:
           f"steps, then request 0 again bit for bit; flash_attention "
           f"launches {total}", flush=True)
     return total
+
+
+def attention_layers(cfg) -> int:
+    """The GQA attention layers a prefill of `cfg` runs through
+    flash_attention: every block of the dense and MoE stacks, the shared
+    block once a group in the hybrid, none with MLA or in the xLSTM."""
+    if cfg.family in ("dense", "moe"):
+        return cfg.num_layers
+    if cfg.family == "hybrid":
+        return cfg.num_layers // cfg.hybrid_attn_period
+    return 0
+
+
+def serve_cell(torch, key: str, dev, launches) -> dict:
+    """One cell of phase 12 (SERVE_CELLS): the setup at the cell's depth
+    and shape, theta drawn (JAX's theta0) or taken from phase 10, its
+    requests and request 0 again (the same tokens and logits' bits); the
+    embeddings archs' prompts are seeded normal embeddings * 0.02 drawn on
+    the card, their decode inputs (B, 1, d) drawn as their train batches
+    are (`prng.normal_bf16` * 0.02, a key per request).  Prints each
+    request's numbers; returns the cell's summary, with the
+    flash_attention launches its requests counted."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY, ShapeCfg
+    from repro_torch.core import prng
+    from repro_torch.launch.serve import build_serve_setup
+    from repro_torch.nn.transformer import num_params
+    arch, layers, B, S, requests, theta = SERVE_CELLS[key]
+    spec = REGISTRY[arch]
+    full = spec.config.num_layers
+    if layers:
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, num_layers=layers))
+    torch.cuda.reset_peak_memory_stats()
+    setup = build_serve_setup(spec, ShapeCfg("prefill", S, B), device=dev)
+    cfg = setup.model.cfg
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    if theta == "init":
+        setup.model.init_(SERVE_SEED)
+    else:
+        setup.model.load_params(HELD_THETA.pop(theta))
+    torch.cuda.synchronize()
+    theta_s = time.perf_counter() - t0
+    n_attn = attention_layers(cfg)
+    embeddings = cfg.input_mode != "tokens"
+    path = f"serve {arch}"
+    first, rows = None, []
+    for rid in list(range(requests)) + [0]:
+        gen = torch.Generator(device=dev).manual_seed(1000 + rid)
+        feeds = None
+        if embeddings:
+            prompts = (torch.randn((B, S, cfg.d_model), device=dev,
+                                   generator=gen) * 0.02).to(torch.bfloat16)
+            feeds = (prng.normal_bf16(prng.PRNGKey(2000 + rid),
+                                      (NEW_TOKENS, B, 1, cfg.d_model))
+                     * torch.tensor(0.02, dtype=torch.bfloat16)).to(dev)
+        else:
+            prompts = torch.randint(0, cfg.vocab_size, (B, S), device=dev,
+                                    generator=gen)
+        toks, logits, prefill_s, decode_s, enqueue_s = serve_request(
+            torch, setup, prompts, launches, n_attn, feeds)
+        row = {"path": path, "request": rid, "prefill_s": prefill_s,
+               "prefill_tokens_per_s": B * S / prefill_s,
+               "decode_ms_per_token": decode_s / NEW_TOKENS * 1e3,
+               "decode_tokens_per_s": B * NEW_TOKENS / decode_s,
+               "decode_enqueue_ms_per_token": enqueue_s / NEW_TOKENS * 1e3,
+               "flash_attention": launches["flash_attention"],
+               "peak_memory_bytes": torch.cuda.max_memory_allocated(),
+               "tokens": toks[:4, :8].tolist()}
+        print(json.dumps(row), flush=True)
+        rows.append(row)
+        if first is None:
+            first = (toks, logits)
+        elif rid == 0 and not (torch.equal(toks, first[0])
+                               and same(logits, first[1])):
+            fail(f"serve {arch}: request 0 served again gave other tokens "
+                 f"or other logits' bits")
+        del toks, logits, prompts, feeds
+    peak = torch.cuda.max_memory_allocated()
+    total = torch.cuda.get_device_properties(0).total_memory
+    if peak > 80e9:
+        fail(f"serve {arch}: peak {peak} B over 80 GB")
+    n = num_params(cfg)
+    out = {"arch": arch, "layers": f"{cfg.num_layers} of {full}",
+           "batch": B, "prompt": S, "params": n, "theta": theta,
+           "theta_s": theta_s, "requests": requests + 1,
+           "flash_attention_per_prefill": n_attn,
+           "flash_attention": sum(r["flash_attention"] for r in rows),
+           "peak_memory_bytes": peak, "total_memory": total,
+           "prefill_s": [r["prefill_s"] for r in rows],
+           "decode_ms_per_token": [r["decode_ms_per_token"] for r in rows],
+           "decode_enqueue_ms_per_token": [
+               r["decode_enqueue_ms_per_token"] for r in rows],
+           # every decode step reads all f32 theta once, and an eager cast
+           # of each weight writes its bf16 copy
+           "decode_floor_ms": n * 4 / HBM_BYTES_PER_S * 1e3,
+           "decode_floor_with_casts_ms": n * 6 / HBM_BYTES_PER_S * 1e3}
+    print(f"serve {key}: {json.dumps(out)}", flush=True)
+    del setup
+    settle(torch, f"the {key} serve cell")
+    return out
+
+
+def serve_batched_check(torch, device: str = "cuda") -> dict:
+    """`python -m repro_torch.launch.serve_batched` on the card: its
+    default run (phi3-medium-14b's smoke config in bf16, JAX's example's
+    prompts) under --metrics for 2 requests (the records and trace must
+    validate), and its f32 run, whose tokens must equal the CPU's."""
+    import tempfile
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch import serve_batched
+    from repro_torch.obs import read_jsonl, validate_chrome_trace, \
+        validate_record
+    ap = serve_batched.build_parser()
+    with tempfile.TemporaryDirectory() as tmp:
+        res = serve_batched.run(ap.parse_args(
+            ["--device", device, "--metrics", "--requests", "2",
+             "--metrics-dir", tmp]))
+        for rec in read_jsonl(res["jsonl"]):
+            validate_record(rec)
+        validate_chrome_trace(json.loads(Path(res["trace"]).read_text()))
+    spec = REGISTRY["phi3-medium-14b"]
+    f32 = dataclasses.replace(spec, smoke=dataclasses.replace(
+        spec.smoke, dtype="float32"))
+    got, want = (serve_batched.run(ap.parse_args(["--device", d]),
+                                   spec=f32)["tokens"]
+                 for d in (device, "cpu"))
+    if res["tokens"].shape != (4, 8) or not (got == want).all():
+        fail(f"serve_batched on the card: tokens {res['tokens'].shape}, "
+             f"f32 card {got.tolist()} vs CPU {want.tolist()}")
+    out = {"bf16_tokens": res["tokens"].tolist(),
+           "f32_tokens": got.tolist(),
+           "decode_token_ms": res["summary"]["decode_token_ms"]}
+    print(f"serve_batched: {json.dumps(out)}", flush=True)
+    return out
+
+
+def serve_cells_phase(torch, dev, launches) -> dict:
+    """Phase 12: every cell of SERVE_CELLS, one setup at a time, each
+    freed before the next.  Returns {key: summary}."""
+    out = {}
+    for key in SERVE_CELLS:
+        if settle(torch, f"the phases before the {key} serve cell") \
+                > 1 << 30:
+            fail("over 1 GiB still allocated before a serve cell")
+        out[key] = serve_cell(torch, key, dev, launches)
+    return out
+
+
+def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
+    """B8 at one prefill layer of each GQA cell of phase 12 (phi3: B 1,
+    H 40, Hkv 10, S 32768, hd 128; olmoe: B 4, H 16, Hkv 16, S 4096, hd
+    128; zamba2's shared block: B 4, H 32, Hkv 32, S 4096, hd 80;
+    musicgen: B 4, H 32, Hkv 32, S 4096, hd 64; bf16, causal, no window,
+    no softcap): held against the plain version, timed, and the library
+    call (`library_attention`, flex_attention's own tiles at these widths)
+    timed on the same inputs.
+    The bound counts 4 * hd flops per unmasked pair over the bf16
+    tensor-core rate, against q, k, v and o each moved once."""
+    from repro_torch.configs import REGISTRY
+    from repro_torch.kernels.common import flash_routes
+    out = {}
+    for key in SERVE_CELLS:
+        arch, _, B, S, _, _ = SERVE_CELLS[key]
+        cfg = REGISTRY[arch].config
+        if not attention_layers(cfg):
+            continue
+        H, Hkv, hd = cfg.num_heads, cfg.num_kv_heads, cfg.head_dim
+        g = H // Hkv
+        q, k, v = attention_inputs(torch, gen, dev, B, Hkv, g, S, hd,
+                                   torch.bfloat16)
+        tensor_core = flash_routes["tensor_core"]
+
+        def kernel():
+            return fa.flash_attention(q, k, v, softcap=0.0, window=0,
+                                      groups=g)
+
+        def plain():
+            return ref.flash_attention_ref(q, k, v, 0.0, 0, g)
+        want = plain()
+        got = kernel()
+        torch.cuda.synchronize()
+        res = compare_flash(torch, fa, got, want,
+                            f"flash_attention at the {key} serve cell")
+        del got
+        library = library_attention(torch, q, k, v, 0.0, 0, g)
+        lib_err = (library().float() - want.float()).abs().max().item()
+        if not lib_err <= LIBRARY_MAX_ABS_ERR:
+            fail(f"the library attention at the {key} cell is off the "
+                 f"plain version by {lib_err:.3e}")
+        del want
+        flops = 4 * hd * B * H * attention_pairs(S, 0)
+        moved = 2 * (2 * q.numel() + 2 * k.numel())
+        t_ops = flops / BF16_OPS_PER_S * 1e3
+        t_bytes = moved / HBM_BYTES_PER_S * 1e3
+        ms = cuda_ms(kernel, 5)
+        res.update({"arch": arch, "B": B, "H": H, "Hkv": Hkv, "S": S,
+                    "hd": hd, "ms": ms, "plain_ms": cuda_ms(plain, 1),
+                    "library_ms": cuda_ms(library, 5),
+                    "library_max_abs_err": lib_err,
+                    "bound_ms": max(t_ops, t_bytes),
+                    "bound_by": "operations" if t_ops >= t_bytes
+                    else "bytes", "pairs": B * H * attention_pairs(S, 0),
+                    "tflop_per_s": flops / ms / 1e9,
+                    "bound_share": max(t_ops, t_bytes) / ms})
+        # 1 checked + 1 warm-up + 5 timed launches
+        if flash_routes["tensor_core"] - tensor_core != 7:
+            fail(f"flash_attention at the {key} cell did not run on the "
+                 f"tensor-core route")
+        out[key] = res
+        del q, k, v, library
+        settle(torch, f"flash_attention at the {key} cell's shape")
+    print(f"flash_attention at the serve cells' shapes: {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def all_finite(torch, rows) -> bool:
@@ -2465,6 +2766,14 @@ def main() -> None:
     print(f"reference (serve, relative gaps): {json.dumps(gaps)}",
           flush=True)
     for arch in NEW_ARCHS:
+        try:
+            gaps = serve_parity("cuda", arch=arch)
+        except AssertionError as err:
+            fail(f"smoke-size serving of {arch} on the card vs the CPU: "
+                 f"{err}")
+        print(f"reference (serve {arch}, relative gaps): "
+              f"{json.dumps(gaps)}", flush=True)
+    for arch in NEW_ARCHS:
         comp = "block_topk" if arch in BLOCK_TOPK_ARCHS else "sign"
         try:
             parity = step_parity("cuda", arch=arch, compressor=comp)
@@ -2516,6 +2825,14 @@ def main() -> None:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
                                                         launches)}
+    cells = serve_cells_phase(torch, dev, launches)
+    serve_batched_check(torch)
+    for c in cells.values():
+        counts[f"serve {c['arch']}"] = {"flash_attention": c[
+            "flash_attention"]}
+    if settle(torch, "the serve cells") > 1 << 30:
+        fail("over 1 GiB still allocated after the serve cells")
+    cell_flash = flash_at_cells(torch, ref, fa, gen, dev)
 
     block_paths = ("block_topk", "block_topk b2 pipelined", "driver budgets",
                    "driver all flags", "driver metrics off",
@@ -2532,9 +2849,11 @@ def main() -> None:
                       ("sign coco", "sign phase2 sign")),
         # on no train path: the sparsifier of ops.block_topk
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
-        # the serve path's bf16 kernel (f32 runs flash_attention.cu)
+        # the serve paths' bf16 kernel (f32 runs flash_attention.cu)
         "flash_attention": ("flash_attention_sm90", "flash_attention.py:67",
-                            "serve prefill"),
+                            ("serve prefill",) + tuple(
+                                f"serve {c['arch']}" for c in cells.values()
+                                if c["flash_attention_per_prefill"])),
     }
     driver_paths = {
         "ef_sign_fused": [p for p in SIGN_PATHS if p.startswith("driver")],
@@ -2557,6 +2876,13 @@ def main() -> None:
                                 for p in driver_paths[name]),
                 **drv[name]}}}
         errs = [drv.get(name, r)]
+        if name == "flash_attention":            # the serve cells' layers
+            for key, x in cell_flash.items():
+                errs.append(x)
+                r = {**r, "more": {**r.get("more", {}), f"{key}_cell": {
+                    "launches": counts[f"serve {x['arch']}"][name],
+                    "launches_per_prefill": cells[key][
+                        "flash_attention_per_prefill"], **x}}}
         for arch, (path, held) in fam.items():   # the families' instances
             if name in held:
                 errs.append(held[name])

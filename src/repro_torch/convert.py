@@ -1,9 +1,13 @@
-"""Carry parameters between the JAX package and the port.
+"""Carry parameters and serving caches between the JAX package and the
+port.
 
 `params_from_jax` takes a JAX param tree already converted to numpy
 (nested dicts of arrays, e.g. `jax.tree.map(np.asarray, params)`) and
 returns the port's state dict: '/'-joined key paths -> torch tensors of the
-same shapes.  `params_to_jax` is the inverse.  Neither imports JAX.
+same shapes.  `params_to_jax` is the inverse.  `caches_from_jax` and
+`caches_to_jax` carry a serving cache tree (nested dicts and tuples, as
+JAX's `init_caches` / `prefill` build them for every family) with its
+nesting kept.  None of them imports JAX.
 
 bfloat16 crosses through a 16-bit view: JAX hands bf16 over as numpy
 arrays of ml_dtypes' `bfloat16`, which `torch.from_numpy` refuses.  The
@@ -17,7 +21,8 @@ from typing import Any, Dict
 import numpy as np
 import torch
 
-__all__ = ["params_from_jax", "params_to_jax"]
+__all__ = ["params_from_jax", "params_to_jax", "caches_from_jax",
+           "caches_to_jax"]
 
 
 def params_from_jax(tree: Dict[str, Any], prefix: str = ""
@@ -54,3 +59,24 @@ def params_to_jax(state: Dict[str, torch.Tensor]) -> Dict[str, Any]:
             node = node.setdefault(k, {})
         node[leaf] = _to_numpy(t)
     return tree
+
+
+def caches_from_jax(tree):
+    """A JAX cache tree (dicts, tuples and lists of numpy-convertible
+    arrays) -> the same nesting of torch tensors (lists become tuples, as
+    the port's trees are), every bit kept."""
+    if isinstance(tree, dict):
+        return {k: caches_from_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(caches_from_jax(v) for v in tree)
+    return _to_torch(np.array(tree, copy=True))
+
+
+def caches_to_jax(tree):
+    """The port's cache tree -> the same nesting of numpy arrays (bf16 as
+    numpy's `bfloat16`), for `jnp.asarray`."""
+    if isinstance(tree, dict):
+        return {k: caches_to_jax(v) for k, v in tree.items()}
+    if isinstance(tree, (tuple, list)):
+        return tuple(caches_to_jax(v) for v in tree)
+    return _to_numpy(tree)

@@ -30,6 +30,13 @@ with x64 off (the JAX package's setting):
                    random_bits(sub, (n,)) as unsigned keys
   choice(k, n, (m,), replace=False)
                    permutation(k, n)[:m]
+  randint(k, shape, minval, maxval)
+                   int32 in [minval, maxval) (`jax/_src/random.py::
+                   _randint`): (k1, k2) = split(k), hi, lo = random_bits
+                   of each; in uint32 arithmetic (wrapping), span =
+                   maxval - minval, mult = (2**16 % span)**2 % span (the
+                   square wraps too), then
+                   minval + ((hi % span) * mult + lo % span) % span
   normal(k, shape) f32 f32(sqrt 2) * erf_inv_f32(u), u = uniform(k, shape,
                    nextafter(-1, 0), 1)  (`jax._src.random._normal_real`)
   normal_bf16(k, shape)
@@ -233,6 +240,24 @@ def choice(key: np.ndarray, n: int, shape: Sequence[int],
     if m > n:
         raise ValueError(f"cannot take {m} of {n} without replacement")
     return permutation(key, n)[:m].reshape(tuple(shape))
+
+
+def randint(key: np.ndarray, shape: Sequence[int], minval: int,
+            maxval: int) -> np.ndarray:
+    """int32 of `shape`, as `jax.random.randint(key, shape, minval,
+    maxval)` for int32 bounds with minval < maxval."""
+    if not np.iinfo(np.int32).min <= minval < maxval <= \
+            np.iinfo(np.int32).max:
+        raise ValueError(f"need int32 bounds minval < maxval, got "
+                         f"{minval}, {maxval}")
+    k1, k2 = split(key)
+    hi, lo = random_bits(k1, shape), random_bits(k2, shape)
+    span = np.uint32(maxval - minval)
+    with np.errstate(over="ignore"):
+        mult = np.full(1, 1 << 16, np.uint32) % span
+        mult = (mult * mult) % span               # the square wraps
+        off = ((hi % span) * mult + lo % span) % span
+    return (np.int64(minval) + off.astype(np.int64)).astype(np.int32)
 
 
 # ---- normal draws (erf_inv as XLA:CPU compiles it) ------------------------

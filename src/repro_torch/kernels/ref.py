@@ -259,6 +259,7 @@ def block_topk_ref(x: torch.Tensor, k: int, block_size: int) -> torch.Tensor:
 
 NEG_INF = -1e30          # JAX's masked score (not -inf)
 BIG_WINDOW = 1 << 30     # "no window"
+REF_ROWS = 4096          # flash_attention_ref's query rows at a time
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -276,19 +277,25 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     (`tools/flash_check.py --conditioning`): too far off to hold a kernel
     to.  Then softcap * tanh(s / softcap), masked to -1e30, softmax in
     f32, p.v in f32, cast to q's dtype.  Runs one (batch, kv head) at a
-    time, so only that group's (groups, S, S) scores are ever live."""
+    time, and REF_ROWS query rows at a time, so only that group's
+    (groups, REF_ROWS, S) scores are ever live (each row's numbers are
+    its own; a 32768-long prompt's f64 scores of a group of 4 heads would
+    take 34 GB at once)."""
     B, H, S, hd = q.shape
     w = window if window > 0 else BIG_WINDOW
     pos = torch.arange(S, device=q.device)
-    keep = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - w)
     out = torch.empty_like(q)
     for b in range(B):
         for hk in range(H // groups):
             hs = slice(hk * groups, (hk + 1) * groups)
-            s = (q[b, hs].double() @ k[b, hk].double().T).to(_F32)
-            if softcap > 0:
-                s = softcap * torch.tanh(s / softcap)
-            s = torch.where(keep, s, NEG_INF)
-            p = torch.softmax(s, dim=-1)
-            out[b, hs] = (p @ v[b, hk].to(_F32)).to(q.dtype)
+            kd, vf = k[b, hk].double(), v[b, hk].to(_F32)
+            for r0 in range(0, S, REF_ROWS):
+                qp = pos[r0:r0 + REF_ROWS, None]
+                keep = (pos[None, :] <= qp) & (pos[None, :] > qp - w)
+                s = (q[b, hs, r0:r0 + REF_ROWS].double() @ kd.T).to(_F32)
+                if softcap > 0:
+                    s = softcap * torch.tanh(s / softcap)
+                s = torch.where(keep, s, NEG_INF)
+                p = torch.softmax(s, dim=-1)
+                out[b, hs, r0:r0 + REF_ROWS] = (p @ vf).to(q.dtype)
     return out

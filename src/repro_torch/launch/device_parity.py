@@ -42,24 +42,44 @@ parameters, and checks two things:
               far-apart positions.  In the coco and dense modes every
               error vector must keep the bits it had before the step.
 
-`serve_parity(device)` builds the smoke-size gemma2-2b serving setup
-(B = 4 prompts of S = 32 tokens, longer than the local window of 8) on
-the CPU and on `device` from the same parameters, in f32 and in bf16
-compute, and checks the prefill (the flash kernel on the card, its plain
-version on the CPU) and `steps` greedy decode steps from its caches, at
-positions S, S + 1, ... (the ring evicts positions 0, 1, ...).  Both
-devices decode the CPU's greedy tokens.  Logits must agree within
-SERVE_TOL times the largest magnitude of the CPU's logits: in f32 1e-5
-(f32 sums in other orders, the kernel's online softmax and expf and tanhf
-by ulps); in bf16 4 bf16 ulps (2**-6), because each device rounds its
-bf16 products once after its own f32 sums and a flipped last bit moves
-everything downstream (the port against JAX on the CPU differs by one).
-The caches are bf16 in both: with f32 compute each entry is an f32 value
-rounded once, so they must agree elementwise within the flash kernel's
-`allowed_error` (one bf16 ulp of the larger magnitude + 2e-5); with
-bf16 compute within SERVE_TOL as the logits.  The cache positions must be
-equal, and the greedy tokens wherever the CPU's top-2 logit gap exceeds
-the tolerance.  Every check runs before the first miss is raised, so the
+`serve_parity(device, arch=)` builds the smoke-size serving setup of
+`arch` (default gemma2-2b; B = 4 prompts of S = 32 tokens, or seeded bf16
+embeddings for the embeddings-input archs; gemma2's local window is 8)
+on the CPU and on `device` from the same parameters (JAX's θ0), in f32
+and in bf16 compute, and checks the served steps: `prefill_step` (the
+flash kernel on the card, its plain version on the CPU; the KV rings and
+MLA latents bf16, as JAX's `prefill` keeps them by default) and `steps`
+decode steps, at positions S, S + 1, ... (the KV and MLA rings evict
+positions 0, 1, ...; the recurrent states advance), each device
+decoding from its own caches.  Both devices decode the CPU's greedy
+tokens (the embeddings archs: seeded embeddings).  In bf16 the MoE archs
+route on the card by the gate ids the CPU's router chose, call by call:
+their smoke routers are near uniform, so a hidden state one bf16
+rounding away would pick other experts (the f32 runs route on each
+device's own router).  Logits and every floating cache leaf must agree
+within SERVE_TOL times the largest magnitude of the CPU's tensor: in
+f32 1e-5 (f32 sums in other orders, the kernel's online softmax and the
+card's expf, tanhf and rsqrtf by ulps, which the recurrent states carry
+from step to step); in bf16 4 bf16 ulps (2**-6), because each device
+rounds its bf16 products once after its own f32 sums and a flipped last
+bit moves everything downstream (the port against JAX on the CPU
+differs by one).  With f32 compute the served prefill's bf16 leaves
+hold f32 values rounded once, so they must agree elementwise within the
+flash kernel's `allowed_error` (one bf16 ulp of the larger magnitude +
+2e-5); from the first decode step on, that run reads those rounded
+entries, and an entry rounded the other way on the other device moves
+the next layer's input, whose new entries then round apart by more (an
+H100 against the CPU, 4 steps: nemotron's decode logits 8.2e-5 apart,
+new k entries 3.9 bf16 ulps, zamba2's logits 2.5e-4 and its SSM states
+1.9e-4), so its decode is held to the bf16 tolerance.  The f32 compute
+is held to 1e-5 through the decode by a second f32 run with every cache
+in f32 (`model.prefill(cache_dtype=)`), each device again decoding from
+its own caches; the recurrent families (hybrid, xLSTM) run it a third
+time with the card decoding from the CPU's prefill caches, so that a
+state that drifts from step to step on the card shows apart from the
+ulps its own prefill started it at.  The cache positions must be equal,
+and the greedy tokens wherever the CPU's top-2 logit gap exceeds the
+tolerance.  Every check runs before the first miss is raised, so the
 message lists every gap.
 
 `moe_repeat(device, dtype)` runs the smoke olmoe-1b-7b MoE layer
@@ -80,6 +100,7 @@ run it with device="cuda"; on the CPU it also runs against itself.
 """
 from __future__ import annotations
 
+import collections
 import dataclasses
 from typing import Dict, List, Optional, Tuple
 
@@ -90,8 +111,10 @@ from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.kernels import flash_attention as fa
 from repro_torch.launch.serve import build_serve_setup
 from repro_torch.launch.train import TrainRun, TrainSetup, build_train_setup
+from repro_torch.nn.transformer import tree_map
 
-__all__ = ["loss_no_sync", "moe_repeat", "serve_parity", "step_parity"]
+__all__ = ["cache_leaves", "loss_no_sync", "moe_repeat", "serve_parity",
+           "step_parity"]
 
 MASK = (1.0, 0.0, 1.0, 1.0)
 
@@ -271,52 +294,137 @@ def _gap(name: str, want: torch.Tensor, got: torch.Tensor, tol: float,
         misses.append(f"{name}: {gap:.3e} (tol {tol:.1e})")
 
 
-def serve_parity(device="cuda", seed: int = 0, steps: int = 4
-                 ) -> Dict[str, float]:
+def cache_leaves(tree) -> list:
+    """(path, tensor) of every leaf of a cache tree, dict keys sorted."""
+    if isinstance(tree, dict):
+        return [(f"{k}/{p}" if p else k, t) for k in sorted(tree)
+                for p, t in cache_leaves(tree[k])]
+    if isinstance(tree, tuple):
+        return [(f"{i}/{p}" if p else str(i), t) for i, v in enumerate(tree)
+                for p, t in cache_leaves(v)]
+    return [("", tree)]
+
+
+def serve_inputs(cfg, B: int, S: int, rng: np.random.Generator
+                 ) -> torch.Tensor:
+    """Seeded serving inputs: (B, S) tokens, or (B, S, d) bf16 embeddings
+    of scale 0.02 for the embeddings-input archs."""
+    if cfg.input_mode == "tokens":
+        return torch.from_numpy(rng.integers(0, cfg.vocab_size, (B, S)))
+    return (torch.from_numpy(rng.standard_normal(
+        (B, S, cfg.d_model)).astype(np.float32)) * 0.02).to(torch.bfloat16)
+
+
+def _both(routed: bool, cpu_call, dev_call):
+    """(cpu_call(), dev_call()); with `routed` the MoE layers of
+    dev_call route by the gate ids that cpu_call's chose, call by call
+    (`moe.top_k` patched for the two calls)."""
+    if not routed:
+        return cpu_call(), dev_call()
+    from repro_torch.nn import moe as MOE
+    top_k, ids = MOE.top_k, collections.deque()
+    try:
+        MOE.top_k = lambda probs, k: ids.append(top_k(probs, k)) or ids[-1]
+        out = cpu_call()
+        MOE.top_k = lambda probs, k: ids.popleft().to(probs.device)
+        out = out, dev_call()
+    finally:
+        MOE.top_k = top_k
+    assert not ids, "the CPU made more MoE calls than the device"
+    return out
+
+
+def _serve_run(name: str, cpu, dev, prompts, feeds, routed: bool,
+               gaps: Dict[str, float], misses: List[str],
+               cache_dtype=None, from_cpu: bool = False) -> None:
+    """One run of `serve_parity` (see the module docstring): with
+    cache_dtype None the served steps, else the prefill with its caches
+    in `cache_dtype`; each device decodes from its own caches, or with
+    `from_cpu` the card from the CPU's prefill caches.  `feeds` holds
+    each step's (B, 1, d) embeddings, or None (tokens: the CPU's greedy
+    picks)."""
+    on = dev.model.theta.device
+    dtype = cpu.model.cfg.dtype
+    # f32 compute on the served steps' bf16 rings and latents
+    rings = dtype == "float32" and cache_dtype is None
+
+    def prefill(st, x):
+        if cache_dtype is None:
+            return st.prefill_step(x)
+        with torch.inference_mode():
+            return st.model.prefill(x, cache_dtype=cache_dtype)
+    (l0, c0), (l1, c1) = _both(routed, lambda: prefill(cpu, prompts),
+                               lambda: prefill(dev, prompts.to(on)))
+    tol = SERVE_TOL[dtype]
+    _gap(f"{name} prefill logits", l0, l1, tol, gaps, misses)
+    S = prompts.shape[1]
+    for t in range(len(feeds) + 1):
+        if t:
+            if rings:             # from here on it reads rounded entries
+                tol = SERVE_TOL["bfloat16"]
+            inp = tok[:, None] if feeds[t - 1] is None else feeds[t - 1]
+            (l0, c0), (l1, c1) = _both(
+                routed, lambda: cpu.decode_step(c0, inp, S + t - 1),
+                lambda: dev.decode_step(c1, inp.to(on), S + t - 1))
+            _gap(f"{name} decode logits", l0, l1, tol, gaps, misses)
+        leaves = list(zip(cache_leaves(c0), cache_leaves(c1)))
+        if len(leaves) != len(cache_leaves(c0)) or any(
+                a.shape != b.shape or a.dtype != b.dtype
+                for (_, a), (_, b) in leaves):
+            misses.append(f"{name}: the cache trees differ after {t} "
+                          f"decode steps")
+        part = "decode" if t else "prefill"
+        for (path, a), (_, b) in leaves:
+            if not a.is_floating_point():
+                if not torch.equal(a, b.cpu()):
+                    misses.append(f"{name}: cache {path} differs after {t} "
+                                  f"decode steps")
+            elif rings and not t and a.dtype == torch.bfloat16:
+                _gap(f"{name} prefill cache {path} (bf16 ulps)", a, b, 1.0,
+                     gaps, misses, elementwise=True)
+            else:
+                _gap(f"{name} {part} cache {path}", a, b, tol, gaps, misses)
+        top2 = l0.float().topk(2, dim=-1).values
+        sure = (top2[:, 0] - top2[:, 1]) > tol * l0.abs().max().item()
+        tok = l0.argmax(-1)
+        if not torch.equal(tok[sure], l1.argmax(-1).cpu()[sure]):
+            misses.append(f"{name}: greedy tokens differ after {t} decode "
+                          f"steps")
+        if t == 0 and from_cpu:
+            c1 = tree_map(lambda a: a.to(on, copy=True), c0)
+
+
+def serve_parity(device="cuda", seed: int = 0, steps: int = 4,
+                 arch: str = "gemma2-2b") -> Dict[str, float]:
     """Run the serving check (see the module docstring); returns the
-    measured gaps by dtype and tensor."""
-    spec = REGISTRY["gemma2-2b"]
+    measured gaps by run and tensor."""
+    spec = REGISTRY[arch]
     B, S = SERVE_SHAPE.global_batch, SERVE_SHAPE.seq_len
     rng = np.random.default_rng(seed)
-    prompts = torch.from_numpy(rng.integers(0, spec.smoke.vocab_size,
-                                            (B, S)))
+    prompts = serve_inputs(spec.smoke, B, S, rng)
+    feeds = [serve_inputs(spec.smoke, B, 1, rng) for _ in range(steps)]
+    if spec.smoke.input_mode == "tokens":
+        feeds = [None] * steps
     gaps: Dict[str, float] = {}
     misses: List[str] = []
-    for dtype, tol in SERVE_TOL.items():
+    for dtype in SERVE_TOL:
         sp = dataclasses.replace(
             spec, smoke=dataclasses.replace(spec.smoke, dtype=dtype))
         cpu, dev = (build_serve_setup(sp, SERVE_SHAPE, smoke=True, device=d)
                     for d in ("cpu", device))
         cpu.model.init_(seed)
         dev.model.theta.copy_(cpu.model.theta)
-        on = dev.model.theta.device
-        (l0, c0), (l1, c1) = cpu.prefill_step(prompts), \
-            dev.prefill_step(prompts.to(on))
-        _gap(f"{dtype} prefill logits", l0, l1, tol, gaps, misses)
-        for t in range(steps + 1):
-            for k in ("k", "v"):
-                if dtype == "float32":
-                    _gap(f"{dtype} cache {k} (bf16 ulps)", c0["kv"][k],
-                         c1["kv"][k], 1.0, gaps, misses, elementwise=True)
-                else:
-                    _gap(f"{dtype} cache {k}", c0["kv"][k], c1["kv"][k],
-                         tol, gaps, misses)
-            if not torch.equal(c0["kv"]["pos"], c1["kv"]["pos"].cpu()):
-                misses.append(f"{dtype}: cache positions differ after {t} "
-                              f"decode steps")
-            top2 = l0.float().topk(2, dim=-1).values
-            sure = (top2[:, 0] - top2[:, 1]) > tol * l0.abs().max().item()
-            tok = l0.argmax(-1)
-            if not torch.equal(tok[sure], l1.argmax(-1).cpu()[sure]):
-                misses.append(f"{dtype}: greedy tokens differ after {t} "
-                              f"decode steps")
-            if t == steps:
-                break
-            (l0, c0), (l1, c1) = cpu.decode_step(c0, tok[:, None], S + t), \
-                dev.decode_step(c1, tok[:, None].to(on), S + t)
-            _gap(f"{dtype} decode logits", l0, l1, tol, gaps, misses)
+        routed = bool(spec.smoke.moe_experts) and dtype == "bfloat16"
+        run = (prompts, feeds, routed, gaps, misses)
+        _serve_run(dtype, cpu, dev, *run)
+        if dtype == "float32":
+            _serve_run("float32 f32 caches", cpu, dev, *run,
+                       cache_dtype=torch.float32)
+            if spec.smoke.family in ("hybrid", "xlstm"):
+                _serve_run("float32 f32 caches from the CPU's", cpu, dev,
+                           *run, cache_dtype=torch.float32, from_cpu=True)
         del cpu, dev
-    assert not misses, f"serving on {device} vs the CPU: " + \
+    assert not misses, f"serving {arch} on {device} vs the CPU: " + \
         "; ".join(misses) + f" (all gaps: {gaps})"
     return gaps
 

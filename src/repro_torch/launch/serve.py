@@ -1,12 +1,15 @@
 """Serving (prefill / decode) steps on one device (port of
-`repro.launch.serve` for the one-card slice).
+`repro.launch.serve` for the one-card slice), for every arch of
+`configs.REGISTRY`.
 
 `build_serve_setup(spec, shape)` builds the model and two steps:
-`prefill_step(inputs)` runs the prompt through the stack (attention in the
-hand-written flash kernel) and returns (last-position logits, caches
-whose length is the prompt's); `decode_step(caches, inputs, pos)` feeds one
-token per sequence at absolute position `pos` and writes the caches' ring
-slot pos % cache_len in place.  Both run under `torch.inference_mode()`.
+`prefill_step(inputs)` runs the prompt, (B, S) tokens or (B, S, d)
+embeddings, through the stack (GQA attention in the hand-written flash
+kernel) and returns (last-position logits, caches whose length is the
+prompt's); `decode_step(caches, inputs, pos)` feeds one token (or one
+embedding) per sequence at absolute position `pos` and updates the caches
+in place: the KV and MLA rings at slot pos % cache_len, the Mamba2 and
+xLSTM states whole.  Both run under `torch.inference_mode()`.
 The caller loads or initialises the parameters (`setup.model.init_(seed)`,
 JAX's `init_params(PRNGKey(seed))` bit for bit, or `load_params`).
 `instrument_steps` wraps both steps for `obs.ServeTelemetry`.

@@ -1,7 +1,8 @@
 """Dense layers in the JAX package's layouts (port of `repro.nn.layers`):
 RMSNorm and LayerNorm, RoPE, GQA attention with optional qkv bias,
-deepseek-v2's MLA (training path), the swiglu, geglu, relu2 and gelu
-MLPs, token or embeddings input, a tied or untied head.
+deepseek-v2's MLA (training, prefill and decode against a latent ring),
+the swiglu, geglu, relu2 and gelu MLPs, token or embeddings input, a tied
+or untied head.
 
 Layouts match JAX: wq (d, H, hd), wk/wv (d, Hkv, hd), wo (H, hd, d),
 bq (H, hd), bk/bv (Hkv, hd), w_gate/w_up (d, ff), w_down (ff, d),
@@ -217,13 +218,41 @@ def mla_attend(p, x, lat, cfg: ModelConfig, positions, keep
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
 
 
-def mla_train(p, x, cfg: ModelConfig) -> torch.Tensor:
-    """Full causal MLA over x (B, S, d) (JAX `mla_train`)."""
+def mla_train(p, x, cfg: ModelConfig, return_lat: bool = False):
+    """Full causal MLA over x (B, S, d) (JAX `mla_train`); return_lat=True
+    also returns the latent (B, S, r + qk_rope) for the prefill's cache."""
     S = x.shape[1]
     pos = torch.arange(S, device=x.device)
     lat = mla_latent(p, x, cfg, pos[None])
     keep = (pos[None, :] <= pos[:, None])[None]                  # (1,S,S)
-    return mla_attend(p, x, lat, cfg, pos[None], keep)
+    y = mla_attend(p, x, lat, cfg, pos[None], keep)
+    return (y, lat) if return_lat else y
+
+
+def init_mla_cache(cfg: ModelConfig, batch: int, cache_len: int,
+                   dtype: torch.dtype, device: torch.device):
+    """An empty latent ring (JAX `init_mla_cache`): lat (B, T, r + qk_rope)
+    zeros, pos (T,) int32 at -BIG_WINDOW."""
+    width = cfg.kv_lora_rank + cfg.qk_rope_dim
+    return {"lat": torch.zeros((batch, cache_len, width), dtype=dtype,
+                               device=device),
+            "pos": torch.full((cache_len,), -BIG_WINDOW, dtype=torch.int32,
+                              device=device)}
+
+
+def mla_decode(p, x, cfg: ModelConfig, cache, pos: int) -> torch.Tensor:
+    """One-step MLA decode (JAX `mla_decode`): x (B, 1, d) at absolute
+    position `pos`.  Writes the token's latent and pos into ring slot
+    pos % T of `cache` in place, then attends against the whole latent
+    (cast to the compute dtype), keeping slots with pos - BIG_WINDOW <
+    cpos <= pos (the empty slots' sentinel drops out)."""
+    lat, cpos = cache["lat"], cache["pos"]
+    at = torch.full((1, 1), pos, device=x.device)
+    slot = pos % lat.shape[1]
+    lat[:, slot] = mla_latent(p, x, cfg, at)[:, 0]
+    cpos[slot] = pos
+    keep = ((cpos <= pos) & (cpos > pos - BIG_WINDOW))[None, None]  # (1,1,T)
+    return mla_attend(p, x, lat.to(x.dtype), cfg, at, keep)
 
 
 def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:

@@ -1,6 +1,5 @@
 """Public model facade (port of `repro.nn.models.Model`, every family):
-training loss, and serving (caches, prefill, decode) of gemma2's
-stack."""
+training loss, and serving (caches, prefill, decode)."""
 from __future__ import annotations
 
 from typing import Dict, Optional, Tuple

@@ -94,6 +94,14 @@ class _Gather(torch.autograd.Function):
         return gx, None, None, None, None
 
 
+def _gather(x, idx, valid, inv_idx, inv_valid):
+    """`_Gather` where autograd may need its gradient; a plain gather
+    under no_grad or inference mode (serving)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _Gather.apply(x, idx, valid, inv_idx, inv_valid)
+    return torch.where(valid[:, None], x[idx], 0.0)
+
+
 class Routing:
     """The integer bookkeeping of one routing (no gradient, no host sync):
     for A = T*k assignments (row-major in (token, top-k rank)) and E*C
@@ -172,8 +180,8 @@ def combine(ye: torch.Tensor, gate_vals: torch.Tensor, r: "Routing"
     ct = ye.dtype
     T, k = gate_vals.shape
     E, C, d = ye.shape
-    yk = _Gather.apply(ye.reshape(E * C, d), r.comb_slot, r.comb_keep,
-                       r.row_of_slot, r.valid_slot).view(T, k, d)
+    yk = _gather(ye.reshape(E * C, d), r.comb_slot, r.comb_keep,
+                 r.row_of_slot, r.valid_slot).view(T, k, d)
     gv = (gate_vals.gather(1, r.perm) * r.comb_keep.view(T, k)).to(ct)
     u = yk * gv[..., None]
     out = torch.zeros((T, d), dtype=ct, device=ye.device)
@@ -198,8 +206,8 @@ def apply_moe(p, x: torch.Tensor, cfg: ModelConfig
     C = capacity(T, cfg)
     gate_vals, r = route(probs, top_k(probs, k), cfg, C)
     xk = xt.unsqueeze(1).expand(T, k, d).reshape(T * k, d)
-    xe = _Gather.apply(xk, r.a_of_slot, r.valid_slot, r.slot_of_a,
-                       r.keep_of_a).view(E, C, d)
+    xe = _gather(xk, r.a_of_slot, r.valid_slot, r.slot_of_a,
+                 r.keep_of_a).view(E, C, d)
     out = combine(experts(p, xe), gate_vals, r)
     if cfg.moe_shared > 0:
         sp = p["shared"]

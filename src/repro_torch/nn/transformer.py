@@ -1,6 +1,6 @@
-"""The decoder stacks of every family (port of `repro.nn.transformer`'s
-training path): parameter shapes, init, forward, the coded weighted loss,
-and serving (prefill, KV caches, decode) of gemma2's stack.  The dense
+"""The decoder stacks of every family (port of `repro.nn.transformer`):
+parameter shapes, init, forward, the coded weighted loss, and serving
+(prefill, caches, decode) of every family.  The dense
 family takes every variant of `nn.layers` (RMSNorm or LayerNorm, qkv
 bias, the four MLPs, token or embeddings input, a tied or untied head);
 the MoE family swaps each block's MLP for `nn.moe`; deepseek puts MLA
@@ -169,26 +169,67 @@ def layer_windows(cfg: ModelConfig):
     return [cfg.sliding_window or L.BIG_WINDOW] * n
 
 
+def tree_map(fn, tree, *rest):
+    """fn over the leaves of a cache tree (nested dicts and tuples) and of
+    `rest`, trees of the same nesting: the same nesting of the results."""
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, v, *(r[k] for r in rest))
+                for k, v in tree.items()}
+    if isinstance(tree, tuple):
+        return tuple(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def _tile(tree, lead: Tuple[int, ...]):
+    """Every leaf repeated over new leading axes `lead`, each copy in
+    memory of its own."""
+    return tree_map(lambda t: t.expand(lead + tuple(t.shape)).clone(), tree)
+
+
+def _at(tree, idx):
+    """The views tree[idx] of every leaf."""
+    return tree_map(lambda t: t[idx], tree)
+
+
 def init_caches(cfg: ModelConfig, batch: int, cache_len: int,
                 dtype=torch.bfloat16, device="cuda"):
-    """Empty ring caches of the dense family (JAX `init_caches`), stacked
-    over layers: {"kv": {"k", "v": (L, B, Hkv, T, hd), "pos": (L, T)
-    int32}}.  With gemma2's alternation JAX sizes the local layers' rings
-    at min(cache_len, window) and then allocates every layer at the
-    longest of those lengths."""
-    if cfg.local_global_period and cfg.sliding_window:
-        lens = [min(cache_len, cfg.sliding_window)
-                if i % cfg.local_global_period == 0 else cache_len
-                for i in range(cfg.num_layers)]
-        cache_len = max(lens)
-    one = L.init_kv_cache(cfg, batch, cache_len, dtype,
-                          resolve_device(device))
-    return {"kv": {k: v[None].repeat((cfg.num_layers,) + (1,) * v.dim())
-                   for k, v in one.items()}}
-
-
-def _layer_cache(caches, l: int):
-    return {k: v[l] for k, v in caches["kv"].items()}
+    """Empty serving caches (JAX `init_caches`), JAX's tree:
+      dense, moe  {"kv": {"k", "v": (L, B, Hkv, T, hd) dtype, "pos": (L, T)
+                  int32 at -BIG_WINDOW}}; with gemma2's alternation JAX
+                  sizes the local layers' rings at min(cache_len, window)
+                  and then allocates every layer at the longest of those;
+      deepseek    {"mla0": {"lat": (B, T, r + qk_rope), "pos": (T,)},
+                  "mla": the same over (L - 1,)};
+      hybrid      {"ssm": (ssm (G, per, B, H, N, hd) f32, (conv_x (G, per,
+                  B, K-1, di), conv_bc (G, per, B, K-1, 2N)) f32), "kv":
+                  the shared block's ring per group, over (G,)};
+      xlstm       {"mlstm": (C (G, per, B, H, hd, hd), n (..., hd), m (G,
+                  per, B, H) at -30), "slstm": (c, n, h, m) (G, B, d) at
+                  (0, 1, 0, 0)}, all f32."""
+    dev = resolve_device(device)
+    f, Lyr = cfg.family, cfg.num_layers
+    if f in ("dense", "moe"):
+        if cfg.local_global_period and cfg.sliding_window:
+            lens = [min(cache_len, cfg.sliding_window)
+                    if i % cfg.local_global_period == 0 else cache_len
+                    for i in range(Lyr)]
+            cache_len = max(lens)
+        return {"kv": _tile(L.init_kv_cache(cfg, batch, cache_len, dtype,
+                                            dev), (Lyr,))}
+    if f == "deepseek":
+        one = L.init_mla_cache(cfg, batch, cache_len, dtype, dev)
+        return {"mla0": one, "mla": _tile(one, (Lyr - 1,))}
+    if f == "hybrid":
+        per = cfg.hybrid_attn_period
+        return {"ssm": _tile(SSM.init_mamba2_cache(cfg, batch, dev),
+                             (Lyr // per, per)),
+                "kv": _tile(L.init_kv_cache(cfg, batch, cache_len, dtype,
+                                            dev), (Lyr // per,))}
+    per = cfg.slstm_every
+    return {"mlstm": _tile(XL.init_mlstm_cache(cfg, batch, dev),
+                           (Lyr // per, per - 1)),
+            "slstm": _tile(XL.init_slstm_cache(cfg, batch, dev),
+                           (Lyr // per,))}
 
 
 def _split(parents: np.ndarray, n: int) -> np.ndarray:
@@ -407,11 +448,16 @@ class Transformer(nn.Module):
         h = L.apply_norm(p["norm1"], x, cfg)
         x = x + (L.mla_train(p["attn"], h, cfg) if cfg.mla
                  else L.attn_train(p["attn"], h, cfg, window=window))
-        h = L.apply_norm(p["norm2"], x, cfg)
+        return self._ffn(x, p)
+
+    def _ffn(self, x: torch.Tensor, p):
+        """x + the block's MLP or MoE of norm2(x): (x, the MoE layer's aux
+        and dropped assignments, or None without one)."""
+        h = L.apply_norm(p["norm2"], x, self.cfg)
         if "moe" in p:
-            h, aux, dropped = MOE.apply_moe(p["moe"], h, cfg)
+            h, aux, dropped = MOE.apply_moe(p["moe"], h, self.cfg)
             return x + h, aux, dropped
-        return x + L.apply_mlp(p["mlp"], h, cfg), None, None
+        return x + L.apply_mlp(p["mlp"], h, self.cfg), None, None
 
     def _mamba(self, x: torch.Tensor, p) -> torch.Tensor:
         return x + SSM.apply_mamba2(
@@ -495,62 +541,160 @@ class Transformer(nn.Module):
             loss = loss + AUX_WEIGHT * aux
         return loss, per_example
 
-    def _check_serving(self) -> None:
-        """Serving is held against JAX for gemma2's stack only (dense,
-        token input, RMSNorm, GeGLU, no qkv bias, tied head); the other
-        variants' prefill and decode are ROADMAP A9."""
-        cfg = self.cfg
-        if not (cfg.family == "dense" and cfg.input_mode == "tokens"
-                and cfg.norm == "rms" and cfg.mlp == "geglu"
-                and not cfg.qkv_bias and cfg.tie_embeddings):
-            raise NotImplementedError(
-                f"serving {cfg.name}: the port serves gemma2's stack only "
-                f"(ROADMAP A9)")
+    def _norm1(self, x: torch.Tensor, p) -> torch.Tensor:
+        return L.apply_norm(p["norm1"], x, self.cfg)
+
+    def _logits(self, x: torch.Tensor) -> torch.Tensor:
+        """(B, vocab) logits of x's last position, final-normed."""
+        x = L.apply_norm(self.final_p, x[:, -1:], self.cfg)
+        return L.logits_from(self.embed_p, x, self.cfg)[:, -1]
 
     @torch.no_grad()
     def prefill(self, inputs: torch.Tensor, cache_dtype=torch.bfloat16):
-        """Forward over the prompt (JAX `prefill`, dense family): inputs
-        (B, S) tokens -> (logits of the last position (B, vocab), caches).
-        Attention runs through the flash kernel; each layer's k and v go
-        straight into the stacked caches, whose length is the prompt's, and
-        pos (L, S) holds 0..S-1."""
-        self._check_serving()
+        """Forward over the prompt (JAX `prefill`): inputs (B, S) tokens or
+        (B, S, d) embeddings -> (logits of the last position (B, vocab),
+        caches of `init_caches`' tree whose length is the prompt's, pos
+        0..S-1):
+          dense, moe  each block's GQA attention through the flash kernel
+                      (`layers.attn_prefill`), its k and v straight into
+                      the stacked caches in `cache_dtype`;
+          deepseek    MLA over the prompt (plain, as JAX's), each block's
+                      latent in `cache_dtype`;
+          hybrid      each Mamba2 block's final SSD state (f32) and conv
+                      tails (the compute dtype); the shared block's k, v
+                      of each group (flash kernel);
+          xlstm       each mLSTM block's (C, n, m) and each sLSTM block's
+                      (c, n, h, m), f32."""
         cfg = self.cfg
-        B, S = inputs.shape
+        f, Lyr = cfg.family, cfg.num_layers
+        B, S = inputs.shape[:2]
         x = L.embed(self.embed_p, inputs, cfg)
-        shape = (cfg.num_layers, B, cfg.num_kv_heads, S, cfg.head_dim)
-        kv = {"k": torch.empty(shape, dtype=cache_dtype, device=x.device),
-              "v": torch.empty(shape, dtype=cache_dtype, device=x.device),
-              "pos": torch.arange(S, dtype=torch.int32, device=x.device
-                                  ).repeat(cfg.num_layers, 1)}
-        for l in range(cfg.num_layers):
-            p = self._blocks[l]
-            h, (k, v) = L.attn_prefill(p["attn"],
-                                       L.apply_norm(p["norm1"], x, cfg),
-                                       cfg, window=self.windows[l])
-            kv["k"][l].copy_(k)
-            kv["v"][l].copy_(v)
-            x = x + h
-            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg),
-                                cfg)
-        x = L.apply_norm(self.final_p, x[:, -1:], cfg)
-        return L.logits_from(self.embed_p, x, cfg)[:, -1], {"kv": kv}
+        dev, ct = x.device, x.dtype
+        arange = torch.arange(S, dtype=torch.int32, device=dev)
+
+        def kv_cache(n):
+            shape = (n, B, cfg.num_kv_heads, S, cfg.head_dim)
+            return {"k": torch.empty(shape, dtype=cache_dtype, device=dev),
+                    "v": torch.empty(shape, dtype=cache_dtype, device=dev),
+                    "pos": arange.repeat(n, 1)}
+
+        def attn(x, p, window, cache):
+            h, (k, v) = L.attn_prefill(p["attn"], self._norm1(x, p), cfg,
+                                       window=window)
+            cache["k"].copy_(k)
+            cache["v"].copy_(v)
+            return self._ffn(x + h, p)[0]
+
+        def mla(x, p):
+            h, lat = L.mla_train(p["attn"], self._norm1(x, p), cfg,
+                                 return_lat=True)
+            return self._ffn(x + h, p)[0], lat.to(cache_dtype)
+
+        if f in ("dense", "moe"):
+            caches = {"kv": kv_cache(Lyr)}
+            for l, p in enumerate(self._blocks):
+                x = attn(x, p, self.windows[l], _at(caches["kv"], l))
+        elif f == "deepseek":
+            x, lat0 = mla(x, self.groups["block0"][0])
+            lats = torch.empty((Lyr - 1,) + lat0.shape, dtype=cache_dtype,
+                               device=dev)
+            for l, p in enumerate(self._blocks):
+                x, lat = mla(x, p)
+                lats[l].copy_(lat)
+            caches = {"mla0": {"lat": lat0, "pos": arange},
+                      "mla": {"lat": lats, "pos": arange.repeat(Lyr - 1, 1)}}
+        elif f == "hybrid":
+            per = cfg.hybrid_attn_period
+            G = Lyr // per
+            states, shared = [], self.groups["shared_attn"][0]
+            caches = {"kv": kv_cache(G)}
+            for g in range(G):
+                for p in self._blocks[g * per:(g + 1) * per]:
+                    h, st = SSM.mamba2(p["mamba"], self._norm1(x, p), cfg)
+                    x = x + h
+                    states.append(st)
+                x = attn(x, shared, 0, _at(caches["kv"], g))
+            caches["ssm"] = _stacked(states, (G, per))
+        else:
+            per = cfg.slstm_every - 1
+            m_states, s_states = [], []
+            mlstm = self.groups["mlstm_blocks"]
+            for g, sp in enumerate(self.groups["slstm_blocks"]):
+                for p in mlstm[g * per:(g + 1) * per]:
+                    h, st = XL.mlstm(p["mlstm"], self._norm1(x, p), cfg)
+                    x = x + h
+                    m_states.append(st)
+                h, st = XL.slstm(sp["slstm"], self._norm1(x, sp), cfg)
+                x = x + h
+                s_states.append(st)
+            G = len(s_states)
+            caches = {"mlstm": _stacked(m_states, (G, per)),
+                      "slstm": _stacked(s_states, (G,))}
+        return self._logits(x), caches
 
     @torch.no_grad()
     def decode_step(self, caches, inputs: torch.Tensor, pos: int):
-        """One-token decode (JAX `decode_step`, dense family): inputs (B, 1)
-        tokens at absolute position `pos` (a host int).  Every layer writes
-        its ring slot of `caches` in place (`layers.attn_decode`).  Returns
-        (logits (B, vocab), caches)."""
-        self._check_serving()
+        """One-token decode (JAX `decode_step`): inputs (B, 1) tokens or
+        (B, 1, d) embeddings at absolute position `pos` (a host int).
+        Every cache is updated IN PLACE (the GQA and MLA rings write slot
+        pos % T, the recurrent states are overwritten), so the buffers stay
+        fixed from step to step; an f32 conv tail from `init_caches` keeps
+        its dtype and takes the compute dtype's values, which JAX's tree
+        carries in the compute dtype.  Returns (logits (B, vocab),
+        caches)."""
         cfg = self.cfg
+        f = cfg.family
         x = L.embed(self.embed_p, inputs, cfg)
-        for l in range(cfg.num_layers):
-            p = self._blocks[l]
-            x = x + L.attn_decode(p["attn"], L.apply_norm(p["norm1"], x, cfg),
-                                  cfg, _layer_cache(caches, l), pos,
-                                  window=self.windows[l])
-            x = x + L.apply_mlp(p["mlp"], L.apply_norm(p["norm2"], x, cfg),
-                                cfg)
-        x = L.apply_norm(self.final_p, x, cfg)
-        return L.logits_from(self.embed_p, x, cfg)[:, -1], caches
+        if f in ("dense", "moe"):
+            for l, p in enumerate(self._blocks):
+                x = x + L.attn_decode(p["attn"], self._norm1(x, p), cfg,
+                                      _at(caches["kv"], l), pos,
+                                      window=self.windows[l])
+                x = self._ffn(x, p)[0]
+        elif f == "deepseek":
+            blocks = [(self.groups["block0"][0], caches["mla0"])] + \
+                [(p, _at(caches["mla"], l))
+                 for l, p in enumerate(self._blocks)]
+            for p, cache in blocks:
+                x = x + L.mla_decode(p["attn"], self._norm1(x, p), cfg,
+                                     cache, pos)
+                x = self._ffn(x, p)[0]
+        elif f == "hybrid":
+            per = cfg.hybrid_attn_period
+            shared = self.groups["shared_attn"][0]
+            for g in range(cfg.num_layers // per):
+                for i in range(per):
+                    p, st = self._blocks[g * per + i], \
+                        _at(caches["ssm"], (g, i))
+                    h, new = SSM.mamba2(p["mamba"], self._norm1(x, p), cfg,
+                                        ssm_state=st[0], conv_state=st[1])
+                    tree_map(torch.Tensor.copy_, st, new)
+                    x = x + h
+                x = x + L.attn_decode(shared["attn"], self._norm1(x, shared),
+                                      cfg, _at(caches["kv"], g), pos)
+                x = self._ffn(x, shared)[0]
+        else:
+            per = cfg.slstm_every - 1
+            mlstm = self.groups["mlstm_blocks"]
+            for g, sp in enumerate(self.groups["slstm_blocks"]):
+                for i, p in enumerate(mlstm[g * per:(g + 1) * per]):
+                    st = _at(caches["mlstm"], (g, i))
+                    h, new = XL.mlstm(p["mlstm"], self._norm1(x, p), cfg,
+                                      state=st)
+                    tree_map(torch.Tensor.copy_, st, new)
+                    x = x + h
+                st = _at(caches["slstm"], g)
+                h, new = XL.slstm(sp["slstm"], self._norm1(x, sp), cfg,
+                                  state=st)
+                tree_map(torch.Tensor.copy_, st, new)
+                x = x + h
+        return self._logits(x), caches
+
+
+def _stacked(states: list, lead: Tuple[int, ...]):
+    """Per-block state trees (tuples) stacked over `lead` (JAX's scan
+    outputs, then its stack over groups)."""
+    if isinstance(states[0], tuple):
+        return tuple(_stacked([s[j] for s in states], lead)
+                     for j in range(len(states[0])))
+    return torch.stack(states).view(lead + tuple(states[0].shape))

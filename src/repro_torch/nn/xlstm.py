@@ -17,8 +17,11 @@ loop recomputes each step's pre-activation, applies the cell's vjp
 db one sum (autograd through the loop would accumulate dW_h step by step:
 other sums, and a graph of S steps a block).
 
-JAX has no Pallas kernel here; this is plain PyTorch.  The decode step
-(S == 1 with a state) and the caches are ROADMAP A9.
+JAX has no Pallas kernel here; this is plain PyTorch.  Serving carries
+the states (`mlstm`, `slstm`): the prefill returns the chunk scan's (C,
+n, m) and the sLSTM's last (c, n, h, m); a one-token decode step runs
+the mLSTM's recurrence and one sLSTM cell step (`init_mlstm_cache`,
+`init_slstm_cache` for empty ones).
 """
 from __future__ import annotations
 
@@ -31,8 +34,9 @@ from .config import ModelConfig
 from .ssm import softplus
 
 __all__ = ["mlstm_shapes", "slstm_shapes", "mlstm_chunk_scan",
-           "apply_mlstm", "slstm_cell", "slstm_cell_vjp", "SLSTMScan",
-           "apply_slstm", "mlstm_state", "slstm_state"]
+           "apply_mlstm", "mlstm", "slstm_cell", "slstm_cell_vjp",
+           "SLSTMScan", "apply_slstm", "slstm", "mlstm_state",
+           "slstm_state", "init_mlstm_cache", "init_slstm_cache"]
 
 M_FLOOR = -30.0
 
@@ -136,10 +140,20 @@ def mlstm_chunk_scan(q, k, v, ig, log_f, state, chunk: int):
 def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256
                 ) -> torch.Tensor:
     """x (B, S, d) -> (B, S, d), the training path of JAX `apply_mlstm`
-    from the zero state: the up-projection and gate in the compute dtype,
-    per-head q, k (scaled by hd^-0.5), v and the gates in f32, the chunk
-    scan at chunk min(chunk, S), RMSNorm in f32, * silu(z), then
-    @ w_down."""
+    (`mlstm` from the zero state, its output alone)."""
+    return mlstm(p, x, cfg, chunk=chunk)[0]
+
+
+def mlstm(p, x: torch.Tensor, cfg: ModelConfig, *, state=None,
+          chunk: int = 256):
+    """JAX `apply_mlstm`: x (B, S, d), state (C, n, m) (None: the zero
+    state) -> (out (B, S, d), the new state): the up-projection and gate
+    in the compute dtype, per-head q, k (scaled by hd^-0.5), v and the
+    gates in f32; with S == 1 one recurrent step
+      m' = max(log f + m, i, -30), C' = f_s C + i_s k v^T, n' = f_s n +
+      i_s k, y = C'^T q / max(|n'.q|, exp(-m'))
+    (f_s = exp(log f + m - m'), i_s = exp(i - m')), else the chunk scan
+    at chunk min(chunk, S); RMSNorm in f32, * silu(z), then @ w_down."""
     ct = x.dtype
     B, S, d = x.shape
     di = int(d * cfg.proj_factor)
@@ -155,15 +169,39 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256
     v = torch.einsum("bshd,hde->bshe", xh, p["w_v"].to(ct)).float()
     gates = (xin @ p["w_if"].to(ct) + p["b_if"].to(ct)).float()
     ig, fg = gates[..., :H], gates[..., H:]
-    y, _ = mlstm_chunk_scan(q, k, v, ig, log_sigmoid(fg),
-                            mlstm_state(B, H, hd, x.device),
-                            chunk=min(chunk, S))
+    log_f = log_sigmoid(fg)
+    if state is None:
+        state = mlstm_state(B, H, hd, x.device)
+    if S == 1:
+        C, n, m = state
+        qf, kf, vf = q[:, 0], k[:, 0], v[:, 0]
+        m_new = _floor(torch.maximum(log_f[:, 0] + m, ig[:, 0]))
+        i_s = torch.exp(ig[:, 0] - m_new)[..., None]
+        f_s = torch.exp(log_f[:, 0] + m - m_new)[..., None]
+        C = f_s[..., None] * C + (i_s[..., None] * kf[..., None]) \
+            * vf[..., None, :]
+        n = f_s * n + i_s * kf
+        num = torch.einsum("bhd,bhdv->bhv", qf, C)
+        den = torch.maximum(torch.einsum("bhd,bhd->bh", qf, n).abs(),
+                            torch.exp(-m_new))
+        y = (num / den[..., None])[:, None]                   # (B,1,H,hd)
+        state = (C, n, m_new)
+    else:
+        y, state = mlstm_chunk_scan(q, k, v, ig, log_f, state,
+                                    chunk=min(chunk, S))
     y = y.to(ct).reshape(B, S, di)
     yf = y.float()
     yf = yf * torch.rsqrt((yf * yf).mean(-1, keepdim=True) + 1e-6)
     y = (yf * p["norm_scale"].float()).to(ct)
     y = y * F.silu(z)
-    return y @ p["w_down"].to(ct)
+    return y @ p["w_down"].to(ct), state
+
+
+def init_mlstm_cache(cfg: ModelConfig, batch: int, device) -> tuple:
+    """JAX `init_mlstm_cache`: `mlstm_state` at the block's head width."""
+    H = cfg.num_heads
+    return mlstm_state(batch, H, int(cfg.d_model * cfg.proj_factor) // H,
+                       device)
 
 
 # --------------------------------------------------------------------------
@@ -171,9 +209,10 @@ def apply_mlstm(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 256
 # --------------------------------------------------------------------------
 
 def slstm_state(B: int, d: int, device) -> tuple:
-    """JAX `init_slstm_cache_raw`: (c, n, h, m) = (0, 1, 0, 0)."""
+    """JAX `init_slstm_cache_raw`: (c, n, h, m) = (0, 1, 0, 0), each in
+    memory of its own (a decode step writes them in place)."""
     z = torch.zeros((B, d), dtype=torch.float32, device=device)
-    return (z, torch.ones_like(z), z, z)
+    return (z, torch.ones_like(z), z.clone(), z.clone())
 
 
 def slstm_cell(pre, c, n, m):
@@ -221,6 +260,23 @@ def slstm_cell_vjp(pre, c, n, m, gc2, gn2, gh2, gm2):
     return dpre, g_c2 * e_f, g_n2 * e_f, g_a
 
 
+def slstm_loop(px, wh, b, state, saved=None):
+    """The sLSTM forward over time: px (S, B, 4d) f32, state (c, n, h, m)
+    -> (hs (S, B, d), c, n, h, m of the last step), each step pre_t = px_t
+    + h_{t-1} @ wh + b through `slstm_cell`; `saved` (4, S, B, d), when
+    given, receives each step's pre-state."""
+    S, B, d4 = px.shape
+    c, n, h, m = state
+    hs = px.new_empty((S, B, d4 // 4))
+    for t in range(S):
+        if saved is not None:
+            saved[0, t], saved[1, t], saved[2, t], saved[3, t] = c, n, h, m
+        pre = px[t] + h @ wh + b
+        c, n, h, m = slstm_cell(pre, c, n, m)
+        hs[t] = h
+    return hs, c, n, h, m
+
+
 class SLSTMScan(torch.autograd.Function):
     """The sLSTM over time (JAX `_slstm_scan` with its custom_vjp):
     px (S, B, 4d) f32, wh (d, 4d), b (4d,), the state (c, n, h, m) (B, d)
@@ -237,16 +293,10 @@ class SLSTMScan(torch.autograd.Function):
     @staticmethod
     def forward(ctx, px, wh, b, c, n, h, m):
         S, B, d4 = px.shape
-        d = d4 // 4
-        saved = px.new_empty((4, S, B, d))
-        hs = px.new_empty((S, B, d))
-        for t in range(S):
-            saved[0, t], saved[1, t], saved[2, t], saved[3, t] = c, n, h, m
-            pre = px[t] + h @ wh + b
-            c, n, h, m = slstm_cell(pre, c, n, m)
-            hs[t] = h
+        saved = px.new_empty((4, S, B, d4 // 4))
+        out = slstm_loop(px, wh, b, (c, n, h, m), saved)
         ctx.save_for_backward(px, wh, b, saved)
-        return hs, c, n, h, m
+        return out
 
     @staticmethod
     def backward(ctx, dhs, dc, dn, dh, dm):
@@ -266,16 +316,36 @@ class SLSTMScan(torch.autograd.Function):
         return dpre, dwh, db, dc, dn, dh, dm
 
 
-def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-    """x (B, S, d) -> (B, S, d), JAX `apply_slstm` from the initial state:
-    x @ w_x in the compute dtype, the scan in f32, then @ w_down."""
+def slstm(p, x: torch.Tensor, cfg: ModelConfig, *, state=None):
+    """JAX `apply_slstm` with its state: x (B, S, d), state (c, n, h, m)
+    (None: the initial state) -> (out (B, S, d), the last step's (c, n,
+    h, m)).  x @ w_x in the compute dtype, the scan in f32 (`SLSTMScan`
+    where a gradient is taken, else `slstm_loop`), then @ w_down."""
     ct = x.dtype
     B, S, d = x.shape
     pre_x = (x @ p["w_x"].to(ct)).float()
-    # W_h into an allocation of its own: a view into the flat parameter
-    # buffer starts at any 16-byte boundary, and the scan's 2 S small
-    # products with it (h @ W_h, dpre @ W_h^T) are its hot loop
-    hs = SLSTMScan.apply(pre_x.transpose(0, 1).contiguous(),
-                         p["w_h"].float().clone(), p["b"].float(),
-                         *slstm_state(B, d, x.device))[0]
-    return hs.transpose(0, 1).to(ct) @ p["w_down"].to(ct)
+    if state is None:
+        state = slstm_state(B, d, x.device)
+    wh = p["w_h"].float()
+    if S > 1:
+        # W_h into an allocation of its own: a view into the flat
+        # parameter buffer starts at any 16-byte boundary, and the scan's
+        # 2 S small products with it (h @ W_h, dpre @ W_h^T) are its hot
+        # loop
+        wh = wh.clone()
+    px, b = pre_x.transpose(0, 1).contiguous(), p["b"].float()
+    if torch.is_grad_enabled():
+        hs, *state = SLSTMScan.apply(px, wh, b, *state)
+    else:
+        hs, *state = slstm_loop(px, wh, b, state)
+    return hs.transpose(0, 1).to(ct) @ p["w_down"].to(ct), tuple(state)
+
+
+def apply_slstm(p, x: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+    """x (B, S, d) -> (B, S, d): `slstm` from the initial state."""
+    return slstm(p, x, cfg)[0]
+
+
+def init_slstm_cache(cfg: ModelConfig, batch: int, device) -> tuple:
+    """JAX `init_slstm_cache`: `slstm_state` at the model's width."""
+    return slstm_state(batch, cfg.d_model, device)

@@ -29,7 +29,7 @@ and olmoe-1b-7b (64 experts of top 8 at full size; 8 of top 2 here).
     bit for bit, `launch/device_parity.py`);
   - the chip cells' parameter counts (olmoe at depth 6 of 16, musicgen,
     zamba2 and xlstm at full depth, deepseek at depth 5 of 27) without
-    allocating; serving refuses every arch but gemma2's stack;
+    allocating (serving every arch is tests/test_torch_serve_families.py);
   - the driver's default arch is olmoe-1b-7b, and its run resumes bit for
     bit; an embeddings arch through the driver, elastic and prefetched,
     trains the synchronous run's bits.
@@ -515,22 +515,6 @@ def check_checkpoint_and_convert(tmp_path, arch):
     assert step == 1 and torch.equal(e2, e)
     for k, v in fresh.model.params().items():
         assert torch.equal(v, want[k]), k
-
-
-LATER = ("deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
-
-
-def test_serving_refuses_the_new_families():
-    """Prefill and decode of every new arch (the MoE family, the embeddings
-    input, LayerNorm, qkv bias, the other MLPs, the untied head; MLA, the
-    Mamba2 hybrid and xLSTM) are ROADMAP A9: only gemma2's stack is
-    served."""
-    for arch in NEW + LATER:
-        m = Model(REGISTRY[arch].smoke, device="cpu", with_grad=False)
-        with pytest.raises(NotImplementedError, match="A9"):
-            m.prefill(torch.zeros((1, 4), dtype=torch.long))
-        with pytest.raises(NotImplementedError, match="A9"):
-            m.decode_step({}, torch.zeros((1, 1), dtype=torch.long), 0)
 
 
 def test_driver_defaults_to_olmoe_and_resumes_bit_exact(tmp_path, capsys):

@@ -508,6 +508,35 @@ def test_flash_attention_kernel_matches_plain(cuda, hd, groups, softcap,
 
 
 @pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("S", [1, 63, 64, 65, 127, 128, 129, 1000, 4096])
+@pytest.mark.parametrize("window", [0, 64])
+@pytest.mark.parametrize("softcap,q_scale", [(0.0, 1.0), (50.0, 100.0)])
+@pytest.mark.parametrize("groups", [1, 6, 7, 8])
+@pytest.mark.parametrize("hd", [64, 80, 128])
+def test_flash_attention_kernel_at_the_families_head_widths(
+        cuda, hd, groups, softcap, q_scale, window, S, dtype):
+    """The prefill's head widths of the served archs: hd 128 (phi3,
+    nemotron, qwen, llava, olmoe; the tensor-core route pads it to 192),
+    hd 80 (zamba2's shared block: 2.5 TMA boxes of 32 columns, padded to
+    96) and hd 64 (musicgen), at group ratios 1, 6, 7 and 8 (nemotron and
+    llava have 6 and 7: not powers of 2)."""
+    q, k, v = (t.to(cuda) for t in flash_inputs(2, 2, groups, S, hd, dtype,
+                                                seed=hd + S + groups,
+                                                q_scale=q_scale))
+    _check_flash(q, k, v, softcap, window, groups)
+
+
+@pytest.mark.parametrize("hd,groups", [(128, 4), (80, 1), (64, 1)])
+def test_flash_attention_kernel_at_the_serve_cells(cuda, hd, groups):
+    """bf16 at one serve cell's layer shape each, S 4096 (phi3's
+    H 40 / Hkv 10 at hd 128; zamba2's 32 / 32 at hd 80; musicgen's 32 /
+    32 at hd 64), B 1, 8 kv heads."""
+    q, k, v = (t.to(cuda) for t in flash_inputs(1, 8, groups, 4096, hd,
+                                                "bfloat16", seed=hd))
+    _check_flash(q, k, v, 0.0, 0, groups)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
 @pytest.mark.parametrize("window", [0, 4096])
 def test_flash_attention_kernel_at_serve_length(cuda, window, dtype):
     """gemma2-2b's layer at the serve slice's S = 8192 (B 1, groups 2, hd
@@ -544,6 +573,18 @@ def test_serve_cuda_matches_cpu(cuda):
     the CPU (`launch/device_parity.serve_parity`), f32 and bf16."""
     from repro_torch.launch.device_parity import serve_parity
     serve_parity("cuda")
+
+
+@pytest.mark.parametrize("arch", ["phi3-medium-14b", "nemotron-4-15b",
+                                  "qwen1.5-110b", "llava-next-34b",
+                                  "musicgen-large", "olmoe-1b-7b",
+                                  "deepseek-v2-lite-16b", "zamba2-2.7b",
+                                  "xlstm-1.3b"])
+def test_serve_families_cuda_match_cpu(cuda, arch):
+    """`serve_parity` of every other arch's smoke config: prefill, every
+    cache leaf and 4 decode steps, card against CPU."""
+    from repro_torch.launch.device_parity import serve_parity
+    serve_parity("cuda", arch=arch)
 
 
 # --- global top-K and the dense wire ---------------------------------------
