@@ -67,7 +67,9 @@ Phases (any failure exits non-zero and prints no result line):
                 injected gradients bit for bit (in the coco and dense modes
                 e untouched), and the configurations of phase 7 (two
                 buckets in both schedules, phase 2 in bf16 and re-packed
-                on the sign wire); the smoke-size serving
+                on the sign wire) and of the dtypes phase (bf16 theta and
+                e on sign and budgeted block top-K, in cocoef and coco
+                mode; bf16 e alone on block top-K); the smoke-size serving
                 path (prefill + 4 decode steps, f32 and bf16) on the card
                 against the CPU (`serve_parity`), then the same for each
                 of the nine other archs (their caches: KV and MLA rings,
@@ -112,7 +114,9 @@ Phases (any failure exits non-zero and prints no result line):
                 mode launch none: JAX has no kernel for them); a COCO path
                 must leave the error vectors' bits as they were, and no
                 path launches flash_attention.  Each step prints its
-                seconds, kernel ms and launches, each path its peak memory
+                seconds, kernel ms and launches, each path its peak memory.
+                The first setup draws JAX's theta0; later f32 setups of
+                phases 6, 7 and 13 copy it from the host (`init_state`)
   7. buckets    gemma2-2b at full width and depth, N = 4 on the card, one
                 setup at a time: the sign wire in two buckets (stage 2 on
                 seeded injected gradients in both schedules must give the
@@ -164,16 +168,18 @@ Phases (any failure exits non-zero and prints no result line):
                 400 GB) through the driver (`train_e2e.run`, --arch, its
                 sign wire at g 32, iid stragglers at the arch's p 0.1), N
                 = 4 on the card, 4 steps each; musicgen-large (48 layers:
-                LayerNorm, gelu, the embeddings input, an untied head) and
-                xlstm-1.3b (48 layers: 42 mLSTM blocks of head width 1024,
-                6 sLSTM blocks, 512 sequential steps each) at full depth
-                through `build_train_setup` and `train_step` on block
-                top-K (k 8 of 256), zamba2-2.7b (54 Mamba2 layers in 9
-                groups, each followed by the one shared attention block)
-                at full depth the same way on its sign wire (g 512), 3
-                steps each.  Each prints its steps' seconds, stage-2 ms
-                and launches, theta0's seconds, its peak memory and (olmoe,
-                deepseek) the assignments its MoE layers dropped; the
+                LayerNorm, gelu, the embeddings input, an untied head) at
+                full depth and xlstm-1.3b at XLSTM_LAYERS of 48 (2 of its
+                6 groups of 7 mLSTM blocks of head width 1024 and an
+                sLSTM block of 512 sequential steps; the dtypes phase's
+                time) through `build_train_setup` and `train_step` on
+                block top-K (k 8 of 256), zamba2-2.7b at ZAMBA2_LAYERS of
+                54 (3 of its 9 groups of 6 Mamba2 blocks, each followed by
+                the one shared attention block) the same way on its sign
+                wire (g 512), 3 steps each.  Each prints its steps'
+                seconds, stage-2 ms and launches, theta0's seconds, its
+                peak memory and (olmoe, deepseek) the assignments its MoE
+                layers dropped; the
                 launch counts must be exact and the losses finite.  Then
                 the kernels of every path at its shapes, held against
                 their plain versions and timed as on the driver's wire:
@@ -195,17 +201,18 @@ Phases (any failure exits non-zero and prints no result line):
                 memory
  12. serve the other archs, one setup at a time (SERVE_CELLS):
                 phi3-medium-14b at full width and depth (40 layers, JAX's
-                theta0 drawn on the card) serves 3 requests of 1 x 32768
-                tokens (PREFILL_32K's S; B cut from 32 by memory) and
-                request 0 again; olmoe-1b-7b at 6 of 16 layers and
-                deepseek-v2-lite-16b at 5 of 27 (theta0), musicgen-large
-                (the embeddings input), zamba2-2.7b at full depth on
-                4 x 4096 and xlstm-1.3b at full depth on 4 x 2048 (phase
-                10's theta) serve 1 request and request 0 again: each
+                theta0 drawn on the card) serves PHI3_REQUESTS request of
+                1 x 32768 tokens (PREFILL_32K's S; B cut from 32 by
+                memory) and request 0 again; olmoe-1b-7b at 6 of 16
+                layers and deepseek-v2-lite-16b at 5 of 27 (theta0),
+                musicgen-large (the embeddings input), zamba2-2.7b on
+                4 x 4096 and xlstm-1.3b on 4 x 2048 at phase 10's depths
+                (phase 10's theta) serve 1 request and request 0 again:
+                each
                 prefill, then 32 decode steps (greedy; musicgen fed seeded
                 embeddings), one flash_attention launch per GQA attention
                 layer on the tensor-core route (phi3 40, olmoe 6, zamba2's
-                shared block 9, musicgen 48, none for MLA and the xLSTM),
+                shared block 3, musicgen 48, none for MLA and the xLSTM),
                 none in the decode, the caches' positions the ring JAX
                 writes, finite logits, request 0 again bit for bit; prints
                 theta's seconds, prefill seconds, decode and enqueue ms per
@@ -219,6 +226,31 @@ Phases (any failure exits non-zero and prints no result line):
                 (phi3's smoke config, bf16) under --metrics (records and
                 trace validated) and its f32 run, tokens equal to the
                 CPU's
+ 13. dtypes     bf16 theta and bf16 error vectors (TrainRun.param_dtype and
+                ef_dtype).  After phase 3's checks, the kernel instances
+                that read bf16 g and e at the slice's n in the train
+                layout, bit for bit against their plain versions (words,
+                index sets, values, scales, bf16 e') and timed:
+                ef_sign_fused on bf16 g and e and on f32 g with bf16 e,
+                ef_topk_fused on bf16 g and e (k_send 8, 8, 3, 1 and a
+                straggler; timed at 8 and 1), sign_pack and topk_pack on
+                bf16 g with gamma folded in (COCO's gamma*g).  After phase
+                10: gemma2-2b at full width and depth with
+                TrainRun(param_dtype="bfloat16", ef_dtype="bfloat16"),
+                N = 4, theta0 JAX's bf16 theta0: 5 sign steps and 2 sign
+                COCO steps, then 5 block top-K steps, 2 budgeted and 2
+                COCO, then (f32 theta) 2 sign steps with ef_dtype alone,
+                one setup at a time, exact launch counts, step seconds,
+                stage-2 ms and peaks printed; olmoe-1b-7b at full width
+                and OLMOE_BF16_LAYERS of 16 layers (bf16 state: 74.8 GB)
+                through build_train_setup, 3 sign steps at g 32.  Inside
+                phase 12, right after phi3's cell: phi3-medium-14b at full
+                width and depth with bf16 theta (phi3's f32 theta0 rounded
+                once, held on the host; three leaves checked bit for bit
+                against a bf16 init) serves PHI3_BF16_BATCH x 32768 tokens
+                and request 0 again bit for bit, its decode floor bf16
+                theta read once.  The kernel table gets a row for each
+                instance, its launches counted on these paths
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -236,6 +268,7 @@ from pathlib import Path
 
 ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
+T0 = time.perf_counter()  # settle() prints the seconds since
 
 STEPS = 5
 BUDGET_STEPS = 2
@@ -286,6 +319,11 @@ DEEPSEEK_LAYERS = 5       # deepseek-v2-lite-16b's depth on one card (of
 DEEPSEEK_STEPS = 4        # 27): block0 and 4 MLA + MoE blocks
 ZAMBA2_STEPS = 3
 XLSTM_STEPS = 3
+# depths cut to make room for the dtypes phase in the time limit (full
+# depth: 54 and 48 layers, 35 and 76 s of phase 10)
+ZAMBA2_LAYERS = 18        # 3 of zamba2-2.7b's 9 groups
+XLSTM_LAYERS = 16         # 2 of xlstm-1.3b's 6 groups
+PHI3_REQUESTS = 1         # phi3's f32 cell (was 3), then request 0 again
 NEW_ARCHS = ("phi3-medium-14b", "nemotron-4-15b", "qwen1.5-110b",
              "llava-next-34b", "musicgen-large", "olmoe-1b-7b",
              "deepseek-v2-lite-16b", "zamba2-2.7b", "xlstm-1.3b")
@@ -301,23 +339,40 @@ FAMILY_CELLS = {
                  "block_topk"),
     "deepseek": ("deepseek-v2-lite-16b", "driver", DEEPSEEK_LAYERS,
                  DEEPSEEK_STEPS, "sign"),
-    "zamba2": ("zamba2-2.7b", "setup", None, ZAMBA2_STEPS, "sign"),
-    "xlstm": ("xlstm-1.3b", "setup", None, XLSTM_STEPS, "block_topk"),
+    "zamba2": ("zamba2-2.7b", "setup", ZAMBA2_LAYERS, ZAMBA2_STEPS, "sign"),
+    "xlstm": ("xlstm-1.3b", "setup", XLSTM_LAYERS, XLSTM_STEPS,
+              "block_topk"),
 }
+PHI3_BF16_BATCH = 4       # 29.3 GB of bf16 theta + 4 x 6.71 GB of caches
 # phase 12's cells, one at a time: key -> (arch, depth (None: full),
 # batch, prompt length, requests before request 0 again, where theta
 # comes from: "init" (JAX's theta0 drawn on the card) or phase 10's cell
 # of that key (its theta after training, held on the host))
 SERVE_CELLS = {
-    "phi3": ("phi3-medium-14b", None, 1, 32768, REQUESTS, "init"),
+    "phi3": ("phi3-medium-14b", None, 1, 32768, PHI3_REQUESTS, "init"),
+    "phi3 bf16": ("phi3-medium-14b", None, PHI3_BF16_BATCH, 32768, 1,
+                  "phi3"),
     "olmoe": ("olmoe-1b-7b", OLMOE_LAYERS, 4, 4096, 1, "init"),
     "deepseek": ("deepseek-v2-lite-16b", DEEPSEEK_LAYERS, 4, 4096, 1,
                  "init"),
     "musicgen": ("musicgen-large", None, 4, 4096, 1, "musicgen"),
-    "zamba2": ("zamba2-2.7b", None, 4, 4096, 1, "zamba2"),
-    "xlstm": ("xlstm-1.3b", None, 4, 2048, 1, "xlstm"),
+    "zamba2": ("zamba2-2.7b", ZAMBA2_LAYERS, 4, 4096, 1, "zamba2"),
+    "xlstm": ("xlstm-1.3b", XLSTM_LAYERS, 4, 2048, 1, "xlstm"),
 }
+# phase 12's cells with another parameter dtype than the config's (the
+# dtypes phase's phi3 cell: its theta is phi3's f32 theta0 rounded once)
+SERVE_PARAM_DTYPE = {"phi3 bf16": "bfloat16"}
 HELD_THETA = {}           # phase 10's "setup" cells' theta, on the host
+THETA0_HOST = {}          # (config, flat size, seed) -> f32 theta0 drawn
+#   by the phases' first such train setup, on the host (`init_state`)
+# the dtypes phase: gemma2-2b with bf16 theta and e (TrainRun.param_dtype,
+# ef_dtype) on each wire and mode, then olmoe-1b-7b at the depth bf16
+# state allows: 17 B a coordinate (theta, g 2 each, four e 8, ghat 4,
+# the sign payload at g 32 about 1), 74.8 GB at 10 layers, 82.0 at 11
+DTYPE_STEPS, DTYPE_SHORT_STEPS = 5, 2
+OLMOE_BF16_LAYERS = 10
+OLMOE_BF16_STEPS = 3
+BF16 = {"param_dtype": "bfloat16", "ef_dtype": "bfloat16"}
 # flash_attention's sweep beyond hd 16/64/288 x groups 1/2/4: the served
 # archs' head widths (hd 128: phi3, nemotron, qwen, llava, olmoe; 80:
 # zamba2's shared block; 64: musicgen) and group ratios (6: nemotron, 7:
@@ -378,6 +433,19 @@ def cuda_ms(fn, reps: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
+
+
+def timed_once(fn):
+    """(fn(), its device ms) of one call (CUDA events): for the plain
+    versions that take seconds, timed on the call the check uses."""
+    import torch
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    out = fn()
+    end.record()
+    torch.cuda.synchronize()
+    return out, start.elapsed_time(end)
 
 
 def ulps(a, b):
@@ -1376,7 +1444,7 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
             return ref.flash_attention_ref(q, k, v, cap, window, H // Hkv)
         library = library_attention(torch, q, k, v, cap, window, H // Hkv,
                                     kernel_options=FLEX_OPTIONS)
-        want = plain()
+        want, plain_ms = timed_once(plain)
         got = kernel()
         torch.cuda.synchronize()
         worst = merge(worst, compare_flash(
@@ -1393,7 +1461,7 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
         t_ops = flops / BF16_OPS_PER_S * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         ms = cuda_ms(kernel, 5)
-        res[window] = {"ms": ms, "plain_ms": cuda_ms(plain, 2),
+        res[window] = {"ms": ms, "plain_ms": plain_ms,
                        "library_ms": cuda_ms(library, 5),
                        "library_max_abs_err": lib_err,
                        "bound_ms": max(t_ops, t_bytes),
@@ -1415,11 +1483,39 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
         **{f"{k}_local": v for k, v in res[cfg.sliding_window].items()}}}
 
 
+def init_state(torch, setup):
+    """`setup.init_state()`: JAX's theta0 and zero error vectors.  An f32
+    theta0 is drawn on the card by the first setup of its config, flat
+    size and seed (12.4 s at gemma2-2b's full depth) and kept on the host;
+    later such setups copy it back a CHUNK at a time (the same bits, about
+    2 s), and make e as `init_state` does.  bf16 theta draws every time.
+    `main` drops the copies before the serve phases."""
+    m = setup.model
+    key = (m.cfg, setup.flat_pad, setup.run.seed)
+    if m.theta.dtype != torch.float32:
+        return setup.init_state()
+    if key not in THETA0_HOST:
+        e = setup.init_state()
+        host = torch.empty(m.theta.numel(), dtype=torch.float32)
+        for i in range(0, host.numel(), CHUNK):
+            host[i:i + CHUNK].copy_(m.theta[i:i + CHUNK])
+        THETA0_HOST[key] = host
+        return e
+    host = THETA0_HOST[key]
+    for i in range(0, host.numel(), CHUNK):
+        m.theta[i:i + CHUNK].copy_(host[i:i + CHUNK])
+    if setup.cocoef_cfg.mode != "cocoef":
+        return None
+    return torch.zeros((setup.n_code, setup.flat_pad),
+                       dtype=getattr(torch, setup.run.ef_dtype),
+                       device=m.theta.device)
+
+
 def e_checksums(torch, e) -> list:
     """Chunked int64 sums of e's bits (no copy of e fits beside a train
     setup): equal lists before and after a coco path mean e was left
     alone."""
-    return [int(r[i:i + CHUNK].view(torch.int32).sum(dtype=torch.int64))
+    return [int(bits(r[i:i + CHUNK]).sum(dtype=torch.int64))
             for r in e for i in range(0, r.numel(), CHUNK)]
 
 
@@ -1509,22 +1605,26 @@ def setup_paths(wire: str, rounds: int) -> tuple:
 
 
 def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
-               smoke: bool = False, rounds: int = 0) -> dict:
+               smoke: bool = False, rounds: int = 0, knobs=None,
+               paths=None) -> dict:
     """Every path of one setup in turn on the same model, error and
     payload buffers (`setup_paths`; the block top-K payload is shaped by
     max k = K either way, the dense wire's is the ghat accumulator).  A
     coco path shares the COCO-EF path's error vectors and must leave their
     bits alone; the dense setup allocates none.  Returns the launch counts
-    of each path by label; prints each path's peak memory."""
+    of each path by label; prints each path's peak memory.  `knobs`:
+    more TrainRun fields (the dtypes phase's param_dtype and ef_dtype);
+    `paths`: (compressor and mode, paths) in place of `setup_paths`'."""
     from repro_torch.launch.train import TrainRun, build_train_setup
     torch.cuda.reset_peak_memory_stats()
-    (compressor, mode), paths = setup_paths(wire, rounds)
-    base = TrainRun(base_lr=5e-3, compressor=compressor, mode=mode)
+    (compressor, mode), paths = paths or setup_paths(wire, rounds)
+    base = TrainRun(base_lr=5e-3, compressor=compressor, mode=mode,
+                    **(knobs or {}))
     setup = build_train_setup(spec, shape, base, smoke=smoke, n_code=N_CODE,
                               device=dev)
     if setup.flat_pad != n:
         fail(f"{wire}: flat size {setup.flat_pad} != {n}")
-    e = setup.init_state()
+    e = init_state(torch, setup)
     if (e is None) != (mode != "cocoef"):
         fail(f"{wire}: error vectors {'not ' if e is None else ''}allocated "
              f"in {mode} mode")
@@ -1545,7 +1645,9 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
         if sums is not None and e_checksums(torch, e) != sums:
             fail(f"{label}: the error vectors changed in coco mode")
         print(f"train ({label}): gemma2-2b "
-              f"{setup.model.cfg.num_layers} layers, flat {n}, peak "
+              f"{setup.model.cfg.num_layers} layers, theta "
+              f"{setup.model.theta.dtype}, e "
+              f"{None if e is None else e.dtype}, flat {n}, peak "
               f"memory {peak} B ({peak / 1e9:.2f} GB) of "
               f"{torch.cuda.get_device_properties(0).total_memory} B",
               flush=True)
@@ -1694,7 +1796,7 @@ def buckets_phase(torch, spec, shape, dev, launches) -> dict:
                              cfg.pad_multiple, cfg.num_buckets)
         if setup.flat_pad != want_n:
             fail(f"buckets: flat size {setup.flat_pad} != {want_n}")
-        e = setup.init_state()
+        e = init_state(torch, setup)
         if knobs.get("num_buckets", 1) > 1 and knobs["compressor"] == "sign":
             hp, hs = (injected_stage2(torch, setup, e, sched)
                       for sched in ("pipelined", "serial"))
@@ -1706,8 +1808,8 @@ def buckets_phase(torch, spec, shape, dev, launches) -> dict:
                 "kernel_ms_serial": hs[2]}
             summary["sign b2 injected"]["peak_B"] = \
                 torch.cuda.max_memory_allocated()
-            setup.model.init_(0)
-            e.zero_()
+            e = None                      # no second set of e fits
+            e = init_state(torch, setup)
             torch.cuda.reset_peak_memory_stats()
         for label, run_knobs, steps, per_step in paths:
             run = dataclasses.replace(base, **run_knobs)
@@ -2432,20 +2534,31 @@ def serve_cell(torch, key: str, dev, launches) -> dict:
     if layers:
         spec = dataclasses.replace(spec, config=dataclasses.replace(
             spec.config, num_layers=layers))
+    if key in SERVE_PARAM_DTYPE:
+        spec = dataclasses.replace(spec, config=dataclasses.replace(
+            spec.config, param_dtype=SERVE_PARAM_DTYPE[key]))
     torch.cuda.reset_peak_memory_stats()
     setup = build_serve_setup(spec, ShapeCfg("prefill", S, B), device=dev)
     cfg = setup.model.cfg
     torch.cuda.synchronize()
     t0 = time.perf_counter()
+    checked = None
     if theta == "init":
         setup.model.init_(SERVE_SEED)
-    else:
+    elif isinstance(HELD_THETA[theta], dict):
         setup.model.load_params(HELD_THETA.pop(theta))
+    else:                         # a flat theta0 rounded to this dtype
+        held, flat = HELD_THETA.pop(theta), setup.model.theta
+        for i in range(0, flat.numel(), CHUNK):
+            flat[i:i + CHUNK].copy_(held[i:i + CHUNK])
+        del held
     torch.cuda.synchronize()
     theta_s = time.perf_counter() - t0
+    if theta != "init" and key in SERVE_PARAM_DTYPE:
+        checked = check_bf16_init(torch, setup.model, SERVE_SEED)
     n_attn = attention_layers(cfg)
     embeddings = cfg.input_mode != "tokens"
-    path = f"serve {arch}"
+    path = f"serve {arch}" + (" bf16" if key in SERVE_PARAM_DTYPE else "")
     first, rows = None, []
     for rid in list(range(requests)) + [0]:
         gen = torch.Generator(device=dev).manual_seed(1000 + rid)
@@ -2482,8 +2595,13 @@ def serve_cell(torch, key: str, dev, launches) -> dict:
     total = torch.cuda.get_device_properties(0).total_memory
     if peak > 80e9:
         fail(f"serve {arch}: peak {peak} B over 80 GB")
+    if any(c[5] == key for c in SERVE_CELLS.values()):
+        # the dtypes phase serves this theta0 rounded to bf16
+        HELD_THETA[key] = hold_bf16(torch, setup.model.theta)
     n = num_params(cfg)
-    out = {"arch": arch, "layers": f"{cfg.num_layers} of {full}",
+    pbytes = setup.model.theta.element_size()
+    out = {"arch": arch, "path": path,
+           "layers": f"{cfg.num_layers} of {full}",
            "batch": B, "prompt": S, "params": n, "theta": theta,
            "theta_s": theta_s, "requests": requests + 1,
            "flash_attention_per_prefill": n_attn,
@@ -2493,11 +2611,15 @@ def serve_cell(torch, key: str, dev, launches) -> dict:
            "decode_ms_per_token": [r["decode_ms_per_token"] for r in rows],
            "decode_enqueue_ms_per_token": [
                r["decode_enqueue_ms_per_token"] for r in rows],
-           # every decode step reads all f32 theta once, and an eager cast
-           # of each weight writes its bf16 copy
-           "decode_floor_ms": n * 4 / HBM_BYTES_PER_S * 1e3,
-           "decode_floor_with_casts_ms": n * 6 / HBM_BYTES_PER_S * 1e3}
-    print(f"serve {key}: {json.dumps(out)}", flush=True)
+           "param_dtype": str(setup.model.theta.dtype),
+           "bf16_leaves_equal_init": checked,
+           # every decode step reads all theta once, and with f32 theta
+           # an eager cast of each weight writes its bf16 copy
+           "decode_floor_ms": n * pbytes / HBM_BYTES_PER_S * 1e3,
+           "decode_floor_with_casts_ms": n * (pbytes + 2 * (pbytes > 2))
+           / HBM_BYTES_PER_S * 1e3}
+    print(f"{'dtypes: ' if key in SERVE_PARAM_DTYPE else ''}serve {key}: "
+          f"{json.dumps(out)}", flush=True)
     del setup
     settle(torch, f"the {key} serve cell")
     return out
@@ -2551,8 +2673,9 @@ def serve_cells_phase(torch, dev, launches) -> dict:
 
 def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
     """B8 at one prefill layer of each GQA cell of phase 12 (phi3: B 1,
-    H 40, Hkv 10, S 32768, hd 128; olmoe: B 4, H 16, Hkv 16, S 4096, hd
-    128; zamba2's shared block: B 4, H 32, Hkv 32, S 4096, hd 80;
+    H 40, Hkv 10, S 32768, hd 128; phi3 bf16: the same at B 4; olmoe: B 4,
+    H 16, Hkv 16, S 4096, hd 128; zamba2's shared block: B 4, H 32, Hkv
+    32, S 4096, hd 80;
     musicgen: B 4, H 32, Hkv 32, S 4096, hd 64; bf16, causal, no window,
     no softcap): held against the plain version, timed, and the library
     call (`library_attention`, flex_attention's own tiles at these widths)
@@ -2579,7 +2702,7 @@ def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
 
         def plain():
             return ref.flash_attention_ref(q, k, v, 0.0, 0, g)
-        want = plain()
+        want, plain_ms = timed_once(plain)
         got = kernel()
         torch.cuda.synchronize()
         res = compare_flash(torch, fa, got, want,
@@ -2597,7 +2720,7 @@ def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         ms = cuda_ms(kernel, 5)
         res.update({"arch": arch, "B": B, "H": H, "Hkv": Hkv, "S": S,
-                    "hd": hd, "ms": ms, "plain_ms": cuda_ms(plain, 1),
+                    "hd": hd, "ms": ms, "plain_ms": plain_ms,
                     "library_ms": cuda_ms(library, 5),
                     "library_max_abs_err": lib_err,
                     "bound_ms": max(t_ops, t_bytes),
@@ -2617,6 +2740,304 @@ def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
     return out
 
 
+# --- the dtypes phase (bf16 theta and e) -----------------------------------
+
+def bf16_inputs(torch, gen, dev, n: int, G: int, topk: bool):
+    """g (n,) bf16 and e (2, n) bf16 (row 1 a copy of row 0, the row the
+    kernels update), of widely varying scale over groups of G, drawn a
+    CHUNK at a time in f32 and rounded once, with the adversarial groups
+    (sign) or blocks (block top-K, K) at the start and at the end."""
+    g = torch.empty(n, dtype=torch.bfloat16, device=dev)
+    e = torch.empty((2, n), dtype=torch.bfloat16, device=dev)
+    for i in range(0, n, CHUNK):
+        m = min(CHUNK, n - i)
+        mag = torch.exp(torch.rand(m // G, device=dev, generator=gen)
+                        * 25 - 20).repeat_interleave(G)
+        g[i:i + m] = torch.randn(m, device=dev, generator=gen) * mag
+        e[0, i:i + m] = torch.randn(m, device=dev, generator=gen) * mag \
+            * 0.01
+    for a in (0, n - 6 * G):
+        if topk:
+            topk_adversarial_(g[a:a + 6 * G], e[0, a:a + 6 * G], G, K)
+        else:
+            adversarial_(g[a:a + 4 * G], e[0, a:a + 4 * G], G, 5e-3)
+    e[1].copy_(e[0])
+    return g, e
+
+
+def exact(got, want, what: str) -> None:
+    """Every output bit for bit (None skips one)."""
+    for i, (a, b) in enumerate(zip(got, want)):
+        if a is not None and b is not None and not same(a, b.to(a.dtype)):
+            fail(f"{what}: output {i} differs in "
+                 f"{int((bits(a) != bits(b.to(a.dtype))).sum())} entries")
+
+
+def dtype_row(ms, plain_ms, moved, ops, more=None) -> dict:
+    b, by = bound(moved, ops)
+    return {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms,
+            "plain_ms": plain_ms, "bound_ms": b, "bound_by": by,
+            "gb_per_s": moved / ms / 1e6, **(more or {})}
+
+
+def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
+    """The dtypes phase's kernels at the slice's n in the train step's
+    layout, each held against its plain version chunk by chunk, every
+    output bit for bit (words, index sets, values, scales, bf16 e'), then
+    timed: ef_sign_fused on bf16 g and e and on f32 g with bf16 e (a live
+    rank and a straggler, which must leave e's bits); ef_topk_fused on
+    bf16 g and e at B 256, k 8 with the ranks' k_send 8, 8, 3, 1 and a
+    straggler (timed at k_send 8 and 1); sign_pack and topk_pack on bf16 g
+    with gamma (COCO's gamma*g folded in, no budget and k_send 3)."""
+    G, gamma = GROUP, 5e-3
+    gamma_t = torch.tensor(gamma, device=dev)
+    masks = torch.tensor([1.0, 0.0], device=dev)
+    out = {}
+    g, e = bf16_inputs(torch, gen, dev, n, G, topk=False)
+    words = torch.zeros((N_CODE, n // 32), dtype=torch.uint32, device=dev)
+    scales = torch.zeros((N_CODE, n // G), device=dev)
+    payload = n / 8 + 4 * n / G
+    for label, gg, gb in (("ef_sign_fused@bf16 g/e", g, 2),
+                          ("ef_sign_fused@bf16 e", None, 4)):
+        if gg is None:
+            gg = g.float()
+        for row, m in ((2, masks[1]), (1, masks[0])):
+            e[1].copy_(e[0])
+            sp.ef_sign_fused(gg, e[1], gamma_t, m, G,
+                             out=(words[row], scales[row], e[1]))
+            torch.cuda.synchronize()
+            what = f"{label} at n={n} (mask={m.item()})"
+            if m.item() == 0.0 and not same(e[1], e[0]):
+                fail(f"{what}: a straggler's e changed")
+            for i in range(0, n, CHUNK):
+                j = min(i + CHUNK, n)
+                w, s, _, en = ref.ef_sign_fused_ref(gg[i:j], e[0, i:j],
+                                                    gamma_t, m, G)
+                exact((words[row, i // 32:j // 32],
+                       scales[row, i // G:j // G], e[1, i:j]),
+                      (w, s, en), what)
+                del w, s, en
+        ms = cuda_ms(lambda: sp.ef_sign_fused(
+            gg, e[1], gamma_t, masks[0], G,
+            out=(words[1], scales[1], e[1])), 10)
+
+        def plain():
+            for i in range(0, n, CHUNK):
+                ref.ef_sign_fused_ref(gg[i:i + CHUNK], e[0, i:i + CHUNK],
+                                      gamma_t, masks[0], G)
+        out[label] = dtype_row(ms, cuda_ms(plain, 2),
+                               (gb + 2 + 2) * n + payload, 6 * n,
+                               {"g": str(gg.dtype), "e": str(e.dtype)})
+        del gg
+    # B5 with gamma on bf16 g
+    sp.sign_pack(g, G, out=(words[0], scales[0]), gamma=gamma_t)
+    torch.cuda.synchronize()
+    for i in range(0, n, CHUNK):
+        j = min(i + CHUNK, n)
+        exact((words[0, i // 32:j // 32], scales[0, i // G:j // G]),
+              ref.sign_pack_ref(g[i:j], G, gamma_t),
+              f"sign_pack(gamma) on bf16 g at n={n}")
+    ms = cuda_ms(lambda: sp.sign_pack(g, G, out=(words[0], scales[0]),
+                                      gamma=gamma_t), 10)
+
+    def plain_pack():
+        for i in range(0, n, CHUNK):
+            ref.sign_pack_ref(g[i:i + CHUNK], G, gamma_t)
+    out["sign_pack@gamma"] = dtype_row(ms, cuda_ms(plain_pack, 2),
+                                       2 * n + payload, 3 * n,
+                                       {"g": "torch.bfloat16"})
+    del g, e, words, scales
+
+    B = BLOCK
+    g, e = bf16_inputs(torch, gen, dev, n, B, topk=True)
+    nb = n // B
+    idx = torch.zeros((N_CODE, nb, K), dtype=torch.uint16, device=dev)
+    val = torch.zeros((N_CODE, nb, K), device=dev)
+    sc = torch.zeros((N_CODE, nb), device=dev)
+    ks = DRIVER_K_BUDGETS                   # 8, 8, 3, 1
+
+    def launch(r, m, ksend):
+        tp.ef_topk_fused(g, e[1], gamma_t, m, K, B,
+                         out=(idx[r], val[r], sc[r], e[1]), k_send=ksend)
+
+    for r, m in ((0, masks[0]), (1, masks[1]), (2, masks[0]),
+                 (3, masks[0])):
+        e[1].copy_(e[0])
+        launch(r, m, ks[r])
+        torch.cuda.synchronize()
+        what = (f"ef_topk_fused@bf16 g/e at n={n} (k_send={ks[r]}, "
+                f"mask={m.item()})")
+        if m.item() == 0.0 and not same(e[1], e[0]):
+            fail(f"{what}: a straggler's e changed")
+        for i in range(0, n, CHUNK):
+            j = min(i + CHUNK, n)
+            want = ref.ef_topk_fused_ref(g[i:j], e[0, i:j], gamma_t, m, K, B,
+                                         k_send=ks[r])
+            compare_topk((idx[r, i // B:j // B], val[r, i // B:j // B],
+                          sc[r, i // B:j // B], None, e[1, i:j]), want, what)
+            del want
+    ms8 = cuda_ms(lambda: launch(0, masks[0], None), 10)
+    ms1 = cuda_ms(lambda: launch(3, masks[0], 1), 10)
+
+    def plain_ef():
+        for i in range(0, n, CHUNK):
+            ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK],
+                                  gamma_t, masks[0], K, B)
+    payload_b = nb * (K * (2 + 4) + 4)
+    out["ef_topk_fused@bf16 g/e"] = dtype_row(
+        ms8, cuda_ms(plain_ef, 2), 6 * n + payload_b, (6 + K) * n,
+        {"g": "torch.bfloat16", "e": "torch.bfloat16",
+         "ms_k_send_1": ms1, "k_send_checked": list(ks)})
+    # B6 with gamma on bf16 g
+    for r, ksend in ((0, None), (2, 3)):
+        tp.topk_pack(g, K, B, out=(idx[r], val[r], sc[r]), k_send=ksend,
+                     gamma=gamma_t)
+        torch.cuda.synchronize()
+        for i in range(0, n, CHUNK):
+            j = min(i + CHUNK, n)
+            compare_topk((idx[r, i // B:j // B], val[r, i // B:j // B],
+                          sc[r, i // B:j // B]),
+                         ref.topk_pack_ref(g[i:j], K, B, ksend, gamma_t),
+                         f"topk_pack(gamma) on bf16 g at n={n}, k_send "
+                         f"{ksend}")
+    ms = cuda_ms(lambda: tp.topk_pack(g, K, B, out=(idx[0], val[0], sc[0]),
+                                      gamma=gamma_t), 10)
+
+    def plain_topk():
+        for i in range(0, n, CHUNK):
+            ref.topk_pack_ref(g[i:i + CHUNK], K, B, None, gamma_t)
+    out["topk_pack@gamma"] = dtype_row(ms, cuda_ms(plain_topk, 2),
+                                       2 * n + payload_b, (2 + K) * n,
+                                       {"g": "torch.bfloat16"})
+    del g, e, idx, val, sc
+    return out
+
+
+def dtype_paths(name: str) -> tuple:
+    """The dtypes phase's gemma2-2b setups: (TrainRun knobs, (compressor
+    and mode, paths as `setup_paths` gives them))."""
+    sign = {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}
+    block = {"ef_topk_fused": N_CODE, "topk_decode_reduce": 1}
+    if name == "sign":
+        return BF16, (("sign", "cocoef"), [
+            ("bf16 sign", "cocoef", None, "float32", DTYPE_STEPS, sign),
+            ("bf16 sign coco", "coco", None, "float32", DTYPE_SHORT_STEPS,
+             {"sign_pack": N_CODE, "sign_decode_reduce": 1})])
+    if name == "block_topk":
+        return BF16, (("block_topk", "cocoef"), [
+            ("bf16 block_topk", "cocoef", None, "float32", DTYPE_STEPS,
+             block),
+            ("bf16 block_topk budgets", "cocoef", K_BUDGETS, "float32",
+             DTYPE_SHORT_STEPS, block),
+            ("bf16 block_topk coco", "coco", None, "float32",
+             DTYPE_SHORT_STEPS,
+             {"topk_pack": N_CODE, "topk_decode_reduce": 1})])
+    return {"ef_dtype": "bfloat16"}, (("sign", "cocoef"), [
+        ("ef bf16 sign", "cocoef", None, "float32", DTYPE_SHORT_STEPS,
+         sign)])
+
+
+def olmoe_bf16(torch, dev, launches) -> dict:
+    """olmoe-1b-7b at full width and OLMOE_BF16_LAYERS of 16 layers with
+    bf16 theta and e, through `build_train_setup` on the sign wire at
+    g 32, OLMOE_BF16_STEPS steps; prints theta0's seconds, the steps and
+    the peak.  Returns the path's launch counts."""
+    from repro_torch.configs import REGISTRY, ShapeCfg
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    from repro_torch.nn.transformer import num_params
+    spec = REGISTRY["olmoe-1b-7b"]
+    spec = dataclasses.replace(
+        spec, config=dataclasses.replace(spec.config,
+                                         num_layers=OLMOE_BF16_LAYERS),
+        coding=dataclasses.replace(spec.coding, group_size=32))
+    torch.cuda.reset_peak_memory_stats()
+    setup = build_train_setup(spec, ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH),
+                              TrainRun(base_lr=5e-3, compressor="sign",
+                                       **BF16),
+                              n_code=N_CODE, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    e = setup.init_state()
+    torch.cuda.synchronize()
+    init_s = time.perf_counter() - t0
+    path = "bf16 olmoe"
+    stats = {}
+    got = train_path(torch, setup, e, 0, OLMOE_BF16_STEPS, path,
+                     {"ef_sign_fused": N_CODE * OLMOE_BF16_STEPS,
+                      "sign_decode_reduce": OLMOE_BF16_STEPS}, launches,
+                     stats)
+    peak = torch.cuda.max_memory_allocated()
+    PEAKS[path] = peak
+    cfg = setup.model.cfg
+    out = {"layers": f"{cfg.num_layers} of 16", "params": num_params(cfg),
+           "flat": setup.flat_pad, "theta": str(setup.model.theta.dtype),
+           "e": str(e.dtype), "init_s": init_s, "peak_bytes": peak,
+           "predicted_state_bytes": 17 * setup.flat_pad,
+           "total_memory": torch.cuda.get_device_properties(0).total_memory,
+           **stats}
+    print(f"dtypes ({path}): {json.dumps(out)}", flush=True)
+    del setup, e
+    settle(torch, "the bf16 olmoe run")
+    return {path: got}
+
+
+def dtypes_phase(torch, spec, shape, n: int, dev, launches) -> dict:
+    """The dtypes phase's training (module docstring): the gemma2-2b
+    setups of `dtype_paths`, one at a time, then the olmoe cell.  Returns
+    the launch counts of every path."""
+    counts = {}
+    for name in ("sign", "block_topk", "ef alone"):
+        if settle(torch, f"the phases before the dtypes {name} setup") \
+                > 1 << 30:
+            fail("over 1 GiB still allocated before a dtypes setup")
+        knobs, paths = dtype_paths(name)
+        counts.update(train_wire(torch, spec, shape, name, n, dev, launches,
+                                 knobs=knobs, paths=paths))
+    counts.update(olmoe_bf16(torch, dev, launches))
+    return counts
+
+
+def hold_bf16(torch, theta) -> "torch.Tensor":
+    """theta rounded once to bf16 (JAX's cast of its f32 draw), onto the
+    host a CHUNK at a time."""
+    host = torch.empty(theta.numel(), dtype=torch.bfloat16)
+    for i in range(0, theta.numel(), CHUNK):
+        host[i:i + CHUNK].copy_(theta[i:i + CHUNK].to(torch.bfloat16))
+    return host
+
+
+def check_bf16_init(torch, model, seed: int) -> list:
+    """A few leaves of a bf16 model that took a rounded f32 theta0 against
+    a bf16 `init_` of the same leaves (drawn straight into bf16 by
+    `prng.normal_into`): layer 0's wq, the last layer's w_down, the
+    token table's first INIT_ROWS rows.  Fails on any bit."""
+    from repro_torch.core import prng
+    from repro_torch.nn.transformer import init_keys
+    keys = init_keys(model.cfg, prng.PRNGKey(seed))
+    params = model.params()
+    L = model.cfg.num_layers
+    checked = []
+    for name, blk in (("blocks/attn/wq", 0), ("blocks/mlp/w_down", L - 1),
+                      ("embed/tok", None)):
+        k, fan = keys[name]
+        v = params[name]
+        if blk is None:
+            got = v[:INIT_ROWS].reshape(-1)
+            key = k
+        else:
+            got = v[blk].reshape(-1)
+            key = k.reshape(-1, 2)[blk]
+        want = torch.empty_like(got)
+        prng.normal_into(want, key, prng.init_scale(fan))
+        if not same(got, want):
+            fail(f"dtypes (phi3 bf16): {name} of the rounded theta0 differs "
+                 f"from a bf16 init in {int((bits(got) != bits(want)).sum())}"
+                 f" entries")
+        where = f"rows :{INIT_ROWS}" if blk is None else blk
+        checked.append(f"{name}[{where}]")
+    return checked
+
+
 def all_finite(torch, rows) -> bool:
     """Every entry finite, checked CHUNK at a time: torch.isfinite makes
     an f32 |x| and two bool tensors of the input's length, 16 GB for a
@@ -2631,7 +3052,8 @@ def settle(torch, after: str) -> int:
     gc.collect()
     torch.cuda.empty_cache()
     left = torch.cuda.memory_allocated()
-    print(f"allocated after {after}: {left} B", flush=True)
+    print(f"allocated after {after}: {left} B "
+          f"({time.perf_counter() - T0:.1f} s in)", flush=True)
     return left
 
 
@@ -2730,6 +3152,10 @@ def main() -> None:
     print(f"global top-K route (rounds of topk_pack) vs plain at n={n}, "
           f"bit for bit on the adversarial chunks: {json.dumps(route)}",
           flush=True)
+    dt_slice = dtypes_at_slice(torch, ref, sp, tp, gen, dev, n)
+    settle(torch, "the dtypes phase's kernels at the slice's n")
+    print(f"dtypes: kernel instances vs plain and times at n={n}, train "
+          f"layout, bit for bit: {json.dumps(dt_slice)}", flush=True)
     init_phase(torch, spec, dev)
     settle(torch, "the init phase")
 
@@ -2743,6 +3169,13 @@ def main() -> None:
               ("coco", "topk", None, "float32"),
               ("dense", "sign", None, "float32")]
     cases = [c + ({},) for c in cases]
+    # the dtypes phase's instances on the smoke step (B1, B3, B5, B6)
+    cases += [("cocoef", "sign", None, "float32", BF16),
+              ("cocoef", "block_topk", K_BUDGETS, "float32", BF16),
+              ("coco", "sign", None, "float32", BF16),
+              ("coco", "block_topk", None, "float32", BF16),
+              ("cocoef", "block_topk", None, "float32",
+               {"ef_dtype": "bfloat16"})]
     for knobs, paths in bucket_setups():     # the buckets phase's configs
         setup_knobs = dict(knobs)
         comp = setup_knobs.pop("compressor")
@@ -2822,14 +3255,17 @@ def main() -> None:
         fail("over 1 GiB still allocated before the families' kernels")
     fam = families_kernels(torch, ref, sp, tp, gen, dev, fam_wires)
     if settle(torch, "the families' kernels") > 1 << 30:
+        fail("over 1 GiB still allocated before the dtypes phase")
+    counts.update(dtypes_phase(torch, spec, shape, n, dev, launches))
+    THETA0_HOST.clear()           # host memory for phi3's theta0
+    if settle(torch, "the dtypes phase") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
                                                         launches)}
     cells = serve_cells_phase(torch, dev, launches)
     serve_batched_check(torch)
     for c in cells.values():
-        counts[f"serve {c['arch']}"] = {"flash_attention": c[
-            "flash_attention"]}
+        counts[c["path"]] = {"flash_attention": c["flash_attention"]}
     if settle(torch, "the serve cells") > 1 << 30:
         fail("over 1 GiB still allocated after the serve cells")
     cell_flash = flash_at_cells(torch, ref, fa, gen, dev)
@@ -2852,7 +3288,7 @@ def main() -> None:
         # the serve paths' bf16 kernel (f32 runs flash_attention.cu)
         "flash_attention": ("flash_attention_sm90", "flash_attention.py:67",
                             ("serve prefill",) + tuple(
-                                f"serve {c['arch']}" for c in cells.values()
+                                c["path"] for c in cells.values()
                                 if c["flash_attention_per_prefill"])),
     }
     driver_paths = {
@@ -2880,7 +3316,7 @@ def main() -> None:
             for key, x in cell_flash.items():
                 errs.append(x)
                 r = {**r, "more": {**r.get("more", {}), f"{key}_cell": {
-                    "launches": counts[f"serve {x['arch']}"][name],
+                    "launches": counts[cells[key]["path"]][name],
                     "launches_per_prefill": cells[key][
                         "flash_attention_per_prefill"], **x}}}
         for arch, (path, held) in fam.items():   # the families' instances
@@ -2905,6 +3341,39 @@ def main() -> None:
             "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
             "gb_per_s": r["gb_per_s"], "library_ms": r.get("library_ms"),
             **r.get("more", {})})
+    # the dtypes phase's instances, each in a row of its own
+    dtype_meta = {
+        "ef_sign_fused@bf16 g/e": ("ef_sign_fused", "sign_pack",
+                                   "sign_pack.py:112",
+                                   ("bf16 sign", "bf16 olmoe")),
+        "ef_sign_fused@bf16 e": ("ef_sign_fused", "sign_pack",
+                                 "sign_pack.py:112", ("ef bf16 sign",)),
+        "ef_topk_fused@bf16 g/e": ("ef_topk_fused", "topk_pack",
+                                   "topk_pack.py:137",
+                                   ("bf16 block_topk",
+                                    "bf16 block_topk budgets")),
+        "sign_pack@gamma": ("sign_pack", "sign_pack", "sign_pack.py:60",
+                            ("bf16 sign coco",)),
+        "topk_pack@gamma": ("topk_pack", "topk_pack", "topk_pack.py:63",
+                            ("bf16 block_topk coco",)),
+    }
+    for label, (name, src, replaces, paths) in dtype_meta.items():
+        r = dt_slice[label]
+        kernels.append({
+            "name": f"{name} ({label.split('@')[1]})", "route": "cuda",
+            "source": f"src/repro_torch/kernels/csrc/{src}.cu",
+            "replaces": f"src/repro/kernels/{replaces}",
+            "path": " + ".join(paths),
+            "launches": sum(counts.get(p, {}).get(name, 0) for p in paths),
+            "max_abs_err": r["max_abs_err"], "max_ulp": r["max_ulp"],
+            "ms": r["ms"], "plain_ms": r["plain_ms"],
+            "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+            "gb_per_s": r["gb_per_s"], "library_ms": None,
+            **{k: v for k, v in r.items() if k not in (
+                "max_abs_err", "max_ulp", "ms", "plain_ms", "bound_ms",
+                "bound_by", "gb_per_s")}})
+        if not kernels[-1]["launches"]:
+            fail(f"{label}: no launch on the dtypes phase's paths")
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -223,15 +223,22 @@ def restore_checkpoint(directory: Union[str, Path],
     return header["step"], templates
 
 
-def elastic_rescale_ef(e_old: np.ndarray, mesh_shape_old: Tuple[int, ...],
+def elastic_rescale_ef(e_old, mesh_shape_old: Tuple[int, ...],
                        mesh_shape_new: Tuple[int, ...],
-                       flat_pad_new: int) -> np.ndarray:
+                       flat_pad_new: int):
     """Map error vectors (devices..., flat) across a device-count change:
     coding ranks in both grids keep their error vectors (truncated or
-    zero-padded to the new flat size), new ranks start at zero."""
-    e_old = np.asarray(e_old)
+    zero-padded to the new flat size), new ranks start at zero.  A numpy
+    array gives a numpy array, a torch tensor (a bf16 e of
+    TrainRun.ef_dtype included, which numpy cannot hold) a tensor on its
+    device; either way of e_old's dtype."""
+    if isinstance(e_old, torch.Tensor):
+        new = e_old.new_zeros(tuple(mesh_shape_new) + (flat_pad_new,))
+    else:
+        e_old = np.asarray(e_old)
+        new = np.zeros(tuple(mesh_shape_new) + (flat_pad_new,),
+                       e_old.dtype)
     old_flat = e_old.shape[-1]
-    new = np.zeros(tuple(mesh_shape_new) + (flat_pad_new,), e_old.dtype)
     common = tuple(min(a, b) for a, b in zip(mesh_shape_old, mesh_shape_new))
     sl = tuple(slice(0, c) for c in common)
     m = min(old_flat, flat_pad_new)

@@ -69,9 +69,13 @@ round it) and, where C(acc) is a function of a chunk of acc (the sign
 wire's group scales, the dense wire, dense mode), |c|^2 and <acc, c>; a
 pass after it takes |e'|^2 and, on the sparse wires, |c|^2 and <acc, c>
 from the payload, with acc at the kept coordinates as c + e' for a
-participating rank (exact there) and gamma*g + e for a straggler (whose
-e' is e).  No pass holds more than `obs.metrics.CHUNK` elements, and
-without `metrics` the update runs exactly as before.
+participating rank (exact there with an f32 e) and gamma*g + e for a
+straggler (whose e' is e).  With a bf16 e, e' = bf16(acc - c) does not
+give acc back, so the pass before keeps acc in ghat's bucket (free until
+the decode; global top-K's step keeps it there itself), or, where that
+bucket is the f32 gradient, in a buffer of the frame's own.  No pass holds
+more than `obs.metrics.CHUNK` elements, and without `metrics` the update
+runs exactly as before.
 """
 from __future__ import annotations
 
@@ -117,6 +121,8 @@ class CocoEFConfig:
     k_per_block / block_size: the block top-K wire's kept coordinates per
       block (an int, or one budget per coding rank) and block length.
     wire_dtype: the sparse wires' value dtype, the dense wire's dtype.
+    ef_dtype: the error vectors' storage dtype ("float32" or "bfloat16":
+      e' is computed in f32 and rounded once to it, JAX's cast).
     phase2_dtype / phase2_sign: phase 2 (see the module docstring).
     num_buckets / bucket_schedule: buckets and their issue order
       ("pipelined" | "serial"; the same bits)."""
@@ -128,6 +134,7 @@ class CocoEFConfig:
     k_per_block: Union[int, Tuple[int, ...]] = 8
     block_size: int = 256
     wire_dtype: str = "float32"
+    ef_dtype: str = "float32"
     phase2_dtype: str = "float32"
     phase2_sign: bool = False
     num_buckets: int = 1
@@ -141,6 +148,7 @@ class CocoEFConfig:
         if self.num_buckets < 1:
             raise ValueError(f"num_buckets={self.num_buckets} must be >= 1")
         self.collective()     # validates phase2_dtype
+        ref.wire_dtype(self.ef_dtype)
         if self.topk_k < 1:
             raise ValueError(f"need topk_k >= 1, got {self.topk_k}")
         if self.compressor != "topk":
@@ -363,25 +371,54 @@ class FrameSums:
             float(n * ref.wire_dtype(cfg.phase2_dtype).itemsize),
             dtype=torch.float64, device=dev)
         self.frame = f
+        self._spare: Optional[torch.Tensor] = None
 
     def _sparse(self, wire) -> bool:
         return self.cfg.mode != "dense" and not isinstance(
             wire, (SignWire, DenseWire))
 
+    def keeps_acc(self, wire, e: Optional[torch.Tensor]) -> bool:
+        """Whether `after` needs acc kept from `before`: the block top-K
+        wire with a bf16 e in cocoef mode, where e' = bf16(acc - c) no
+        longer gives acc back as c + e' (global top-K's step leaves acc in
+        ghat's bucket itself)."""
+        return (self._sparse(wire) and self.cfg.mode == "cocoef"
+                and self.cfg.compressor != "topk"
+                and e.dtype != torch.float32)
+
+    def acc_buffer(self, g: torch.Tensor, free: Optional[torch.Tensor]
+                   ) -> torch.Tensor:
+        """An f32 buffer of g's size for `before` to keep acc in: `free`
+        (ghat's bucket, unused until the decode) unless it is g itself (an
+        f32 gradient buffer that holds ghat), then one of the frame's own,
+        made once."""
+        if free is not None and free.data_ptr() != g.data_ptr():
+            return free
+        if self._spare is None or self._spare.numel() != g.numel():
+            self._spare = torch.empty(g.numel(), dtype=torch.float32,
+                                      device=g.device)
+        return self._spare
+
     def before(self, rank: int, g: torch.Tensor, e: Optional[torch.Tensor],
-               wire) -> None:
+               wire, free: Optional[torch.Tensor] = None
+               ) -> Optional[torch.Tensor]:
         """g and e of one bucket before the local step: |g|^2, |acc|^2,
         and, where C(acc) is a function of a chunk of acc, |c|^2 and
-        <acc, c>."""
+        <acc, c> (g and e f32 or bf16, read widened).  Where `keeps_acc`,
+        acc is written into `acc_buffer(g, free)` and returned, for
+        `after(acc=)`; else returns None."""
         f, j, cfg = self.frame, self.rows[rank], self.cfg
         ef = cfg.mode == "cocoef"
+        kept = self.acc_buffer(g, free) if self.keeps_acc(wire, e) else None
         for i in range(0, g.numel(), FRAME_CHUNK):
-            gc = g[i:i + FRAME_CHUNK]
+            gc = g[i:i + FRAME_CHUNK].to(torch.float32)
             f.grad_norm_sq[j] += _dot(gc, gc)
             acc = gc * self.gamma
             if ef:
                 acc.add_(e[i:i + FRAME_CHUNK])
             f.acc_norm_sq[j] += _dot(acc, acc)
+            if kept is not None:
+                kept[i:i + FRAME_CHUNK] = acc
             if self._sparse(wire):
                 continue
             if isinstance(wire, SignWire):
@@ -395,11 +432,17 @@ class FrameSums:
             cc = _dot(c, c)
             f.c_norm_sq[j] += cc
             f.acc_dot_c[j] += cc if c is acc else _dot(acc, c)
+        return kept
 
     def after(self, rank: int, g: torch.Tensor, e: Optional[torch.Tensor],
-              payload: Tuple[torch.Tensor, ...], mask_i, wire) -> None:
-        """One bucket after the local step: |e'|^2 and the sparse wires'
-        |c|^2 and <acc, c>, from the payload (idx, values, scales)."""
+              payload: Tuple[torch.Tensor, ...], mask_i, wire,
+              acc: Optional[torch.Tensor] = None) -> None:
+        """One bucket after the local step: |e'|^2 (of e as stored, JAX's
+        norm of the cast e) and the sparse wires' |c|^2 and <acc, c>, from
+        the payload (idx, values, scales).  acc: the bucket's acc where
+        the global route's step or `before` (`keeps_acc`) left it; else
+        acc at the kept coordinates is gamma*g in COCO, and c + e' or, for
+        a straggler, gamma*g + e (an f32 e)."""
         f, j, cfg = self.frame, self.rows[rank], self.cfg
         if e is not None and cfg.mode == "cocoef":
             f.ef_norm_sq[j] += norm_sq(e)
@@ -407,7 +450,6 @@ class FrameSums:
             return
         idx, val, scales = payload
         B, k = wire.block_size, idx.shape[-1]
-        in_g = cfg.mode == "coco" or cfg.compressor == "topk"  # g holds acc
         step = max(1, FRAME_CHUNK // max(B, k))
         for r0 in range(0, idx.shape[0], step):
             r1 = min(r0 + step, idx.shape[0])
@@ -417,14 +459,15 @@ class FrameSums:
             c = (val[r0:r1].to(torch.float32)
                  * scales[r0:r1, None]).reshape(-1)
             f.c_norm_sq[j] += _dot(c, c)
-            gk = g.index_select(0, pos)
-            if in_g:
-                acc = gk
+            if acc is not None:
+                ak = acc.index_select(0, pos)
             else:
-                ek = e.index_select(0, pos)
-                acc = torch.where(ref.as_f32(mask_i, c) > 0, c + ek,
-                                  gk * self.gamma + ek)
-            f.acc_dot_c[j] += _dot(acc, c)
+                ak = g.index_select(0, pos).to(torch.float32) * self.gamma
+                if cfg.mode == "cocoef":
+                    ek = e.index_select(0, pos)
+                    ak = torch.where(ref.as_f32(mask_i, c) > 0, c + ek,
+                                     ak + ek)
+            f.acc_dot_c[j] += _dot(ak, c)
 
     def finish(self, ghat: torch.Tensor) -> MetricsFrame:
         self.frame.ghat_norm_sq = norm_sq(ghat)
@@ -442,13 +485,13 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
     error feedback, or with "dense" the uncompressed baseline) for the N
     coding ranks sharing this device.
 
-    grad_of(i): rank i's flat (n,) coded gradient; it may return the same
+    grad_of(i): rank i's flat (n,) coded gradient, f32 or bf16 (the
+      gradient of bf16 parameters, read widened); it may return the same
       buffer every time (the slice reuses one gradient buffer), because
-      rank i's gradient is consumed before grad_of(i+1) is called.  On the
-      per-rank budget branch, on the global top-K and dense wires and in
-      the coco and dense modes the buffer is overwritten (with acc_i or
-      C(acc_i)).
-    e: (N, n) f32 error vectors, updated in place; not read in the coco
+      rank i's gradient is consumed before grad_of(i+1) is called.  The
+      buffer is not written, unless it is `out`.
+    e: (N, n) error vectors in cfg.ef_dtype (f32 or bf16), updated in
+      place (e' computed in f32 and rounded once); not read in the coco
       and dense modes (may be None there).
     mask: (N,) f32 straggler indicators I_i^t.
     gamma: the learning rate (already inside ghat, eq. 4).
@@ -458,12 +501,14 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
       or global top-K (idx (N, n/B, k), values (N, n/B, k), scales
       (N, n/B) f32); the dense wire and dense mode (ghat (n,) f32,): the
       accumulator.
-    out: where to write ghat; may be the gradient buffer, whose bucket b
-      is free once the last rank's local step on it has run.  Not used
-      where ghat is the accumulator (the dense wire, dense mode).
+    out: where to write ghat, (n,) f32; may be an f32 gradient buffer,
+      whose bucket b is free once the last rank's local step on it has
+      run (default: a new f32 buffer).  Global top-K keeps each rank's
+      acc_i in bucket b of it during the local step.  Not used where ghat
+      is the accumulator (the dense wire, dense mode).
     kernel_spans: when a list and on CUDA, gets a (start, end) event pair
       around every rank's local step on every bucket (in coco mode its
-      gamma*g and pack) and around every bucket's decode and phase 2.
+      pack of gamma*g) and around every bucket's decode and phase 2.
     metrics: a `FrameSums` to fill (module docstring, "Telemetry").
     Returns ghat (n,) f32: apply as  params -= ghat."""
     N, B = mask.shape[0], cfg.num_buckets
@@ -489,23 +534,20 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
             wire = cfg.wire_format(n_b, N)
             wire.check(n_b, N)
             _check_budgets(wire, N)
-            ghat = torch.empty_like(g) if out is None else out
+            ghat = _f32_out(g, out)
         for b, sl in enumerate(slices):
             pb = bucket_payload(payload, b, B)
             rows = tuple(p[i] for p in pb)
             e_b = e[i, sl] if cfg.mode == "cocoef" else None
+            kept = None
             if metrics is not None:
-                metrics.before(i, g[sl], e_b, wire)
+                kept = metrics.before(i, g[sl], e_b, wire, ghat[sl])
             with spans:
-                if cfg.mode == "coco":
-                    # one f32 rounding, as JAX's gamma * g; no c, no e
-                    acc = g[sl].mul_(ref.as_f32(gamma, g))
-                    wire.fused_pack(acc, out=rows, rank=i)
-                else:
-                    wire.fused_local_step(g[sl], e_b, gamma, mask[i],
-                                          out=rows + (e_b,), rank=i)
-            if metrics is not None:      # before the decode reuses g
-                metrics.after(i, g[sl], e_b, rows, mask[i], wire)
+                acc = _local_step(cfg, wire, g[sl], e_b, gamma, mask[i],
+                                  rows, i, ghat[sl])
+            if metrics is not None:      # before the decode reuses ghat
+                metrics.after(i, g[sl], e_b, rows, mask[i], wire,
+                              kept if acc is None else acc)
             if i == N - 1:
                 sched.submit(lambda: None,
                              lambda _, pb=pb, sl=sl: _decode_one(
@@ -514,6 +556,41 @@ def cocoef_update(grad_of: Callable[[int], torch.Tensor],
     if metrics is not None:
         metrics.finish(ghat)
     return ghat
+
+
+def _f32_out(g: torch.Tensor, out: Optional[torch.Tensor]) -> torch.Tensor:
+    """ghat's buffer: `out`, or a new (n,) f32 tensor (ghat is f32 whatever
+    g's dtype, as JAX's decode)."""
+    if out is None:
+        return torch.empty(g.shape, dtype=torch.float32, device=g.device)
+    if out.dtype != torch.float32 or out.shape != g.shape:
+        raise ValueError(f"ghat's buffer must be ({g.numel()},) f32, got "
+                         f"{out.dtype} {tuple(out.shape)}")
+    return out
+
+
+def _local_step(cfg: CocoEFConfig, wire: Wire, g: torch.Tensor,
+                e: Optional[torch.Tensor], gamma, mask_i, rows, rank: int,
+                acc_buf: torch.Tensor) -> Optional[torch.Tensor]:
+    """One rank's local step on one bucket of the sign or sparse wires,
+    its payload into `rows` (and e updated in place in cocoef mode).  COCO
+    folds gamma into the pack kernel (acc = gamma*g rounded once in f32,
+    JAX's gamma * g); global top-K first makes acc in `acc_buf`, an f32
+    bucket free until the decode.  Returns that acc, or None."""
+    if cfg.compressor == "topk":
+        if cfg.mode == "coco":
+            ref.gamma_times_into(acc_buf, gamma, g)
+            wire.fused_pack(acc_buf, out=rows, rank=rank)
+        else:
+            wire.fused_local_step(g, e, gamma, mask_i, out=rows + (e,),
+                                  rank=rank, acc=acc_buf)
+        return acc_buf
+    if cfg.mode == "coco":
+        wire.fused_pack(g, out=rows, rank=rank, gamma=gamma)
+    else:
+        wire.fused_local_step(g, e, gamma, mask_i, out=rows + (e,),
+                              rank=rank)
+    return None
 
 
 def _decode_one(wire: Wire, pb: Tuple[torch.Tensor, ...], mask, out,
@@ -531,10 +608,11 @@ def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
                    ghat: torch.Tensor, spans: _KernelSpans,
                    metrics: Optional[FrameSums] = None) -> torch.Tensor:
     """`cocoef_update` where ghat is one accumulator: rank by rank, C(acc_i)
-    is made in the gradient buffer and mask_i * C(acc_i) added into ghat,
-    from +0.0 in rank order.  Dense mode is the f32 identity without error
-    feedback: acc_i = gamma*g_i (one rounding) is C(acc_i).  Buckets change
-    no value here (everything is elementwise)."""
+    is made a chunk at a time in f32 (`DenseWire.local_chunks`) and
+    mask_i * C(acc_i) added into ghat, from +0.0 in rank order.  Dense mode
+    is the f32 identity without error feedback: acc_i = gamma*g_i (one
+    rounding) is C(acc_i).  Buckets change no value here (everything is
+    elementwise)."""
     wire = cfg.wire if cfg.mode != "dense" else DenseWire()
     with spans:
         ghat.zero_()
@@ -544,11 +622,8 @@ def _folded_update(grad_of, e, mask, gamma, cfg: CocoEFConfig,
         if metrics is not None:
             metrics.before(i, g, e_i, wire)
         with spans:
-            if cfg.mode == "cocoef":
-                c = wire.fused_local_step_(g, e_i, gamma, mask[i])
-            else:
-                c = wire.roundtrip_(g.mul_(ref.as_f32(gamma, g)))
-            wire.fold_(ghat, c, mask[i])
+            for sl, c in wire.local_chunks(g, e_i, gamma, mask[i]):
+                wire.fold_(ghat[sl], c, mask[i])
         if metrics is not None:
             metrics.after(i, g, e_i, (), mask[i], wire)
     return ghat
@@ -581,23 +656,25 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
     then the two-phase collective across the grid, bucket by bucket in
     cfg.bucket_schedule's order.
 
-    g: this rank's (n,) coded gradient (overwritten, as on one device);
-    e: its (n,) error row, updated in place (None in the coco and dense
-    modes); mask: (N,) f32 over the grid, on g's device; buffers:
-    `group_buffers(cfg, grid.nd, n, device)`; out: where ghat goes (may be
-    g).  On a 1-D grid the result is `cocoef_update`'s bit for bit (see
-    `core.collectives`).  metrics: a `FrameSums` over this rank only (the
-    frame's cross-rank rows wait for the driver over a grid, ROADMAP
-    A13).  Returns ghat (n,), the same on every rank."""
+    g: this rank's (n,) coded gradient, f32 or bf16 (not written unless
+    it is `out`); e: its (n,) error row in cfg.ef_dtype, updated in place
+    (None in the coco and dense modes); mask: (N,) f32 over the grid, on
+    g's device; buffers: `group_buffers(cfg, grid.nd, n, device)`; out:
+    where ghat goes, (n,) f32 (may be an f32 g; global top-K and dense
+    mode keep acc there first).  On a 1-D grid the result is
+    `cocoef_update`'s bit for bit (see `core.collectives`).  metrics: a
+    `FrameSums` over this rank only (the frame's cross-rank rows wait for
+    the driver over a grid, ROADMAP A13).  Returns ghat (n,), the same on
+    every rank."""
     me, B = grid.rank, cfg.num_buckets
     spans = _KernelSpans(kernel_spans, g.device)
-    ghat = torch.empty_like(g) if out is None else out
+    ghat = _f32_out(g, out)
     gam = ref.as_f32(gamma, g)
     if cfg.mode == "dense":
         if metrics is not None:
             metrics.before(me, g, None, DenseWire())
         with spans:
-            acc = g.mul_(gam)
+            acc = ref.gamma_times_into(ghat, gam, g)
         ghat = dense_allreduce(acc, grid, mask, out=ghat)
         if metrics is not None:
             metrics.finish(ghat)
@@ -612,23 +689,19 @@ def group_cocoef_update(g: torch.Tensor, e: Optional[torch.Tensor],
     for sl, (send, recv) in zip(slices, buffers):
         g_b = g[sl]
         e_b = e[sl] if cfg.mode == "cocoef" else None
+        acc = kept = None
         if metrics is not None:
-            metrics.before(me, g_b, e_b, wire)
+            kept = metrics.before(me, g_b, e_b, wire, ghat[sl])
         with spans:
-            if cfg.mode == "coco":
-                acc = g_b.mul_(gam)
-                if isinstance(wire, DenseWire):
-                    send[0].copy_(acc)
-                else:
-                    wire.fused_pack(acc, out=send, rank=me)
-            elif isinstance(wire, DenseWire):
-                send[0].copy_(wire.fused_local_step_(g_b, e[sl], gam,
-                                                     mask[me]))
+            if isinstance(wire, DenseWire):
+                for csl, c in wire.local_chunks(g_b, e_b, gam, mask[me]):
+                    send[0][csl] = c
             else:
-                wire.fused_local_step(g_b, e[sl], gam, mask[me],
-                                      out=send + (e[sl],), rank=me)
+                acc = _local_step(cfg, wire, g_b, e_b, gam, mask[me], send,
+                                  me, ghat[sl])
         if metrics is not None:
-            metrics.after(me, g_b, e_b, send, mask[me], wire)
+            metrics.after(me, g_b, e_b, send, mask[me], wire,
+                          kept if acc is None else acc)
 
         def finish(handle, sl=sl):
             with spans:

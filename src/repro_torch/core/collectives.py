@@ -134,10 +134,12 @@ class SignWire:
         return payload[0].shape[-1] * 32
 
     def fused_pack(self, x: torch.Tensor, out: Optional[Payload] = None,
-                   rank: Optional[int] = None) -> Payload:
-        """pack(x) through the kernel, written into `out` = (words, scales)
-        when given.  `rank` is ignored: the sign wire has no budgets."""
-        return ops.sign_pack(x, self.group_size, out=out)
+                   rank: Optional[int] = None, gamma=None) -> Payload:
+        """pack(gamma * x) (x when gamma is None; x f32 or bf16, the
+        product rounded once in f32) through the kernel, written into `out`
+        = (words, scales) when given.  `rank` is ignored: the sign wire has
+        no budgets."""
+        return ops.sign_pack(x, self.group_size, out=out, gamma=gamma)
 
     def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
                          mask_self, want_c: bool = False,
@@ -145,9 +147,10 @@ class SignWire:
                                              torch.Tensor]] = None,
                          rank: Optional[int] = None):
         """acc = gamma*g + e; payload = pack(acc); c = C(acc);
-        e_new = mask_self ? acc - c : e, in one pass over g and e.
-        `out` = (words, scales, e_new) buffers; e_new may alias e.  `rank`
-        is ignored.  Returns (payload, c or None, e_new)."""
+        e_new = mask_self ? acc - c : e, in one pass over g and e (f32 or
+        bf16 each; e_new in e's dtype, rounded once).  `out` = (words,
+        scales, e_new) buffers; e_new may alias e.  `rank` is ignored.
+        Returns (payload, c or None, e_new)."""
         words, scales, c, e_new = ops.ef_sign_fused(
             g, e, gamma, mask_self, self.group_size, want_c=want_c, out=out)
         return (words, scales), c, e_new
@@ -260,29 +263,32 @@ class SparseWire:
         return payload[2].shape[-1] * self.block_size
 
     def fused_pack(self, x: torch.Tensor, out: Optional[Payload] = None,
-                   rank: Optional[int] = None) -> Payload:
-        """pack(x) through the kernel, k_max slots, with rank `rank`'s
-        budget applied (its values past k_i are +0; None: no budget),
-        written into `out` = (idx, values, scales) when given."""
+                   rank: Optional[int] = None, gamma=None) -> Payload:
+        """pack(gamma * x) (x when gamma is None; x f32 or bf16, the
+        product rounded once in f32) through the kernel, k_max slots, with
+        rank `rank`'s budget applied (its values past k_i are +0; None: no
+        budget), written into `out` = (idx, values, scales) when given."""
         return ops.topk_pack(x, self.k_max, self.block_size,
                              self.value_dtype, out=out,
-                             k_send=self.k_send(rank))
+                             k_send=self.k_send(rank), gamma=gamma)
 
     def fused_local_step(self, g: torch.Tensor, e: torch.Tensor, gamma,
                          mask_self, want_c: bool = False,
                          out: Optional[Tuple[torch.Tensor, ...]] = None,
-                         rank: Optional[int] = None):
+                         rank: Optional[int] = None,
+                         acc: Optional[torch.Tensor] = None):
         """acc = gamma*g + e; payload = pack(acc) with rank `rank`'s
         budget; c = unpack(payload) (values rounded to the wire dtype,
         times scale); e_new = mask_self ? acc - c : e, in one pass over g
-        and e: with a budget, JAX's budget branch
-        (`repro/core/cocoef.py:308-318`).  `out` = (idx, values, scales,
-        e_new) buffers; e_new may alias e.  Returns (payload, c or None,
-        e_new)."""
+        and e (f32 or bf16 each; e_new in e's dtype, rounded once): with a
+        budget, JAX's budget branch (`repro/core/cocoef.py:308-318`).
+        `out` = (idx, values, scales, e_new) buffers; e_new may alias e.
+        `acc`: the global route's f32 acc buffer (`ops.ef_topk_fused`).
+        Returns (payload, c or None, e_new)."""
         idx, val, scales, c, e_new = ops.ef_topk_fused(
             g, e, gamma, mask_self, self.k_max, self.block_size,
             self.value_dtype, want_c=want_c, out=out,
-            k_send=self.k_send(rank))
+            k_send=self.k_send(rank), acc=acc)
         return (idx, val, scales), c, e_new
 
     def decode_reduce(self, payloads: Payload, sender_mask: torch.Tensor,
@@ -300,10 +306,10 @@ class DenseWire:
 
     JAX has no kernel for it (`repro/kernels/ops.py::dense_decode_reduce`),
     so every method is plain PyTorch, on either device.  The one-device
-    step runs the in-place methods: `fused_local_step_` (cocoef) or
-    `roundtrip_` (coco), then `fold_` into the ghat accumulator; that is
-    JAX's base `fused_local_step` (`repro/core/collectives.py:185-207`)
-    and its sender-order `decode_reduce`, rank by rank."""
+    step runs `local_chunks` (cocoef, or coco without e) and `fold_`s each
+    chunk's c into the ghat accumulator; that is JAX's base
+    `fused_local_step` (`repro/core/collectives.py:185-207`) and its
+    sender-order `decode_reduce`, rank by rank."""
 
     value_dtype: str = "float32"
 
@@ -347,20 +353,26 @@ class DenseWire:
                 xc.copy_(xc.to(self.vdt))
         return x
 
-    def fused_local_step_(self, g: torch.Tensor, e: torch.Tensor, gamma,
-                          mask_self) -> torch.Tensor:
-        """The Algorithm-1 local step in place: g <- c = C(acc) with acc =
-        gamma*g + e (two roundings), and e <- mask_self ? acc - c : e,
-        chunk by chunk (a CHUNK of temporaries).  Returns g, now c."""
-        ref.mul_add_(gamma, g, e)                           # g = acc
+    def local_chunks(self, g: torch.Tensor, e: Optional[torch.Tensor],
+                     gamma, mask_self):
+        """The Algorithm-1 local step a CHUNK at a time: yields (slice,
+        c = C(acc) of the chunk, f32), acc = gamma*g + e (two roundings;
+        g and e f32 or bf16, widened), having set e <- mask_self ? acc - c
+        : e on the chunk (in e's dtype, rounded once).  With e None (COCO,
+        dense mode) acc = gamma*g, rounded once.  g is not written; c is a
+        fresh f32 tensor (the caller may overwrite it)."""
+        gam = ref.as_f32(gamma, g)
         keep = ref.as_f32(mask_self, g) > 0
         for i in range(0, g.numel(), CHUNK):
-            acc, ei = g[i:i + CHUNK], e[i:i + CHUNK]
+            sl = slice(i, i + CHUNK)
+            acc = g[sl].to(torch.float32) * gam
+            if e is None:
+                yield sl, self.unpack(self.pack(acc))
+                continue
+            acc.add_(e[sl])
             c = self.unpack(self.pack(acc))
-            torch.where(keep, acc - c, ei, out=ei)
-            if c is not acc:
-                acc.copy_(c)
-        return g
+            e[sl] = torch.where(keep, acc - c, e[sl])
+            yield sl, c
 
     @staticmethod
     def fold_(ghat: torch.Tensor, c: torch.Tensor, mask_i) -> torch.Tensor:

@@ -21,6 +21,9 @@ flash_routes: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
 
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
+# the storage dtypes of the fused local steps' g and e and of the packs' x
+DTYPES = (torch.float32, torch.bfloat16)
+
 
 def reset_launches() -> None:
     for counts in (launches, flash_routes):
@@ -38,6 +41,19 @@ def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:
         raise ValueError(f"{name}: on {t.device}, expected {device}")
     if not t.is_contiguous():
         raise ValueError(f"{name}: must be contiguous")
+
+
+def check_dtype(t: torch.Tensor, name: str) -> None:
+    """Raise TypeError unless t's dtype has a kernel instance (DTYPES)."""
+    if t.dtype not in DTYPES:
+        raise TypeError(f"{name}: no kernel instance for {t.dtype}; have "
+                        f"{DTYPES}")
+
+
+def dtype_code(g: torch.Tensor, e: torch.Tensor) -> int:
+    """The fused local step's instance: bit 0 = bf16 g, bit 1 = bf16 e."""
+    return (int(g.dtype == torch.bfloat16)
+            | int(e.dtype == torch.bfloat16) << 1)
 
 
 def scalar(v, device) -> torch.Tensor:

@@ -8,15 +8,23 @@
 //
 // ef_sign_fused — replaces repro/kernels/sign_pack.py::_ef_fused_kernel
 //   (:77-89, pallas_call at :112).  Per group of G coordinates:
-//     acc = gamma*g + e (two roundings, no FMA: __fmul_rn/__fadd_rn),
+//     acc = gamma*g + e (g and e widened to f32 in registers, then two
+//       roundings, no FMA: __fmul_rn/__fadd_rn),
 //     scale = sum|acc| / G, reduced in one fixed order,
 //     word w bit j = acc[32w+j] >= 0  (-0.0 packs as +, NaN as -),
 //     c = +-scale, e' = mask > 0 ? acc - c : e.
+//   One instance per (g dtype, e dtype) in {f32, bf16}^2: the gradient of
+//   bf16 parameters, and the error vector stored in TrainRun.ef_dtype.
+//   A bf16 e' is the f32 acc - c rounded once (__float2bfloat16_rn), as
+//   JAX casts the f32 e' to ef_dtype; a straggler (mask 0) stores e's own
+//   bits.  This is JAX's kernel body: it reads g_ref[...].astype(f32) and
+//   e_ref[...].astype(f32) (sign_pack.py:81).
 //   Bound on the H100: device-memory bytes.  It reads g and e and writes
-//   e' (12 B/coordinate) plus n/8 + 4n/G bytes of payload, and does about
-//   six flops per coordinate, far below the 67 TFLOP/s f32 rate.
+//   e' (12 B/coordinate in f32; 8 with bf16 e; 6 with bf16 g and e) plus
+//   n/8 + 4n/G bytes of payload, and does about six flops per coordinate,
+//   far below the 67 TFLOP/s f32 rate.
 //   Design: one warp per group.  Lane j holds elements 32w+j, so every
-//   load and store of the warp is one coalesced 128-byte line and
+//   load and store of the warp is one coalesced line and
 //   __ballot_sync(acc >= 0) is exactly the JAX word layout.  The group's
 //   acc stays in registers between the reduction and the e' store, so g
 //   and e are read from device memory once.  Every e element is read
@@ -26,9 +34,13 @@
 // sign_pack — replaces repro/kernels/sign_pack.py::_sign_pack_kernel
 //   (:43-46, body _pack_block :32-40, pallas_call at :60).  Pack only, the
 //   group machinery of ef_sign_fused without the accumulate and without e':
-//     word w bit j = x[32w+j] >= 0,  scale = sum|x| / G  (same order).
-//   Bound: bytes.  It reads 4 B/coordinate and writes n/8 + 4n/G bytes of
-//   payload; one warp per group as in ef_sign_fused.
+//     acc = gamma * x (__fmul_rn; x widened from f32 or bf16; no gamma:
+//       acc = x),
+//     word w bit j = acc[32w+j] >= 0,  scale = sum|acc| / G  (same order).
+//   gamma folds COCO's gamma*g into the pack, rounded once in f32 as JAX's
+//   gamma * g_local, so the step neither rewrites g nor copies it to f32.
+//   Bound: bytes.  It reads 4 (bf16: 2) B/coordinate and writes n/8 +
+//   4n/G bytes of payload; one warp per group as in ef_sign_fused.
 //
 // sign_decode_reduce — replaces repro/kernels/sign_pack.py::
 //   _decode_reduce_kernel (:136-145, pallas_call at :162).
@@ -42,6 +54,7 @@
 //   16-byte store); the 4 share one word and one scale, so payload loads
 //   are broadcast within the warp and the f32 write stream is coalesced.
 
+#include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -49,6 +62,22 @@ namespace {
 
 constexpr int kWarpsPerBlock = 8;
 constexpr unsigned kFull = 0xffffffffu;
+
+// f32 and bf16 storage: widening is exact, narrowing rounds to nearest even
+__device__ __forceinline__ float widen(float x) { return x; }
+__device__ __forceinline__ float widen(__nv_bfloat16 x) {
+  return __bfloat162float(x);
+}
+template <typename T>
+__device__ __forceinline__ T narrow(float x);
+template <>
+__device__ __forceinline__ float narrow<float>(float x) {
+  return x;
+}
+template <>
+__device__ __forceinline__ __nv_bfloat16 narrow<__nv_bfloat16>(float x) {
+  return __float2bfloat16_rn(x);
+}
 
 // One group's sign words and scale from the warp's registers (lane j holds
 // elements 32w + j): scale = sum|v| / G, summed lane-sequentially, then in
@@ -80,13 +109,13 @@ __device__ __forceinline__ float pack_group(const float (&v)[G / 32],
   return scale;
 }
 
-template <int G>
+template <int G, typename TG, typename TE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ef_sign_fused_kernel(const float* __restrict__ g, const float* e,
+ef_sign_fused_kernel(const TG* __restrict__ g, const TE* e,
                      const float* __restrict__ gamma_p,
                      const float* __restrict__ mask_p,
                      uint32_t* __restrict__ words, float* __restrict__ scales,
-                     float* __restrict__ c, float* e_out, int64_t n_groups) {
+                     float* __restrict__ c, TE* e_out, int64_t n_groups) {
   constexpr int kPerLane = G / 32;  // words per group
   const int lane = threadIdx.x & 31;
   const int64_t grp =
@@ -97,12 +126,12 @@ ef_sign_fused_kernel(const float* __restrict__ g, const float* e,
   const int64_t base = grp * G + lane;
 
   float acc[kPerLane];
-  float ev[kPerLane];
+  TE ev[kPerLane];  // e's own bits: a straggler stores them back
 #pragma unroll
   for (int w = 0; w < kPerLane; ++w) {
-    const float gv = g[base + 32 * w];
+    const float gv = widen(g[base + 32 * w]);
     ev[w] = e[base + 32 * w];
-    acc[w] = __fadd_rn(__fmul_rn(gamma, gv), ev[w]);
+    acc[w] = __fadd_rn(__fmul_rn(gamma, gv), widen(ev[w]));
   }
 
   const float scale = pack_group<G>(acc, lane, grp, words, scales);
@@ -111,14 +140,16 @@ ef_sign_fused_kernel(const float* __restrict__ g, const float* e,
   for (int w = 0; w < kPerLane; ++w) {
     const float cv = acc[w] >= 0.f ? scale : -scale;
     if (c != nullptr) c[base + 32 * w] = cv;
-    e_out[base + 32 * w] = keep ? __fsub_rn(acc[w], cv) : ev[w];
+    e_out[base + 32 * w] = keep ? narrow<TE>(__fsub_rn(acc[w], cv)) : ev[w];
   }
 }
 
-template <int G>
+// gamma_p: a device scalar, or nullptr for acc = x (phase 2's re-pack)
+template <int G, typename TX>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-sign_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
-                 float* __restrict__ scales, int64_t n_groups) {
+sign_pack_kernel(const TX* __restrict__ x, const float* __restrict__ gamma_p,
+                 uint32_t* __restrict__ words, float* __restrict__ scales,
+                 int64_t n_groups) {
   constexpr int kPerLane = G / 32;
   const int lane = threadIdx.x & 31;
   const int64_t grp =
@@ -127,7 +158,12 @@ sign_pack_kernel(const float* __restrict__ x, uint32_t* __restrict__ words,
   const int64_t base = grp * G + lane;
   float xv[kPerLane];
 #pragma unroll
-  for (int w = 0; w < kPerLane; ++w) xv[w] = x[base + 32 * w];
+  for (int w = 0; w < kPerLane; ++w) xv[w] = widen(x[base + 32 * w]);
+  if (gamma_p != nullptr) {
+    const float gamma = *gamma_p;
+#pragma unroll
+    for (int w = 0; w < kPerLane; ++w) xv[w] = __fmul_rn(gamma, xv[w]);
+  }
   pack_group<G>(xv, lane, grp, words, scales);
 }
 
@@ -161,27 +197,29 @@ __global__ void sign_decode_reduce_kernel(const uint32_t* __restrict__ words,
 // gridDim.x is at most 2^31 - 1 blocks
 constexpr int64_t kMaxBlocks = 2147483647;
 
-template <int G>
-int launch_ef(const float* g, const float* e, const float* gamma,
+template <int G, typename TG, typename TE>
+int launch_ef(const void* g, const void* e, const float* gamma,
               const float* mask, uint32_t* words, float* scales, float* c,
-              float* e_out, int64_t n, cudaStream_t stream) {
+              void* e_out, int64_t n, cudaStream_t stream) {
   const int64_t n_groups = n / G;
   const int64_t blocks = (n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > kMaxBlocks) return (int)cudaErrorInvalidConfiguration;
-  ef_sign_fused_kernel<G><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
-                            stream>>>(g, e, gamma, mask, words, scales, c,
-                                      e_out, n_groups);
+  ef_sign_fused_kernel<G, TG, TE>
+      <<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
+          static_cast<const TG*>(g), static_cast<const TE*>(e), gamma, mask,
+          words, scales, c, static_cast<TE*>(e_out), n_groups);
   return (int)cudaGetLastError();
 }
 
-template <int G>
-int launch_pack(const float* x, uint32_t* words, float* scales, int64_t n,
-                cudaStream_t stream) {
+template <int G, typename TX>
+int launch_pack(const void* x, const float* gamma, uint32_t* words,
+                float* scales, int64_t n, cudaStream_t stream) {
   const int64_t n_groups = n / G;
   const int64_t blocks = (n_groups + kWarpsPerBlock - 1) / kWarpsPerBlock;
   if (blocks > kMaxBlocks) return (int)cudaErrorInvalidConfiguration;
-  sign_pack_kernel<G><<<(unsigned)blocks, kWarpsPerBlock * 32, 0, stream>>>(
-      x, words, scales, n_groups);
+  sign_pack_kernel<G, TX><<<(unsigned)blocks, kWarpsPerBlock * 32, 0,
+                            stream>>>(static_cast<const TX*>(x), gamma,
+                                      words, scales, n_groups);
   return (int)cudaGetLastError();
 }
 
@@ -213,23 +251,57 @@ int launch_decode(const uint32_t* words, const float* scales,
     default: return (int)cudaErrorInvalidValue; \
   }
 
-extern "C" int ef_sign_fused_launch(const float* g, const float* e,
+// dtypes: bit 0 set = g is bf16, bit 1 set = e (and e') is bf16; f32
+// otherwise (DTYPES in sign_pack.py).
+extern "C" int ef_sign_fused_launch(const void* g, const void* e,
                                     const float* gamma, const float* mask,
                                     uint32_t* words, float* scales, float* c,
-                                    float* e_out, long long n,
-                                    int group_size, void* stream) {
+                                    void* e_out, long long n,
+                                    int group_size, int dtypes,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define EF_CALL(G) launch_ef<G>(g, e, gamma, mask, words, scales, c, e_out, \
-                                (int64_t)n, st)
-  SIGN_DISPATCH(group_size, EF_CALL)
-#undef EF_CALL
+  using bf16 = __nv_bfloat16;
+#define EF_G(G) launch_ef<G, TG_, TE_>(g, e, gamma, mask, words, scales, \
+                                       c, e_out, (int64_t)n, st)
+  switch (dtypes) {
+    case 0: {
+      using TG_ = float;
+      using TE_ = float;
+      SIGN_DISPATCH(group_size, EF_G)
+    }
+    case 1: {
+      using TG_ = bf16;
+      using TE_ = float;
+      SIGN_DISPATCH(group_size, EF_G)
+    }
+    case 2: {
+      using TG_ = float;
+      using TE_ = bf16;
+      SIGN_DISPATCH(group_size, EF_G)
+    }
+    case 3: {
+      using TG_ = bf16;
+      using TE_ = bf16;
+      SIGN_DISPATCH(group_size, EF_G)
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
+#undef EF_G
 }
 
-extern "C" int sign_pack_launch(const float* x, uint32_t* words,
-                                float* scales, long long n, int group_size,
-                                void* stream) {
+// gamma: a device scalar, or nullptr (acc = x); x_bf16: 0 = f32 x, 1 = bf16
+extern "C" int sign_pack_launch(const void* x, const float* gamma,
+                                uint32_t* words, float* scales, long long n,
+                                int group_size, int x_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-#define PACK_CALL(G) launch_pack<G>(x, words, scales, (int64_t)n, st)
+#define PACK_CALL(G) launch_pack<G, TX_>(x, gamma, words, scales, \
+                                         (int64_t)n, st)
+  if (x_bf16) {
+    using TX_ = __nv_bfloat16;
+    SIGN_DISPATCH(group_size, PACK_CALL)
+  }
+  using TX_ = float;
   SIGN_DISPATCH(group_size, PACK_CALL)
 #undef PACK_CALL
 }

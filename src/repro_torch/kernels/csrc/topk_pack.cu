@@ -54,28 +54,35 @@
 
 // ef_topk_fused — replaces repro/kernels/topk_pack.py::_ef_topk_fused_kernel
 //   (:92-111, pallas_call at :137).  Per block of B coordinates:
-//     acc = gamma*g + e (two roundings, no FMA: __fmul_rn/__fadd_rn),
+//     acc = gamma*g + e (g and e widened to f32 in registers, then two
+//       roundings, no FMA: __fmul_rn/__fadd_rn),
 //     select k; scale = block max |acc| (1.0 for an all-zero block);
 //     val = V(sv / scale) (__fdiv_rn; bf16 by __float2bfloat16_rn, RNE) in
 //     slots < k_send, +0 in the others;
 //     c = f32(val) * scale at the positions of the first k_send slots, +0
 //     elsewhere (each computed once, by the slot's lane, and handed to the
 //     element's lane through shared memory);
-//     e' = mask > 0 ? acc - c : e.
+//     e' = mask > 0 ? acc - c : e, in e's dtype.
+//   One instance per (g dtype, e dtype) in {f32, bf16}^2 (and value dtype
+//   and B): a bf16 e' is the f32 acc - c rounded once (__float2bfloat16_rn),
+//   as JAX casts the f32 e' to ef_dtype, and a straggler stores e's own
+//   bits; the k_send path is the same in every instance.
 //   A kept -0.0 stays -0.0 in val and c, as in JAX's jnp reference (the
 //   Pallas kernel's masked sums make it +0.0: ROADMAP C7).  Every element
 //   of a block is read before any e' element of it is written, so e' may
 //   alias e; a straggler (mask 0) writing in place stores nothing.
 //   Bound on the H100: device-memory bytes.  It reads g and e and writes e'
-//   (12 B/coordinate) plus (k*(2 + sizeof(V)) + 4) bytes of payload per
+//   (12 B/coordinate in f32; 8 with bf16 e; 6 with bf16 g and e) plus (k*(2 + sizeof(V)) + 4) bytes of payload per
 //   block; the selection's issue work and about six flops per coordinate
 //   stay below the byte time.
 //
 // topk_pack — replaces repro/kernels/topk_pack.py::_topk_pack_kernel
 //   (:43-49, pallas_call at :63).  Pack only: idx, V(sv / scale) (+0 in
-//   slots >= k_send), scale.
-//   Bound: bytes (4 B/coordinate read plus the payload); the selection's
-//   issue work is about the same time (see above).
+//   slots >= k_send), scale, of acc = gamma * x (__fmul_rn; x f32 or bf16,
+//   widened; no gamma: acc = x).  gamma folds COCO's gamma*g into the
+//   pack, rounded once in f32 as JAX's gamma * g_local.
+//   Bound: bytes (4 B/coordinate read, 2 for bf16 x, plus the payload);
+//   the selection's issue work is about the same time (see above).
 //
 // block_topk — replaces repro/kernels/topk_block.py::_topk_kernel (:136-140,
 //   pallas_call at :148) with block_select_mask (:57).  Sparsify: per block
@@ -286,14 +293,14 @@ __device__ __forceinline__ float safe_scale(int max_bits) {
   return s == 0.f ? 1.f : s;
 }
 
-template <int B, typename V>
+template <int B, typename V, typename TG, typename TE>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-ef_topk_fused_kernel(const float* __restrict__ g, const float* e,
+ef_topk_fused_kernel(const TG* __restrict__ g, const TE* e,
                      const float* __restrict__ gamma_p,
                      const float* __restrict__ mask_p,
                      uint16_t* __restrict__ idx, V* __restrict__ val,
                      float* __restrict__ scales, float* __restrict__ c,
-                     float* e_out, int k, int k_send, int64_t n_blocks) {
+                     TE* e_out, int k, int k_send, int64_t n_blocks) {
   constexpr int P = B / 32;  // elements per lane
   __shared__ Select<P> sel[kWarpsPerBlock];
   const int warp = threadIdx.x >> 5;
@@ -305,12 +312,12 @@ ef_topk_fused_kernel(const float* __restrict__ g, const float* e,
   const int64_t base = blk * B + lane;
 
   float acc[P];
-  float ev[P];
+  TE ev[P];  // e's own bits: a straggler stores them back
 #pragma unroll
   for (int w = 0; w < P; ++w) {
-    const float gv = g[base + 32 * w];
+    const float gv = from_wire(g[base + 32 * w]);
     ev[w] = e[base + 32 * w];
-    acc[w] = __fadd_rn(__fmul_rn(gamma, gv), ev[w]);
+    acc[w] = __fadd_rn(__fmul_rn(gamma, gv), from_wire(ev[w]));
   }
 
   Select<P>& s = sel[warp];
@@ -343,15 +350,18 @@ ef_topk_fused_kernel(const float* __restrict__ g, const float* e,
       en = __fsub_rn(acc[w], cv);
     }
     if (c != nullptr) c[base + 32 * w] = cv;
-    if (store_e) e_out[base + 32 * w] = keep ? en : ev[w];
+    if (store_e) e_out[base + 32 * w] = keep ? to_wire<TE>(en) : ev[w];
   }
 }
 
-template <int B, typename V>
+// gamma_p: a device scalar, or nullptr for acc = x (the global route's
+// rounds, phase 2)
+template <int B, typename V, typename TX>
 __global__ void __launch_bounds__(kWarpsPerBlock * 32)
-topk_pack_kernel(const float* __restrict__ x, uint16_t* __restrict__ idx,
-                 V* __restrict__ val, float* __restrict__ scales, int k,
-                 int k_send, int64_t n_blocks) {
+topk_pack_kernel(const TX* __restrict__ x, const float* __restrict__ gamma_p,
+                 uint16_t* __restrict__ idx, V* __restrict__ val,
+                 float* __restrict__ scales, int k, int k_send,
+                 int64_t n_blocks) {
   constexpr int P = B / 32;
   __shared__ Select<P> sel[kWarpsPerBlock];
   const int warp = threadIdx.x >> 5;
@@ -361,7 +371,12 @@ topk_pack_kernel(const float* __restrict__ x, uint16_t* __restrict__ idx,
   const int64_t base = blk * B + lane;
   float xv[P];
 #pragma unroll
-  for (int w = 0; w < P; ++w) xv[w] = x[base + 32 * w];
+  for (int w = 0; w < P; ++w) xv[w] = from_wire(x[base + 32 * w]);
+  if (gamma_p != nullptr) {
+    const float gamma = *gamma_p;
+#pragma unroll
+    for (int w = 0; w < P; ++w) xv[w] = __fmul_rn(gamma, xv[w]);
+  }
 
   Select<P>& s = sel[warp];
   warp_select(xv, k, lane, s);
@@ -649,27 +664,29 @@ int grid_for(int64_t n_blocks, unsigned* grid) {
   return 0;
 }
 
-template <int B, typename V>
-int launch_ef(const float* g, const float* e, const float* gamma,
+template <int B, typename V, typename TG, typename TE>
+int launch_ef(const void* g, const void* e, const float* gamma,
               const float* mask, void* idx, void* val, float* scales,
-              float* c, float* e_out, int64_t n, int k, int k_send,
+              float* c, void* e_out, int64_t n, int k, int k_send,
               cudaStream_t st) {
   unsigned grid;
   if (int err = grid_for(n / B, &grid)) return err;
-  ef_topk_fused_kernel<B, V><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-      g, e, gamma, mask, static_cast<uint16_t*>(idx), static_cast<V*>(val),
-      scales, c, e_out, k, k_send, n / B);
+  ef_topk_fused_kernel<B, V, TG, TE><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const TG*>(g), static_cast<const TE*>(e), gamma, mask,
+      static_cast<uint16_t*>(idx), static_cast<V*>(val), scales, c,
+      static_cast<TE*>(e_out), k, k_send, n / B);
   return (int)cudaGetLastError();
 }
 
-template <int B, typename V>
-int launch_pack(const float* x, void* idx, void* val, float* scales,
-                int64_t n, int k, int k_send, cudaStream_t st) {
+template <int B, typename V, typename TX>
+int launch_pack(const void* x, const float* gamma, void* idx, void* val,
+                float* scales, int64_t n, int k, int k_send,
+                cudaStream_t st) {
   unsigned grid;
   if (int err = grid_for(n / B, &grid)) return err;
-  topk_pack_kernel<B, V><<<grid, kWarpsPerBlock * 32, 0, st>>>(
-      x, static_cast<uint16_t*>(idx), static_cast<V*>(val), scales, k,
-      k_send, n / B);
+  topk_pack_kernel<B, V, TX><<<grid, kWarpsPerBlock * 32, 0, st>>>(
+      static_cast<const TX*>(x), gamma, static_cast<uint16_t*>(idx),
+      static_cast<V*>(val), scales, k, k_send, n / B);
   return (int)cudaGetLastError();
 }
 
@@ -753,28 +770,62 @@ int launch_decode(const void* idx, const void* val, const float* scales,
     default: return (int)cudaErrorInvalidValue;                     \
   }
 
-extern "C" int ef_topk_fused_launch(const float* g, const float* e,
+// dtypes: bit 0 set = g is bf16, bit 1 set = e (and e') is bf16; f32
+// otherwise (DTYPES in topk_pack.py).
+extern "C" int ef_topk_fused_launch(const void* g, const void* e,
                                     const float* gamma, const float* mask,
                                     void* idx, void* val, float* scales,
-                                    float* c, float* e_out, long long n,
+                                    float* c, void* e_out, long long n,
                                     int block_size, int k, int k_send,
-                                    int value_bf16, void* stream) {
+                                    int value_bf16, int dtypes,
+                                    void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
+  using bf16 = __nv_bfloat16;
   if (k_send < 1 || k_send > k) return (int)cudaErrorInvalidValue;
-#define EF_CALL(B, V) launch_ef<B, V>(g, e, gamma, mask, idx, val, scales, \
-                                      c, e_out, (int64_t)n, k, k_send, st)
-  TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
+#define EF_CALL(B, V) launch_ef<B, V, TG_, TE_>(                       \
+    g, e, gamma, mask, idx, val, scales, c, e_out, (int64_t)n, k, k_send, \
+    st)
+  switch (dtypes) {
+    case 0: {
+      using TG_ = float;
+      using TE_ = float;
+      TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
+    }
+    case 1: {
+      using TG_ = bf16;
+      using TE_ = float;
+      TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
+    }
+    case 2: {
+      using TG_ = float;
+      using TE_ = bf16;
+      TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
+    }
+    case 3: {
+      using TG_ = bf16;
+      using TE_ = bf16;
+      TOPK_DISPATCH(block_size, value_bf16, k, EF_CALL)
+    }
+    default:
+      return (int)cudaErrorInvalidValue;
+  }
 #undef EF_CALL
 }
 
-extern "C" int topk_pack_launch(const float* x, void* idx, void* val,
-                                float* scales, long long n, int block_size,
-                                int k, int k_send, int value_bf16,
-                                void* stream) {
+// gamma: a device scalar, or nullptr (acc = x); x_bf16: 0 = f32 x, 1 = bf16
+extern "C" int topk_pack_launch(const void* x, const float* gamma, void* idx,
+                                void* val, float* scales, long long n,
+                                int block_size, int k, int k_send,
+                                int value_bf16, int x_bf16, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (k_send < 1 || k_send > k) return (int)cudaErrorInvalidValue;
-#define PACK_CALL(B, V) launch_pack<B, V>(x, idx, val, scales, (int64_t)n, \
-                                          k, k_send, st)
+#define PACK_CALL(B, V) launch_pack<B, V, TX_>(x, gamma, idx, val, scales, \
+                                               (int64_t)n, k, k_send, st)
+  if (x_bf16) {
+    using TX_ = __nv_bfloat16;
+    TOPK_DISPATCH(block_size, value_bf16, k, PACK_CALL)
+  }
+  using TX_ = float;
   TOPK_DISPATCH(block_size, value_bf16, k, PACK_CALL)
 #undef PACK_CALL
 }

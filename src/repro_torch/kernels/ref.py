@@ -28,6 +28,7 @@ from typing import Tuple
 import torch
 
 _F32 = torch.float32
+CHUNK = 1 << 26      # elements a plain full-vector pass widens at a time
 
 
 def as_f32(v, like: torch.Tensor) -> torch.Tensor:
@@ -37,14 +38,49 @@ def as_f32(v, like: torch.Tensor) -> torch.Tensor:
 
 def mul_add(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
     """The Algorithm-1 accumulate  acc = gamma * g + e  as two separately
-    rounded f32 ops (eager PyTorch never contracts them into an FMA)."""
+    rounded f32 ops (eager PyTorch never contracts them into an FMA), g
+    and e f32 or bf16, widened first (JAX's `ref.mul_add`)."""
     return as_f32(gamma, g) * g.to(_F32) + e.to(_F32)
 
 
 def mul_add_(gamma, g: torch.Tensor, e: torch.Tensor) -> torch.Tensor:
-    """`mul_add` written into g (g <- gamma * g + e, the same two
-    roundings); returns g."""
+    """`mul_add` written into the f32 g (g <- gamma * g + e, the same two
+    roundings; e f32 or bf16, widened in the add); returns g."""
+    if g.dtype != _F32:
+        raise TypeError(f"mul_add_ writes acc into g: need f32 g, got "
+                        f"{g.dtype}")
     return g.mul_(as_f32(gamma, g)).add_(e)
+
+
+def mul_add_into(acc: torch.Tensor, gamma, g: torch.Tensor,
+                 e: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
+    """`mul_add` written into the f32 `acc` (which may be g itself), a
+    chunk of widened temporaries at a time; returns acc."""
+    if acc.data_ptr() == g.data_ptr() and acc.dtype == g.dtype:
+        return mul_add_(gamma, g, e)
+    gam = as_f32(gamma, g)
+    for i in range(0, acc.numel(), chunk):
+        a = acc[i:i + chunk]
+        torch.mul(g[i:i + chunk].to(_F32), gam, out=a)
+        a.add_(e[i:i + chunk])
+    return acc
+
+
+def gamma_times_into(out: torch.Tensor, gamma, x: torch.Tensor,
+                     chunk: int = CHUNK) -> torch.Tensor:
+    """out (f32, may be x itself) <- gamma * x rounded once in f32, x f32
+    or bf16, a chunk of widened temporaries at a time; returns out."""
+    gam = as_f32(gamma, x)
+    for i in range(0, out.numel(), chunk):
+        torch.mul(x[i:i + chunk].to(_F32), gam, out=out[i:i + chunk])
+    return out
+
+
+def gamma_times(x: torch.Tensor, gamma) -> torch.Tensor:
+    """f32 of x (f32 or bf16), times gamma when given, rounded once in
+    f32: JAX's  gamma * g  on the widened gradient."""
+    xf = x.to(_F32)
+    return xf if gamma is None else as_f32(gamma, x) * xf
 
 
 def _pack_words(x: torch.Tensor) -> torch.Tensor:
@@ -78,10 +114,11 @@ def group_abs_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
     return p[:, 0] / group_size
 
 
-def sign_pack_ref(x: torch.Tensor, group_size: int
+def sign_pack_ref(x: torch.Tensor, group_size: int, gamma=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """x: (n,) f32 -> (words (n/32,) u32, scales (n/g,) f32 = mean |x|)."""
-    xf = x.to(_F32)
+    """x: (n,) f32 or bf16 -> (words (n/32,) u32, scales (n/g,) f32 =
+    mean |acc|) of acc = `gamma_times(x, gamma)`."""
+    xf = gamma_times(x, gamma)
     return _pack_words(xf), group_abs_mean(xf, group_size)
 
 
@@ -93,9 +130,11 @@ def sign_unpack_ref(words: torch.Tensor, scales: torch.Tensor,
 
 def ef_sign_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                       group_size: int):
-    """Fused Algorithm-1 local step:
+    """Fused Algorithm-1 local step (g and e f32 or bf16, widened):
       acc = gamma * g + e;  (words, scales) = sign_pack(acc)
       c = sign(acc) * scale;  e_new = mask_self > 0 ? acc - c : e
+    e_new in e's dtype: the f32 value rounded once (JAX's cast to
+    ef_dtype; a straggler's e comes back unchanged).
     Returns (words, scales, c, e_new)."""
     accg = mul_add(gamma, g, e).reshape(-1, group_size)
     scales = group_abs_mean(accg, group_size)
@@ -103,7 +142,7 @@ def ef_sign_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     c = torch.where(accg >= 0, 1.0, -1.0) * scales[:, None]
     keep = as_f32(mask_self, g) > 0
     e_new = torch.where(keep, accg - c, e.to(_F32).reshape(-1, group_size))
-    return words, scales, c.reshape(-1), e_new.reshape(-1)
+    return words, scales, c.reshape(-1), e_new.reshape(-1).to(e.dtype)
 
 
 def sign_decode_reduce_ref(words: torch.Tensor, scales: torch.Tensor,
@@ -170,12 +209,14 @@ def _budget_(values: torch.Tensor, k_send) -> torch.Tensor:
     return values
 
 
-def topk_pack_ref(x: torch.Tensor, k: int, block_size: int, k_send=None
+def topk_pack_ref(x: torch.Tensor, k: int, block_size: int, k_send=None,
+                  gamma=None
                   ) -> Tuple[torch.Tensor, torch.Tensor, torch.Tensor]:
-    """x (n,) -> (idx (n/B, k) i32, values (n/B, k) f32 = kept x / scale,
-    +0 past slot k_send (default k), scales (n/B,) f32 = block max |x|,
-    1.0 for an all-zero block)."""
-    blocks = x.to(_F32).reshape(-1, block_size)
+    """x (n,) f32 or bf16, acc = `gamma_times(x, gamma)` -> (idx (n/B, k) i32,
+    values (n/B, k) f32 = kept acc / scale, +0 past slot k_send (default
+    k), scales (n/B,) f32 = block max |acc|, 1.0 for an all-zero
+    block)."""
+    blocks = gamma_times(x, gamma).reshape(-1, block_size)
     idx, sv = topk_select(blocks, k)
     safe = _safe_scale(sv)
     return idx.to(torch.int32), _budget_(sv / safe[:, None], k_send), safe
@@ -203,6 +244,8 @@ def ef_topk_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     With k_send this is JAX's per-rank budget branch
     (`repro/core/cocoef.py:308-318`): c is the unpacked budgeted payload,
     +0 at the positions of the zeroed slots, where e_new = acc.
+    g and e are f32 or bf16 (widened); e_new is in e's dtype, the f32
+    value rounded once.
     Returns (idx i32, val f32 holding value_dtype-rounded numbers, scale,
     c, e_new).  A selected -0.0 stays -0.0 in val and c (ROADMAP C7)."""
     accb = mul_add(gamma, g, e).reshape(-1, block_size)
@@ -213,7 +256,7 @@ def ef_topk_fused_ref(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     c = _scatter_blocks(idx, val * safe[:, None], block_size)
     keep = as_f32(mask_self, g) > 0
     e_new = torch.where(keep, accb.reshape(-1) - c, e.to(_F32))
-    return idx.to(torch.int32), val, safe, c, e_new
+    return idx.to(torch.int32), val, safe, c, e_new.to(e.dtype)
 
 
 def topk_unpack_ref(idx: torch.Tensor, values: torch.Tensor,

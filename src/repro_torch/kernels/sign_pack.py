@@ -4,6 +4,11 @@ For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
 current stream, or raises: there is no fallback.  Only for CPU tensors does
 it run the plain version in `ref.py`.  Each kernel launch adds one to
 `launches[<name>]` (`common.py`).
+
+`ef_sign_fused` has an instance for each (g dtype, e dtype) in DTYPES^2
+(bf16 g: the gradient of bf16 parameters; bf16 e: TrainRun.ef_dtype) and
+`sign_pack` one for each x dtype in DTYPES; a CUDA tensor of another dtype
+raises TypeError.
 """
 from __future__ import annotations
 
@@ -14,8 +19,9 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .common import (LL, VP, I, check, launches,  # noqa: F401
-                     raise_if, reset_launches, scalar, stream)
+from .common import (DTYPES, LL, VP, I, check, check_dtype,  # noqa: F401
+                     dtype_code, launches, raise_if, reset_launches, scalar,
+                     stream)
 
 SUPPORTED_GROUP_SIZES = (32, 64, 128, 256, 512, 1024)   # see SIGN_DISPATCH
 
@@ -23,9 +29,9 @@ SUPPORTED_GROUP_SIZES = (32, 64, 128, 256, 512, 1024)   # see SIGN_DISPATCH
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("sign_pack")
-    lib.ef_sign_fused_launch.argtypes = [VP] * 8 + [LL, I, VP]
+    lib.ef_sign_fused_launch.argtypes = [VP] * 8 + [LL, I, I, VP]
     lib.ef_sign_fused_launch.restype = I
-    lib.sign_pack_launch.argtypes = [VP] * 3 + [LL, I, VP]
+    lib.sign_pack_launch.argtypes = [VP] * 4 + [LL, I, I, VP]
     lib.sign_pack_launch.restype = I
     lib.sign_decode_reduce_launch.argtypes = [VP] * 4 + [I, LL, I, VP]
     lib.sign_decode_reduce_launch.restype = I
@@ -49,27 +55,30 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     acc = gamma*g + e; words/scales = sign_pack(acc); c = sign(acc)*scale;
     e_new = mask_self > 0 ? acc - c : e.
 
-    g, e: (n,) f32; gamma, mask_self: scalars (floats or one-element
-    tensors).  The CUDA kernel reads both from device memory: a tensor on
+    g, e: (n,) f32 or bf16, widened in registers; gamma, mask_self:
+    scalars (floats or one-element tensors).  The CUDA kernel reads both from device memory: a tensor on
     the device costs nothing, a float or a CPU tensor one copy to the
     device per launch, which blocks the host (the train step therefore
     makes gamma a device scalar once per step).
-    `out` = (words (n/32,) u32, scales (n/g,) f32, e_new (n,) f32) to write
-    into; e_new may be `e` itself (the update is safe in place).  Returns
-    (words, scales, c or None, e_new)."""
+    `out` = (words (n/32,) u32, scales (n/g,) f32, e_new (n,) in e's
+    dtype) to write into; e_new may be `e` itself (the update is safe in
+    place).  A bf16 e_new is the f32 value rounded once.  Returns (words,
+    scales, c (f32) or None, e_new)."""
     n = g.numel()
     dev = g.device
     _check_group(n, group_size, dev)
-    check(g, "g", torch.float32, (n,), dev)
-    check(e, "e", torch.float32, (n,), dev)
+    check_dtype(g, "g")
+    check_dtype(e, "e")
+    check(g, "g", g.dtype, (n,), dev)
+    check(e, "e", e.dtype, (n,), dev)
     if out is None:
         out = (torch.empty(n // 32, dtype=torch.uint32, device=dev),
                torch.empty(n // group_size, dtype=torch.float32, device=dev),
-               torch.empty(n, dtype=torch.float32, device=dev))
+               torch.empty(n, dtype=e.dtype, device=dev))
     words, scales, e_new = out
     check(words, "words", torch.uint32, (n // 32,), dev)
     check(scales, "scales", torch.float32, (n // group_size,), dev)
-    check(e_new, "e_new", torch.float32, (n,), dev)
+    check(e_new, "e_new", e.dtype, (n,), dev)
     gamma_t, mask_t = scalar(gamma, dev), scalar(mask_self, dev)
 
     if dev.type == "cpu":
@@ -87,22 +96,25 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         words.data_ptr(), scales.data_ptr(),
         c.data_ptr() if c is not None else None, e_new.data_ptr(),
-        n, group_size, stream(dev))
+        n, group_size, dtype_code(g, e), stream(dev))
     raise_if(err, "ef_sign_fused")
     launches["ef_sign_fused"] += 1
     return words, scales, c, e_new
 
 
 def sign_pack(x: torch.Tensor, group_size: int,
-              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None
-              ) -> Tuple[torch.Tensor, torch.Tensor]:
-    """Pack only: x (n,) f32 -> (words (n/32,) u32 with bit j of word w =
-    x[32w+j] >= 0, scales (n/g,) f32 = mean |x| per group, summed in
-    `ref.group_abs_mean`'s order), written into `out` = (words, scales)
-    when given."""
+              out: Optional[Tuple[torch.Tensor, torch.Tensor]] = None,
+              gamma=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Pack only: x (n,) f32 or bf16, acc = gamma * x rounded once in f32
+    (acc = x when gamma is None) -> (words (n/32,) u32 with bit j of word
+    w = acc[32w+j] >= 0, scales (n/g,) f32 = mean |acc| per group, summed
+    in `ref.group_abs_mean`'s order), written into `out` = (words, scales)
+    when given.  gamma is COCO's step size, folded into the pack so that
+    the step neither rewrites g nor widens it into a copy."""
     n, dev = x.numel(), x.device
     _check_group(n, group_size, dev)
-    check(x, "x", torch.float32, (n,), dev)
+    check_dtype(x, "x")
+    check(x, "x", x.dtype, (n,), dev)
     if out is None:
         out = (torch.empty(n // 32, dtype=torch.uint32, device=dev),
                torch.empty(n // group_size, dtype=torch.float32, device=dev))
@@ -110,16 +122,18 @@ def sign_pack(x: torch.Tensor, group_size: int,
     check(words, "words", torch.uint32, (n // 32,), dev)
     check(scales, "scales", torch.float32, (n // group_size,), dev)
 
+    gamma_t = None if gamma is None else scalar(gamma, dev)
     if dev.type == "cpu":
-        w, s = ref.sign_pack_ref(x, group_size)
+        w, s = ref.sign_pack_ref(x, group_size, gamma_t)
         words.copy_(w)
         scales.copy_(s)
         return words, scales
     if dev.type != "cuda":
         raise ValueError(f"sign_pack: unsupported device {dev}")
-    err = _lib().sign_pack_launch(x.data_ptr(), words.data_ptr(),
-                                  scales.data_ptr(), n, group_size,
-                                  stream(dev))
+    err = _lib().sign_pack_launch(
+        x.data_ptr(), None if gamma_t is None else gamma_t.data_ptr(),
+        words.data_ptr(), scales.data_ptr(), n, group_size,
+        int(x.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "sign_pack")
     launches["sign_pack"] += 1
     return words, scales

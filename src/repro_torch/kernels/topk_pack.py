@@ -6,7 +6,10 @@ current stream, or raises: there is no fallback.  Only for CPU tensors does
 it run the plain version in `ref.py`, which takes any block size and k that
 JAX's reference takes.  The kernels take B in SUPPORTED_BLOCK_SIZES
 (`block_topk` in BLOCK_TOPK_SIZES), 1 <= k <= K_MAX and f32 or bf16 values;
-anything else raises ValueError on CUDA.  Payloads are in the wire's
+anything else raises ValueError on CUDA.  `ef_topk_fused` has an instance
+for each (g dtype, e dtype) in DTYPES^2 and `topk_pack` one for each x
+dtype in DTYPES (f32, bf16); a CUDA tensor of another dtype raises
+TypeError.  Payloads are in the wire's
 dtypes: in-block indices u16 (u32 when B > 65536), values in the value
 dtype, scales f32.  Each kernel launch adds
 one to `launches[<name>]` (`common.py`).
@@ -31,8 +34,10 @@ exactly (the stable-sort selection, `lax.top_k`'s order):
           sorts after every real entry.  B6 runs at least once, so no
           chunk is ever sorted whole.
   pack    scale = the first kept |x| (1.0 if 0), values = vdt(x / scale).
-  e'      (ef_topk_fused) acc = gamma*g + e is written into g (which the
-          step consumes); e' = mask ? acc : e everywhere (acc - (+0) is
+  e'      (ef_topk_fused) acc = gamma*g + e is written into `acc`, an f32
+          buffer of n (by default g itself, which must then be f32; the
+          step passes its ghat buffer, free until the decode); e' = mask ?
+          acc : e everywhere (acc - (+0) is
           acc, -0.0 included), then mask ? acc - c : e at the nd * k kept
           positions.
   decode  a zeroed output, and the sender-order sum at the union of the
@@ -42,7 +47,7 @@ exactly (the stable-sort selection, `lax.top_k`'s order):
 The glue between the B6 launches is plain PyTorch, as JAX's is jnp (its
 global route is `lax.top_k`, no Pallas kernel); B6's launches count under
 "topk_pack".  On the CPU the wrappers run the plain versions (and leave
-acc in g on the global route, as the card does); the `*_global` functions
+acc in `acc` on the global route, as the card does); the `*_global` functions
 run the route itself on either device.
 """
 from __future__ import annotations
@@ -54,7 +59,8 @@ from typing import Optional, Tuple
 import torch
 
 from . import build, ref
-from .common import LL, VP, I, check, launches, raise_if, scalar, stream
+from .common import (LL, VP, I, check, check_dtype, dtype_code, launches,
+                     raise_if, scalar, stream)
 
 SUPPORTED_BLOCK_SIZES = (64, 128, 256, 512)   # see TOPK_DISPATCH
 BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
@@ -67,9 +73,9 @@ FINAL_SORT = 1024          # a chunk's candidates are sorted at this many
 @functools.cache
 def _lib() -> ctypes.CDLL:
     lib = build.library("topk_pack")
-    lib.ef_topk_fused_launch.argtypes = [VP] * 9 + [LL, I, I, I, I, VP]
+    lib.ef_topk_fused_launch.argtypes = [VP] * 9 + [LL, I, I, I, I, I, VP]
     lib.ef_topk_fused_launch.restype = I
-    lib.topk_pack_launch.argtypes = [VP] * 4 + [LL, I, I, I, I, VP]
+    lib.topk_pack_launch.argtypes = [VP] * 5 + [LL, I, I, I, I, I, VP]
     lib.topk_pack_launch.restype = I
     lib.topk_decode_reduce_launch.argtypes = [VP] * 5 + [I, LL, I, I, I, VP]
     lib.topk_decode_reduce_launch.restype = I
@@ -137,7 +143,8 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                   k: int, block_size: int, value_dtype: str = "float32",
                   want_c: bool = False,
                   out: Optional[Tuple[torch.Tensor, ...]] = None,
-                  k_send: Optional[int] = None):
+                  k_send: Optional[int] = None,
+                  acc: Optional[torch.Tensor] = None):
     """Fused local COCO-EF step on the block top-K wire, one pass over g
     and e: acc = gamma*g + e; per block the k largest |acc| in `lax.top_k`
     order; scale = block max |acc| (1.0 if 0); val = value_dtype(sv/scale)
@@ -149,14 +156,16 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     this is JAX's per-rank budget branch (pack, zero the values past the
     budget, unpack into c) in one pass.
 
-    g, e: (n,) f32; gamma, mask_self: scalars (device tensors cost no host
-    copy, see `sign_pack.ef_sign_fused`).  `out` = (idx (n/B, k) index
-    dtype, val (n/B, k) value dtype, scales (n/B,) f32, e_new (n,) f32) to
-    write into; e_new may be `e` itself.  Returns (idx, val, scales,
-    c or None, e_new).
+    g, e: (n,) f32 or bf16, widened in registers; gamma, mask_self:
+    scalars (device tensors cost no host copy, see
+    `sign_pack.ef_sign_fused`).  `out` = (idx (n/B, k) index dtype, val
+    (n/B, k) value dtype, scales (n/B,) f32, e_new (n,) in e's dtype) to
+    write into; e_new may be `e` itself.  A bf16 e_new is the f32 value
+    rounded once.  Returns (idx, val, scales, c (f32) or None, e_new).
 
-    On the global route (`is_global(block_size)`) g is overwritten with
-    acc, on either device, and there are no budgets (k_send = k)."""
+    On the global route (`is_global(block_size)`) acc = gamma*g + e is
+    written into `acc` ((n,) f32; default g, which must then be f32), on
+    either device, and there are no budgets (k_send = k)."""
     n, dev = g.numel(), g.device
     vdt = ref.wire_dtype(value_dtype)
     _check_shape(n, k, block_size, vdt, dev, global_route=True)
@@ -164,22 +173,27 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
     glob = is_global(block_size)
     if glob and k_send != k:
         raise ValueError("the global route takes no per-rank budget")
-    check(g, "g", torch.float32, (n,), dev)
-    check(e, "e", torch.float32, (n,), dev)
+    check_dtype(g, "g")
+    check_dtype(e, "e")
+    check(g, "g", g.dtype, (n,), dev)
+    check(e, "e", e.dtype, (n,), dev)
     nb = n // block_size
     if out is None:
         out = _payload_out(None, nb, k, block_size, vdt, dev) + (
-            torch.empty(n, dtype=torch.float32, device=dev),)
+            torch.empty(n, dtype=e.dtype, device=dev),)
     idx, val, scales, e_new = _payload_out(out, nb, k, block_size, vdt, dev)
-    check(e_new, "e_new", torch.float32, (n,), dev)
+    check(e_new, "e_new", e.dtype, (n,), dev)
     gamma_t, mask_t = scalar(gamma, dev), scalar(mask_self, dev)
+    if glob:
+        acc = g if acc is None else acc
+        check(acc, "acc", torch.float32, (n,), dev)
 
     if dev.type == "cpu":
         i, v, s, c, en = ref.ef_topk_fused_ref(g, e, gamma_t, mask_t, k,
                                                block_size, value_dtype,
                                                k_send)
         if glob:
-            ref.mul_add_(gamma_t, g, e)
+            ref.mul_add_into(acc, gamma_t, g, e)
         idx.copy_(i)
         val.copy_(v)
         scales.copy_(s)
@@ -187,14 +201,16 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         return idx, val, scales, (c if want_c else None), e_new
     if glob:
         return ef_topk_global(g, e, gamma_t, mask_t, k, block_size,
-                              value_dtype, want_c, (idx, val, scales, e_new))
+                              value_dtype, want_c, (idx, val, scales, e_new),
+                              acc=acc)
 
     c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
     err = _lib().ef_topk_fused_launch(
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         idx.data_ptr(), val.data_ptr(), scales.data_ptr(),
         c.data_ptr() if c is not None else None, e_new.data_ptr(),
-        n, block_size, k, k_send, int(vdt == torch.bfloat16), stream(dev))
+        n, block_size, k, k_send, int(vdt == torch.bfloat16),
+        dtype_code(g, e), stream(dev))
     raise_if(err, "ef_topk_fused")
     launches["ef_topk_fused"] += 1
     return idx, val, scales, c, e_new
@@ -203,31 +219,40 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
 def topk_pack(x: torch.Tensor, k: int, block_size: int,
               value_dtype: str = "float32",
               out: Optional[Tuple[torch.Tensor, ...]] = None,
-              k_send: Optional[int] = None):
-    """Pack only: x (n,) f32 -> (idx (n/B, k), val = value_dtype(sv/scale)
-    (n/B, k), +0 past slot k_send (default k), scales (n/B,) f32), written
-    into `out` when given."""
+              k_send: Optional[int] = None, gamma=None):
+    """Pack only: x (n,) f32 or bf16, acc = gamma * x rounded once in f32
+    (acc = x when gamma is None) -> (idx (n/B, k), val =
+    value_dtype(sv/scale) (n/B, k), +0 past slot k_send (default k),
+    scales (n/B,) f32) of acc, written into `out` when given.  gamma is
+    COCO's step size, folded into the pack (see `sign_pack.sign_pack`);
+    the global route takes an f32 x and no gamma."""
     n, dev = x.numel(), x.device
     vdt = ref.wire_dtype(value_dtype)
     _check_shape(n, k, block_size, vdt, dev, global_route=True)
     k_send = _k_send(k_send, k)
-    check(x, "x", torch.float32, (n,), dev)
+    check_dtype(x, "x")
+    check(x, "x", x.dtype, (n,), dev)
     idx, val, scales = _payload_out(out, n // block_size, k, block_size,
                                     vdt, dev)
+    gamma_t = None if gamma is None else scalar(gamma, dev)
     if dev.type == "cuda" and is_global(block_size):
         if k_send != k:
             raise ValueError("the global route takes no per-rank budget")
+        if gamma is not None or x.dtype != torch.float32:
+            raise ValueError("the global route packs an f32 acc, no gamma")
         return topk_pack_global(x, k, block_size, value_dtype,
                                 (idx, val, scales))
     if dev.type == "cpu":
-        i, v, s = ref.topk_pack_ref(x, k, block_size, k_send)
+        i, v, s = ref.topk_pack_ref(x, k, block_size, k_send, gamma_t)
         idx.copy_(i)
         val.copy_(v)
         scales.copy_(s)
         return idx, val, scales
     err = _lib().topk_pack_launch(
-        x.data_ptr(), idx.data_ptr(), val.data_ptr(), scales.data_ptr(), n,
-        block_size, k, k_send, int(vdt == torch.bfloat16), stream(dev))
+        x.data_ptr(), None if gamma_t is None else gamma_t.data_ptr(),
+        idx.data_ptr(), val.data_ptr(), scales.data_ptr(), n, block_size,
+        k, k_send, int(vdt == torch.bfloat16),
+        int(x.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "topk_pack")
     launches["topk_pack"] += 1
     return idx, val, scales
@@ -367,25 +392,30 @@ def topk_pack_global(x: torch.Tensor, k: int, block_size: int,
 def ef_topk_global(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                    k: int, block_size: int, value_dtype: str = "float32",
                    want_c: bool = False,
-                   out: Optional[Tuple[torch.Tensor, ...]] = None):
+                   out: Optional[Tuple[torch.Tensor, ...]] = None,
+                   acc: Optional[torch.Tensor] = None):
     """`ef_topk_fused` at a block of n / nd by the global route, on either
-    device: the plain version's payload, c and e' bit for bit; g is
-    overwritten with acc = gamma*g + e.  `out` = (idx, val, scales, e_new),
-    e_new may be e.  Returns (idx, val, scales, c or None, e_new)."""
+    device: the plain version's payload, c and e' bit for bit; acc =
+    gamma*g + e is written into `acc` ((n,) f32; default g, then f32).
+    g and e f32 or bf16; e' in e's dtype, rounded once.  `out` = (idx,
+    val, scales, e_new), e_new may be e.  Returns (idx, val, scales, c or
+    None, e_new)."""
     n, dev = g.numel(), g.device
     vdt = ref.wire_dtype(value_dtype)
     if out is None:
         out = _payload_out(None, n // block_size, k, block_size, vdt,
                            dev) + (torch.empty_like(e),)
     nd, e_new = n // block_size, out[3]
-    acc = ref.mul_add_(gamma, g, e)
+    acc = ref.mul_add_into(g if acc is None else acc, gamma, g, e)
     pos, c_kept = _pack_global(acc, k, nd, out[:3])
     keep = ref.as_f32(mask_self, g) > 0
-    torch.where(keep, acc, e, out=e_new)       # acc - (+0) off the kept set
+    for i in range(0, n, ref.CHUNK):           # acc - (+0) off the kept set
+        sl = slice(i, i + ref.CHUNK)
+        e_new[sl] = torch.where(keep, acc[sl], e[sl])
     rows = e_new.view(nd, block_size)
     rows.scatter_(1, pos, torch.where(
         keep, acc.view(nd, block_size).gather(1, pos) - c_kept,
-        rows.gather(1, pos)))
+        rows.gather(1, pos)).to(e_new.dtype))
     c = None
     if want_c:
         c = torch.zeros(n, dtype=torch.float32, device=dev)

@@ -2,13 +2,15 @@
 on the CPU.
 
 `step_parity(device, compressor, k_budgets, mode, wire_dtype, num_buckets,
-bucket_schedule, phase2_dtype, phase2_sign, arch)` builds the f32
-smoke-size slice of `arch` (default gemma2-2b; g = 32, N = 4; sign wire,
-block top-K with k = 8, B = 256, uniform or with one k budget per rank,
-global top-K (one block of n / 4 per chunk, k = 16) or the dense wire;
-values in `wire_dtype`; cocoef, coco or dense mode; buckets and phase 2
-as `TrainRun` takes them) on the CPU and on `device`, from the same
-parameters, and checks two things:
+bucket_schedule, phase2_dtype, phase2_sign, arch, param_dtype,
+ef_dtype)` builds the f32-compute smoke-size slice of `arch` (default
+gemma2-2b; g = 32, N = 4; sign wire, block top-K with k = 8, B = 256,
+uniform or with one k budget per rank, global top-K (one block of n / 4
+per chunk, k = 16) or the dense wire; values in `wire_dtype`; cocoef,
+coco or dense mode; buckets and phase 2 as `TrainRun` takes them; theta
+and its gradient in `param_dtype`, e in `ef_dtype`, f32 or bf16, which
+runs the kernels' bf16 instances) on the CPU and on `device`, from the
+same parameters, and checks two things:
 
   full step   one `train_step` from the same batch and mask (rank 1 a
               straggler).  Stage 1 sums in another order on each device, so
@@ -27,12 +29,15 @@ parameters, and checks two things:
               sums of ghat (|ghat| <= N * max scale), so TOL doubles with
               phase2_sign; a bf16 broadcast rounds ghat, which moves a
               coordinate by up to a bf16 ulp of N * max scale
-              (2**-7 * N * max scale more).
+              (2**-7 * N * max scale more).  A bf16 theta rounds the
+              update once more: one bf16 ulp of max |theta| more.
   stage 2     `coded_update` fed the same injected gradients and error
               vectors on both devices.  The kernels equal their plain
               versions bit for bit, so the payload rows, the error vectors
-              (updated in place), ghat (written into the gradient buffer)
-              and theta must all be bit-equal: a mix-up of rank rows,
+              (updated in place), ghat (written into the gradient buffer,
+              or the f32 ghat buffer of bf16 parameters) and theta must
+              all be bit-equal (the injected gradients and errors rounded
+              to their storage dtypes first): a mix-up of rank rows,
               payload rows or buffers cannot hide in a tolerance.  The
               injected blocks include a zero block, a -0.0 block and, on
               the block top-K wire, k + 1 equal maxima of mixed sign and a
@@ -195,11 +200,14 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
                 mode: str = "cocoef", wire_dtype: str = "float32",
                 num_buckets: int = 1, bucket_schedule: str = "pipelined",
                 phase2_dtype: str = "float32", phase2_sign: bool = False,
-                arch: str = "gemma2-2b") -> Dict[str, float]:
+                arch: str = "gemma2-2b", param_dtype: str = "float32",
+                ef_dtype: str = "float32") -> Dict[str, float]:
     """Run both checks (see the module docstring); returns the measured
     gaps of the full step."""
     knobs = dict(num_buckets=num_buckets, bucket_schedule=bucket_schedule,
-                 phase2_dtype=phase2_dtype, phase2_sign=phase2_sign)
+                 phase2_dtype=phase2_dtype, phase2_sign=phase2_sign,
+                 param_dtype=param_dtype, ef_dtype=ef_dtype)
+    gdt, edt = getattr(torch, param_dtype), getattr(torch, ef_dtype)
     cpu, dev = _setups(device, arch, compressor, k_budgets, mode,
                        wire_dtype, **knobs)
     folds = cpu.cocoef_cfg.folds
@@ -211,9 +219,9 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     res = []
     for s in (cpu, dev):
         s.model.theta.copy_(theta0)
-        e = torch.zeros((n_code, n), device=s.device)
+        e = torch.zeros((n_code, n), dtype=edt, device=s.device)
         m = s.train_step(s.model, e, s.make_batch(0), 0, masks=mask)
-        res.append((m["loss"].item(), s.model.theta.cpu(),
+        res.append((m["loss"].item(), s.model.theta.cpu().float(),
                     s.payload[-1].max().item()))
     (l0, t0, s0), (l1, t1, s1) = res
     d = (t0 - t1).abs()
@@ -225,7 +233,11 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     if mode != "dense":
         flip = flip * (2.0 if phase2_sign else 1.0) + (
             2.0 ** -7 if phase2_dtype == "bfloat16" else 0.0)
-    assert out["max_abs_dtheta"] <= flip * n_code * max(s0, s1) + 1e-6, out
+    narrow = 0.0
+    if gdt != torch.float32:          # one more rounding of the update
+        narrow = 2.0 ** -7 * float(t0.abs().max())
+    assert out["max_abs_dtheta"] <= flip * n_code * max(s0, s1) + 1e-6 + \
+        narrow, out
     assert out["frac_dtheta_over_1e-6"] < 0.01, out
 
     rng = np.random.default_rng(seed)
@@ -241,6 +253,7 @@ def step_parity(device="cuda", seed: int = 0, compressor: str = "sign",
     if compressor == "topk" and not folds:
         _adversarial_chunks_(grads, e0, n_code,
                              ccfg.wire_format(n, n_code).k_max)
+    grads, e0 = grads.to(gdt), e0.to(edt)
     got = []
     for s in (cpu, dev):
         s.model.theta.copy_(theta0)

@@ -109,6 +109,12 @@ class TrainRun:
       key), the batches and the masks (JAX's `PRNGKey(seed)`).
     prefetch: batches `batch_stream` stages ahead on a host thread (0:
       each made when pulled; the same bits either way).
+    param_dtype: overrides the config's parameter dtype (JAX's: None keeps
+      it; "bfloat16" stores theta and its gradient in bf16, the flat
+      gradient read widened, the update computed in f32 and rounded once).
+    ef_dtype: the error vectors' storage dtype ("float32" or "bfloat16":
+      e' computed in f32 and rounded once, JAX's cast).  ghat and the
+      optimizer state stay f32 either way.
     metrics: the step also returns metrics["telemetry"], the reduced
       `obs.MetricsFrame` (participation, per-rank wire bytes, gradient,
       error, compression and update norms), from chunked passes around
@@ -139,9 +145,14 @@ class TrainRun:
     replan_threshold: float = 0.1
     prefetch: int = 0
     metrics: bool = False
+    ef_dtype: str = "float32"
+    param_dtype: Optional[str] = None
 
     def __post_init__(self):
         check_mode(self.mode)
+        ref.wire_dtype(self.ef_dtype)
+        if self.param_dtype is not None:
+            ref.wire_dtype(self.param_dtype)
         lr_schedule(self.schedule, self.base_lr, self.warmup,
                     self.schedule_total)
         if self.straggler not in stragglers.STRAGGLER_PROCESSES:
@@ -223,6 +234,7 @@ class TrainRun:
                             k_per_block=plan.k_per_block,
                             block_size=plan.block_size,
                             wire_dtype=plan.value_dtype,
+                            ef_dtype=self.ef_dtype,
                             phase2_dtype=self.phase2_dtype,
                             phase2_sign=self.phase2_sign,
                             num_buckets=plan.num_buckets,
@@ -262,6 +274,9 @@ class TrainSetup:
     buffers: Optional[List] = None        # group_buffers, with a grid
     embeddings: Optional[torch.Tensor] = dataclasses.field(
         default=None, repr=False)         # the embeddings input, made once
+    ghat: Optional[torch.Tensor] = dataclasses.field(
+        default=None, repr=False)         # (n,) f32 ghat buffer, when the
+    #   gradient buffer cannot hold ghat (bf16 parameters)
 
     @property
     def device(self) -> torch.device:
@@ -281,14 +296,16 @@ class TrainSetup:
         """theta = JAX's `init_params(key)` bit for bit (`Model.init_`;
         key defaults to PRNGKey(run.seed); JAX's driver passes
         PRNGKey(0)); returns the zero error vectors of its ranks ((N, n),
-        or (n,) with a grid), or None in the coco and dense modes, which
-        never read them (42.6 GB at the slice's n)."""
+        or (n,) with a grid) in run.ef_dtype, or None in the coco and
+        dense modes, which never read them (42.6 GB in f32 at the slice's
+        n)."""
         self.model.init_(prng.PRNGKey(self.run.seed) if key is None
                          else key)
         if self.cocoef_cfg.mode != "cocoef":
             return None
         lead = () if self.grid is not None else (self.n_code,)
-        return torch.zeros(lead + (self.flat_pad,), dtype=torch.float32,
+        return torch.zeros(lead + (self.flat_pad,),
+                           dtype=ref.wire_dtype(self.run.ef_dtype),
                            device=self.device)
 
     @property
@@ -414,7 +431,8 @@ class TrainSetup:
         the ranks' gradients grad_of(i) (with a grid `group_cocoef_update`
         on grad_of(0), this rank's), with ghat written into params.grad
         (on one device, on the dense wire and in dense mode ghat is the
-        accumulator, payload[0]), then theta <- theta - ghat in place.
+        accumulator, payload[0]; with bf16 parameters the f32 `ghat`
+        buffer), then theta <- theta - ghat in place.
         mask: (N,) f32 on the setup's device.  frames: a list that gets
         the step's `MetricsFrame` (`FrameSums` around each rank's local
         step, apply_update's norms); None takes no frame.  Returns ghat."""
@@ -429,16 +447,17 @@ class TrainSetup:
             sums = FrameSums(self.cocoef_cfg, mask, gamma_dev, self.ranks,
                              self.n_code if self.grid is None
                              else self.grid.nd, self.flat_pad)
+        out = params.grad if self.ghat is None else self.ghat
         if self.grid is not None:
             ghat = group_cocoef_update(grad_of(0), e, mask, gamma_dev,
                                        self.cocoef_cfg, self.grid,
-                                       self.buffers, out=params.grad,
+                                       self.buffers, out=out,
                                        kernel_spans=kernel_spans,
                                        metrics=sums)
         else:
             ghat = cocoef_update(grad_of, e, mask, gamma_dev,
                                  self.cocoef_cfg, self.payload,
-                                 out=params.grad, kernel_spans=kernel_spans,
+                                 out=out, kernel_spans=kernel_spans,
                                  metrics=sums)
         res = apply_update(self.run.optimizer, params.theta, ghat,
                            self.opt_state, step, gamma,
@@ -466,8 +485,13 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
     on one device); with compressor "topk" the wire is one block of
     n / nd per chunk and bucket, as on JAX's mesh.
     group: a `launch.mesh.CodingGrid`; this process is then its coding
-    rank only, and n_code must be the grid's size."""
+    rank only, and n_code must be the grid's size.
+    run.param_dtype, when set, replaces the config's (JAX's
+    `dataclasses.replace(cfg, param_dtype=...)`); with bf16 parameters
+    ghat gets an f32 buffer of its own (`TrainSetup.ghat`)."""
     cfg = spec.smoke if smoke else spec.config
+    if run.param_dtype:
+        cfg = dataclasses.replace(cfg, param_dtype=run.param_dtype)
     if group is not None and n_code != group.size:
         raise ValueError(f"n_code={n_code}, the coding grid has "
                          f"{group.size} ranks")
@@ -507,6 +531,10 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
         payload, buffers = _payload_buffers(ccfg, n_code, n, dev), None
     else:
         payload, buffers = (), group_buffers(ccfg, nd, n, dev)
+    ghat = None
+    if model.grad.dtype != torch.float32 and (group is not None
+                                              or not ccfg.folds):
+        ghat = torch.empty(n, dtype=torch.float32, device=dev)
     return TrainSetup(
         run=run, model=model, n_code=n_code, b_loc=per_subset * d,
         per_subset=per_subset, seq_len=shape.seq_len, allocation=alloc,
@@ -515,7 +543,7 @@ def build_train_setup(spec: ArchSpec, shape: ShapeCfg,
         straggler_process=proc, payload=payload,
         opt_state=init_opt_state(run.optimizer, n, dev), plan=plan,
         straggler_rates=rates, coding_plan=coding_plan,
-        grid=group, buffers=buffers)
+        grid=group, buffers=buffers, ghat=ghat)
 
 
 def setup_encode_weights(setup: TrainSetup) -> np.ndarray:

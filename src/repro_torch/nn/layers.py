@@ -9,7 +9,12 @@ bq (H, hd), bk/bv (Hkv, hd), w_gate/w_up (d, ff), w_down (ff, d),
 proj (d, d), head (d, vocab); MLA's wq (d, H, qk_nope + qk_rope),
 w_dkv (d, r + qk_rope), w_uk (r, H, qk_nope), w_uv (r, H, v), wo (H, v,
 d), kv_norm (r,); products written x @ W.  Parameters
-are f32 and cast to the compute dtype at use; compute runs in cfg.dtype.
+are stored in cfg.param_dtype (f32 or bf16) and cast where JAX casts them:
+to the compute dtype at use (a no-op for bf16 parameters under bf16
+compute), to f32 where the math is f32 (the norms' scales and biases, the
+MoE router, the SSM's A_log, dt_bias and norm_scale, MLA's kv_norm, the
+sLSTM's w_h and b), so each gradient comes back in its leaf's dtype
+through the cast, rounded once, as JAX's does; compute runs in cfg.dtype.
 Training attention is plain einsum + softmax, as JAX's XLA path is.  The
 prefill runs the hand-written flash kernel (`kernels.flash_attention`), as
 JAX's `attn_train` docstring says its Pallas kernel does on real hardware;

@@ -10,6 +10,7 @@ import torch
 from repro_torch import resolve_device
 from repro_torch.core import prng
 from repro_torch.core.cocoef import FlatLayout, flat_layout
+from repro_torch.kernels.ref import wire_dtype
 from . import transformer as T
 from .config import ModelConfig
 
@@ -17,10 +18,12 @@ __all__ = ["Model"]
 
 
 class Model:
-    """A model whose parameters and gradients live in two padded flat f32
-    buffers on `device` (`theta`, `grad`), laid out as JAX flattens its
-    param tree and padded to a multiple of
-    chunk_ranks * group_size * num_buckets.
+    """A model whose parameters and gradients live in two padded flat
+    buffers of cfg.param_dtype (f32 or bf16) on `device` (`theta`,
+    `grad`), laid out as JAX flattens its param tree and padded to a
+    multiple of chunk_ranks * group_size * num_buckets.  A bf16 theta has
+    a bf16 gradient, as autograd (and JAX) give a bf16 leaf; the train
+    step reads it widened to f32 (JAX's `flatten_local`).
     `with_grad=False` (serving) allocates no gradient buffer: `grad` is
     then None."""
 
@@ -32,8 +35,8 @@ class Model:
         self.layout: FlatLayout = flat_layout(T.param_shapes(cfg),
                                               chunk_ranks, group_size,
                                               num_buckets)
-        theta = torch.zeros(self.layout.padded, dtype=torch.float32,
-                            device=dev)
+        theta = torch.zeros(self.layout.padded,
+                            dtype=wire_dtype(cfg.param_dtype), device=dev)
         grad = torch.zeros_like(theta) if with_grad else None
         self.net = T.Transformer(cfg, self.layout, theta, grad)
 

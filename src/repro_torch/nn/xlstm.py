@@ -288,7 +288,10 @@ class SLSTMScan(torch.autograd.Function):
               vjp (`slstm_cell_vjp`) at the saved state with cotangents
               (dc, dn, dh + dhs_t, dm), dh_{t-1} = dpre_t @ wh^T; dpre
               stacked over time; then dwh = h_stack^T dpre as one (B
-              S)-long contraction and db = dpre summed over (S, B)."""
+              S)-long contraction and db = dpre summed over (S, B).
+    wh and b come in f32 (`slstm` casts the leaves, as JAX's apply_slstm
+    does), so dwh and db are summed in f32, JAX's einsum over the stacked
+    sequence; the cast's backward rounds them once into a bf16 leaf."""
 
     @staticmethod
     def forward(ctx, px, wh, b, c, n, h, m):

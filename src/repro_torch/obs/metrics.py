@@ -45,13 +45,13 @@ CHUNK = 1 << 24     # elements per pass of the frame's sums (64 MiB of f32)
 
 
 def norm_sq(x: torch.Tensor, chunk: int = CHUNK) -> torch.Tensor:
-    """Sum of squares of a flat f32 tensor as float64: the f32 dot
-    product of each `chunk` with itself (one read, no temporary), summed
-    in float64."""
+    """Sum of squares of a flat f32 (or bf16, widened a chunk at a time)
+    tensor as float64: the f32 dot product of each `chunk` with itself
+    (one read, no temporary in f32), summed in float64."""
     x = x.reshape(-1)
     out = torch.zeros((), dtype=torch.float64, device=x.device)
     for i in range(0, x.numel(), chunk):
-        xc = x[i:i + chunk]
+        xc = x[i:i + chunk].to(torch.float32)
         out += torch.dot(xc, xc).to(torch.float64)
     return out
 

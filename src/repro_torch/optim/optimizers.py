@@ -1,11 +1,15 @@
-"""Server-side optimizers on flat f32 vectors (port of
+"""Server-side optimizers on flat vectors (port of
 `repro.optim.optimizers`).
 
 COCO-EF's aggregate ghat already contains the learning rate (eq. 4), so the
 paper's server optimizer is plain SGD: theta <- theta - ghat.  Momentum and
 Adam treat ghat/gamma as the gradient estimate.  Weight decay is decoupled
 (AdamW).  Unlike the JAX version, `apply_update` updates the parameter and
-state vectors in place, which saves a model-sized copy.
+state vectors in place, which saves a model-sized copy.  The parameters
+may be stored in bf16 (`ModelConfig.param_dtype`): the update is then
+computed in f32 from theta widened and rounded once per element, as JAX
+updates the f32 flat vector and casts each leaf back (`unflatten_local`);
+ghat and the state stay f32.
 """
 from __future__ import annotations
 
@@ -53,15 +57,16 @@ def _f32(v) -> torch.Tensor:
 def apply_update(cfg: OptimizerConfig, params_flat: torch.Tensor,
                  ghat: torch.Tensor, state: Tuple[torch.Tensor, ...], step,
                  gamma, want_norms: bool = False):
-    """params_flat (n,) f32 and the state vectors are updated in place;
-    returns (params_flat, state), and with want_norms a third dict
+    """params_flat (n,) f32 or bf16 and the state vectors are updated in
+    place; returns (params_flat, state), and with want_norms a third dict
     {"update_norm_sq", "param_norm_sq"} (float64 scalars on the device:
-    |theta_new - theta|^2, the decay included, and |theta_new|^2), taken
-    while theta is updated chunk by chunk (the same elementwise
-    operations, so the same bits, and a chunk of temporaries)."""
+    |theta_new - theta|^2, the decay included, and |theta_new|^2).
+    theta is updated a CHUNK at a time, so only a chunk of temporaries is
+    live: new = (theta - upd) - theta * (wd * gamma) in f32 from theta
+    widened, written back (rounded once when theta is bf16); the norms are
+    of the f32 values before that rounding, as JAX's `delta = new_params -
+    params_flat` is taken before the cast."""
     gamma = _f32(gamma)
-    decay = (params_flat * (cfg.weight_decay * gamma)
-             if cfg.weight_decay else None)
     if cfg.kind == "sgd":
         upd = ghat
     elif cfg.kind == "momentum":
@@ -79,24 +84,23 @@ def apply_update(cfg: OptimizerConfig, params_flat: torch.Tensor,
         upd = gamma * mh / (torch.sqrt(vh) + _f32(cfg.eps))
     else:
         raise ValueError(cfg.kind)
-    if not want_norms:
-        params_flat.sub_(upd)
-        if decay is not None:
-            params_flat.sub_(decay)
-        return params_flat, state
+    wd = cfg.weight_decay * gamma if cfg.weight_decay else None
     norms = {k: torch.zeros((), dtype=torch.float64,
                             device=params_flat.device)
              for k in ("update_norm_sq", "param_norm_sq")}
     for i in range(0, params_flat.numel(), CHUNK):
         sl = slice(i, i + CHUNK)
-        p = params_flat[sl]
-        old = p.clone()
-        p.sub_(upd[sl])
-        if decay is not None:
-            p.sub_(decay[sl])
-        old.sub_(p)                        # theta - theta_new
-        norms["update_norm_sq"] += torch.dot(old, old).double()
-        norms["param_norm_sq"] += torch.dot(p, p).double()
+        old = params_flat[sl].to(_F32, copy=True)
+        new = old - upd[sl]
+        if wd is not None:
+            new.sub_(old * wd)
+        params_flat[sl] = new
+        if want_norms:
+            old.sub_(new)                  # theta - theta_new, in f32
+            norms["update_norm_sq"] += torch.dot(old, old).double()
+            norms["param_norm_sq"] += torch.dot(new, new).double()
+    if not want_norms:
+        return params_flat, state
     return params_flat, state, norms
 
 

@@ -264,7 +264,9 @@ JAX_RUN = textwrap.dedent(f"""
     out = {{"flat_pad": setup.flat_pad,
             "W": np.asarray(setup_encode_weights(setup))}}
     for p, v in jax.tree_util.tree_flatten_with_path(params)[0]:
-        out["p0/" + "/".join(k.key for k in p)] = np.asarray(v)
+        # bf16 leaves (param_dtype) as their exact f32 values
+        out["p0/" + "/".join(k.key for k in p)] = np.asarray(
+            v.astype(jnp.float32))
     out["theta0"] = flat(jax.tree.leaves(params))
     model = setup.model
     grads = jax.jit(lambda p, b: jax.vmap(
@@ -285,28 +287,41 @@ JAX_RUN = textwrap.dedent(f"""
         params, e, opt, m = step(params, e, opt, batch, jnp.int32(t), key)
         out[f"loss{{t}}"] = np.asarray(m["loss"])
         out[f"theta{{t+1}}"] = flat(jax.tree.leaves(params))
-        out[f"e{{t+1}}"] = np.asarray(e).reshape(4, -1)
+        out[f"e{{t+1}}"] = np.asarray(e.astype(jnp.float32)).reshape(4, -1)
     if mesh_stage2:
         # JAX's stage 2 alone on the mesh (cocoef_update in a shard_map
         # over the 4 devices), fed the dumped gradients, state and masks
         from jax.sharding import PartitionSpec as P
         from repro.compat import shard_map
-        from repro.core.cocoef import cocoef_update
+        from repro.core.cocoef import coding_rank_index, cocoef_update
+        cfg = setup.cocoef_cfg
+        # the sign wire's payload too: JAX's local step in the same jit
+        sign = cfg.compressor == "sign" and cfg.mode == "cocoef"
 
         def s2(g, e, mask):
-            gh, en = cocoef_update(g.reshape(-1), e.reshape(-1), mask,
-                                   jnp.float32({LR}), setup.cocoef_cfg)
-            return gh.reshape(1, -1), en.reshape(1, -1)
+            g, e = g.reshape(-1), e.reshape(-1)
+            gh, en = cocoef_update(g, e, mask, jnp.float32({LR}), cfg)
+            res = (gh.reshape(1, -1), en.reshape(1, -1))
+            if sign:
+                i = coding_rank_index(cfg.coding_axes)
+                (w, sc), _, _ = cfg.wire_format(g.shape[0], 4) \
+                    .fused_local_step(g, e, jnp.float32({LR}), mask[i],
+                                      use_pallas=True, want_c=False)
+                res += (w.reshape(1, -1), sc.reshape(1, -1))
+            return res
         s2 = jax.jit(shard_map(s2, mesh, in_specs=(P("data"), P("data"),
                                                    P()),
-                               out_specs=(P("data"), P("data")),
+                               out_specs=(P("data"),) * (4 if sign else 2),
                                check=False))
         for t in range(3):
             e_in = (np.zeros_like(out["g0"]) if t == 0
                     else out[f"e{{t}}"])
-            gh, en = s2(out[f"g{{t}}"], e_in, out[f"mask{{t}}"])
-            out[f"s2_ghat{{t}}"] = np.asarray(gh)
-            out[f"s2_e{{t}}"] = np.asarray(en)
+            res = s2(out[f"g{{t}}"], e_in, out[f"mask{{t}}"])
+            out[f"s2_ghat{{t}}"] = np.asarray(res[0])
+            out[f"s2_e{{t}}"] = np.asarray(res[1].astype(jnp.float32))
+            if sign:
+                out[f"s2_words{{t}}"] = np.asarray(res[2])
+                out[f"s2_scales{{t}}"] = np.asarray(res[3])
     np.savez(sys.argv[1], **out)
 """)
 
@@ -418,3 +433,73 @@ def mesh_inputs(kind: str, seed: int = 0):
     g = rng.standard_normal(shape) * np.repeat(mag, 64, axis=1)
     e = rng.standard_normal(shape) * np.repeat(mag, 64, axis=1) * 0.1
     return g.astype(np.float32), e.astype(np.float32)
+
+
+# Stage 2 with bf16 state (tests/test_torch_dtypes.py): the MESH_CASES
+# inputs with g and e stored in bf16 (TrainRun.param_dtype gives a bf16
+# gradient, TrainRun.ef_dtype a bf16 e), against JAX's mesh
+# `cocoef_update` with CocoEFConfig.ef_dtype, whose flat gradient is the
+# bf16 gradient widened (flatten_local).  Each case: coding axes,
+# CocoEFConfig keywords (ef_dtype is added per dtype pair), input kind.
+_BLOCK = {"compressor": "block_topk", "block_size": 64, "k_per_block": 4}
+DTYPE_CASES = {
+    "sign": (("data",), {}, "int"),
+    "sign_b2_serial": (("data",), {"num_buckets": 2,
+                                   "bucket_schedule": "serial"}, "int"),
+    "sign_phase2_sign": (("data",), {"phase2_sign": True,
+                                     "num_buckets": 2}, "int"),
+    "block": (("data",), _BLOCK, "float"),
+    "block_b2": (("data",), {**_BLOCK, "num_buckets": 2}, "float"),
+    "block_budgets": (("data",), {**_BLOCK, "k_per_block": (4, 4, 2, 1)},
+                      "float"),
+    "block_values_bf16": (("data",), {**_BLOCK, "wire_dtype": "bfloat16",
+                                      "phase2_dtype": "bfloat16"},
+                          "float"),
+    "identity": (("data",), {"compressor": "identity"}, "float"),
+    "identity_bf16": (("data",), {"compressor": "identity",
+                                  "wire_dtype": "bfloat16"}, "float"),
+    "topk": (("data",), {"compressor": "topk"}, "float"),
+    "coco_sign": (("data",), {"mode": "coco", "num_buckets": 2}, "int"),
+    "coco_block_budgets": (("data",), {**_BLOCK, "mode": "coco",
+                                       "k_per_block": (4, 4, 2, 1)},
+                           "float"),
+    "coco_identity": (("data",), {"compressor": "identity",
+                                  "mode": "coco"}, "float"),
+    "coco_topk": (("data",), {"compressor": "topk", "mode": "coco"},
+                  "float"),
+    "dense": (("data",), {"mode": "dense"}, "float"),
+    "grid_sign": (("pod", "data"), {}, "int"),
+    "grid_block_b2": (("pod", "data"), {**_BLOCK, "num_buckets": 2},
+                      "float"),
+    "grid_identity": (("pod", "data"), {"compressor": "identity"},
+                      "float"),
+    "grid_dense": (("pod", "data"), {"mode": "dense"}, "float"),
+}
+# (g dtype, e dtype): both bf16 for every case; each field alone for the
+# cases that read e
+DTYPE_PAIRS = {"bf16": ("bfloat16", "bfloat16"),
+               "g_bf16": ("bfloat16", "float32"),
+               "e_bf16": ("float32", "bfloat16")}
+ALONE = ("sign", "block_budgets", "identity_bf16", "topk", "grid_sign")
+
+
+def dtype_case_names():
+    """'<case>/<pair>' for every case with both fields bf16, and each
+    field alone for the cases in ALONE."""
+    return [f"{c}/{p}" for c in DTYPE_CASES for p in DTYPE_PAIRS
+            if p == "bf16" or c in ALONE]
+
+
+def dtype_case(name: str):
+    """(axes, CocoEFConfig keywords with ef_dtype, g (4, MESH_N) f32, e
+    (4, MESH_N) f32, g dtype, e dtype) of a `dtype_case_names` name: the
+    MESH_CASES inputs rounded to the stored dtypes (exact in f32)."""
+    case, pair = name.split("/")
+    axes, kw, kind = DTYPE_CASES[case]
+    gdt, edt = DTYPE_PAIRS[pair]
+    g, e = mesh_inputs(kind, seed=3)
+
+    def stored(x, dt):
+        return torch.from_numpy(x).to(getattr(torch, dt)).float().numpy()
+    return (axes, {**kw, "ef_dtype": edt}, stored(g, gdt), stored(e, edt),
+            gdt, edt)

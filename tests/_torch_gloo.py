@@ -8,6 +8,10 @@ writing what it computed to `rank<r>.pt` for the tests to compare.
            `_torch_cases.MESH_CASES`.
   train    the smoke gemma2 slice (2 layers, sign wire, g = 32), 3 steps
            of `build_train_setup(..., group=grid)`.
+  dtypes   `group_cocoef_update` on every case of
+           `_torch_cases.dtype_case_names()` (g and e stored in bf16), and
+           3 steps of the train job with TrainRun(param_dtype="bfloat16",
+           ef_dtype="bfloat16") on the sign and block top-K wires.
 
 Every process runs on one thread (stage 1 on the CPU depends on the
 thread count; the one-device runs the tests compare with do the same).
@@ -87,6 +91,40 @@ def _train(rank, out):
     out["e"] = e.clone()
 
 
+def _dtypes(rank, out):
+    from _torch_cases import MESH_GAMMA, MESH_MASK, dtype_case, \
+        dtype_case_names
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.cocoef import (CocoEFConfig, group_buffers,
+                                         group_cocoef_update)
+    from repro_torch.launch.mesh import coding_grid
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    grids = {1: coding_grid((WORLD,)), 2: coding_grid((2, 2))}
+    for name in dtype_case_names():
+        axes, kw, g, e, gdt, edt = dtype_case(name)
+        g = torch.from_numpy(g[rank].copy()).to(getattr(torch, gdt))
+        e = torch.from_numpy(e[rank].copy()).to(getattr(torch, edt))
+        cfg = CocoEFConfig(group_size=32, **kw)
+        grid = grids[len(axes)]
+        bufs = group_buffers(cfg, grid.nd, g.numel(), "cpu")
+        ghat = group_cocoef_update(g, e if cfg.mode == "cocoef" else None,
+                                   torch.tensor(MESH_MASK), MESH_GAMMA, cfg,
+                                   grid, bufs)
+        out[f"mesh/{name}"] = (ghat.clone(), e.clone())
+    for comp in ("sign", "block_topk"):
+        s = build_train_setup(
+            train_spec(), ShapeCfg("train", 32, 8),
+            TrainRun(base_lr=5e-3, compressor=comp, param_dtype="bfloat16",
+                     ef_dtype="bfloat16"),
+            smoke=True, n_code=WORLD, device="cpu", group=grids[1])
+        e = s.init_state()
+        for t in range(TRAIN_STEPS):
+            m = s.train_step(s.model, e, s.make_batch(t), t)
+            out[f"{comp}/loss{t}"] = m["loss"].item()
+        out[f"{comp}/theta"] = s.model.theta.clone()
+        out[f"{comp}/e"] = e.clone()
+
+
 def _worker(rank, job, outdir, init):
     torch.set_num_threads(1)
     sys.path.insert(0, str(HERE))
@@ -94,7 +132,8 @@ def _worker(rank, job, outdir, init):
                             rank=rank, world_size=WORLD)
     out = {}
     try:
-        {"parity": _parity, "train": _train}[job](rank, out)
+        {"parity": _parity, "train": _train,
+         "dtypes": _dtypes}[job](rank, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()

@@ -4,9 +4,10 @@
 `metrics=False` step unchanged.
 
 JAX's real 4-device train step with `TrainRun(metrics=True)` runs in one
-subprocess for four runs (sign; block top-K with per-rank budgets; coco;
-dense mode) and dumps each step's parameters, error vectors, per-rank
-gradients, mask and telemetry.  The port's stage 2 and server update
+subprocess for six runs (sign; block top-K with per-rank budgets; coco;
+dense mode; block top-K with bf16 error vectors, with f32 and with bf16
+parameters) and dumps each step's parameters, error vectors (bf16 ones as
+their f32 values), per-rank gradients, mask and telemetry.  The port's stage 2 and server update
 (`TrainSetup.coded_update`) then run on the same theta, e, gradients and
 mask, and its frame is compared field by field.
 
@@ -36,6 +37,12 @@ RUNS = {
                            "k_budgets": [8, 8, 4, 2]},
     "coco": {"mode": "coco"},
     "dense": {"mode": "dense"},
+    "block_topk_bf16_e": {"compressor": "block_topk",
+                          "ef_dtype": "bfloat16"},
+    "block_topk_budgets_bf16": {"compressor": "block_topk",
+                                "k_budgets": [8, 8, 4, 2],
+                                "param_dtype": "bfloat16",
+                                "ef_dtype": "bfloat16"},
 }
 STEPS_F = 2
 EXACT = ("participation", "participants", "wire_bytes_rank",
@@ -84,7 +91,8 @@ JAX_FRAMES = textwrap.dedent(f"""
             g = grads(params, batch)
             pre = f"{{name}}/{{t}}/"
             out[pre + "theta"] = flat(jax.tree.leaves(params))
-            out[pre + "e"] = np.asarray(e).reshape(4, -1)
+            out[pre + "e"] = np.asarray(e.astype(jnp.float32)).reshape(
+                4, -1)
             out[pre + "g"] = np.stack([flat([l[i] for l in
                                              jax.tree.leaves(g)])
                                        for i in range(4)])
@@ -124,7 +132,8 @@ def _port_frame(setup, ref, pre, step):
         torch.from_numpy(ref[pre + "theta"]))
     e = None
     if setup.cocoef_cfg.mode == "cocoef":
-        e = torch.from_numpy(ref[pre + "e"].copy())
+        e = torch.from_numpy(ref[pre + "e"].copy()).to(
+            getattr(torch, setup.run.ef_dtype))
     grads = torch.from_numpy(ref[pre + "g"])
 
     def grad_of(i):

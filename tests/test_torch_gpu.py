@@ -170,6 +170,24 @@ def test_metrics_leave_kernels_and_bits_alone(cuda, compressor, k_budgets,
     """TrainRun(metrics=True) on the card: the same kernel launches and
     theta and e bits as metrics=False, and a frame equal to the CPU's
     within the float sums' order (the integer fields exactly)."""
+    _metrics_on_card(compressor=compressor, k_budgets=k_budgets, mode=mode)
+
+
+@pytest.mark.parametrize("compressor,k_budgets", [
+    ("block_topk", None), ("block_topk", (8, 8, 4, 2)), ("topk", None),
+    ("sign", None)])
+@pytest.mark.parametrize("param_dtype", ["float32", "bfloat16"])
+def test_metrics_on_bf16_e_leave_kernels_and_bits_alone(
+        cuda, compressor, k_budgets, param_dtype):
+    """`test_metrics_leave_kernels_and_bits_alone` with bf16 error vectors
+    (ef_dtype), theta f32 (acc kept in a buffer of the frame's own) or
+    bf16 (acc kept in ghat's bucket)."""
+    _metrics_on_card(compressor=compressor, k_budgets=k_budgets,
+                     mode="cocoef", ef_dtype="bfloat16",
+                     param_dtype=param_dtype)
+
+
+def _metrics_on_card(**kw):
     import numpy as np
     from _torch_cases import _port_setup
     from repro_torch.kernels.common import launches
@@ -177,8 +195,7 @@ def test_metrics_leave_kernels_and_bits_alone(cuda, compressor, k_budgets,
     runs = {}
     for device, metrics in (("cuda", False), ("cuda", True), ("cpu", True)):
         s = _port_setup(device=device, metrics=metrics, straggler="markov",
-                        compressor=compressor, k_budgets=k_budgets,
-                        mode=mode)
+                        **kw)
         e = s.init_state()
         before = dict(launches)
         for t in range(2):
@@ -647,7 +664,7 @@ def test_global_topk_route_matches_plain(cuda, nd, B, value_dtype, mask):
 @pytest.mark.parametrize("mask", [1.0, 0.0])
 def test_dense_wire_on_card_matches_cpu(cuda, value_dtype, mask,
                                         monkeypatch):
-    """The dense wire's in-place local step (chunked: CHUNK made small),
+    """The dense wire's local step (`local_chunks`, CHUNK made small),
     roundtrip, fold and stacked decode on the card against the CPU, bit
     for bit."""
     from repro_torch.core import collectives
@@ -659,8 +676,12 @@ def test_dense_wire_on_card_matches_cpu(cuda, value_dtype, mask,
         gt = torch.from_numpy(g.copy()).to(dev)
         et = torch.from_numpy(e.copy()).to(dev)
         ghat = torch.zeros_like(gt)
-        c = w.fused_local_step_(gt, et, torch.tensor(GAMMA, device=dev),
-                                torch.tensor(mask, device=dev))
+        c = torch.full_like(gt, float("nan"))
+        for sl, cc in w.local_chunks(gt, et,
+                                     torch.tensor(GAMMA, device=dev),
+                                     torch.tensor(mask, device=dev)):
+            c[sl] = cc
+        out.append(c.clone())
         w.fold_(ghat, c, torch.tensor(0.5, device=dev))
         x = w.roundtrip_(torch.from_numpy(g * np.float32(3.3)).to(dev))
         w.fold_(ghat, x, torch.tensor(1.0, device=dev))
@@ -668,8 +689,9 @@ def test_dense_wire_on_card_matches_cpu(cuda, value_dtype, mask,
         dec = w.decode_reduce((stacked,), torch.tensor([1.0, 0.0, 1.0],
                                                        device=dev))
         out.append((gt, et, ghat, x, dec))
-    for a, b in zip(*out):
+    for a, b in zip(out[1], out[3]):
         assert _same(a, b)
+    assert _same(out[0], out[2])
 
 
 @pytest.mark.parametrize("name", ["identity", "identity_bf16",
@@ -724,3 +746,129 @@ def test_parity_gate_on_card(cuda, compressor, buckets, schedule):
     a, b = (reference_loop(compressor, device=d) for d in ("cuda", "cpu"))
     for x, y in zip(a, b):
         assert torch.equal(x.cpu().view(torch.int32), y.view(torch.int32))
+
+
+# --- the bf16 instances (TrainRun.param_dtype / ef_dtype) -----------------
+
+DTYPE_PAIRS = [("bfloat16", "bfloat16"), ("bfloat16", "float32"),
+               ("float32", "bfloat16")]
+
+
+def _stored(x, dtype, dev):
+    return torch.from_numpy(x).to(getattr(torch, dtype)).to(dev)
+
+
+@pytest.mark.parametrize("group_size", [32, 512])
+@pytest.mark.parametrize("gdt,edt", DTYPE_PAIRS)
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_ef_sign_fused_dtype_instances_match_plain(cuda, group_size, gdt,
+                                                   edt, mask):
+    """bf16 g and/or e: words, scales, c and e' (in e's dtype, the f32
+    value rounded once) bit for bit, also in place."""
+    n = group_size * 8 * 37
+    g, e = ef_inputs(n, group_size, seed=group_size + 1)
+    gt, et = _stored(g, gdt, cuda), _stored(e, edt, cuda)
+    before = sp.launches["ef_sign_fused"]
+    got = sp.ef_sign_fused(gt, et, float(GAMMA), mask, group_size,
+                           want_c=True)
+    torch.cuda.synchronize()
+    assert sp.launches["ef_sign_fused"] == before + 1
+    assert got[3].dtype == et.dtype
+    want = ref.ef_sign_fused_ref(gt.cpu(), et.cpu(), float(GAMMA), mask,
+                                 group_size)
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b), (gdt, edt)
+    e2 = et.clone()
+    sp.ef_sign_fused(gt, e2, float(GAMMA), mask, group_size,
+                     out=(torch.empty_like(got[0]),
+                          torch.empty_like(got[1]), e2))
+    torch.cuda.synchronize()
+    assert torch.equal(e2.cpu(), want[3])
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("gdt,edt", DTYPE_PAIRS)
+@pytest.mark.parametrize("k,k_send", [(8, None), (8, 3), (32, 1)])
+@pytest.mark.parametrize("value_dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("mask", [0.0, 1.0])
+def test_ef_topk_fused_dtype_instances_match_plain(cuda, block_size, gdt,
+                                                   edt, k, k_send,
+                                                   value_dtype, mask):
+    n = block_size * 8 * 13
+    g, e = topk_inputs(n, block_size, k, seed=block_size + k)
+    gt, et = _stored(g, gdt, cuda), _stored(e, edt, cuda)
+    got = tp.ef_topk_fused(gt, et, float(GAMMA), mask, k, block_size,
+                           value_dtype, want_c=True, k_send=k_send)
+    torch.cuda.synchronize()
+    want = ref.ef_topk_fused_ref(gt.cpu(), et.cpu(), float(GAMMA), mask, k,
+                                 block_size, value_dtype, k_send)
+    assert torch.equal(got[0].cpu().to(torch.int64), want[0].to(torch.int64))
+    assert torch.equal(got[1].cpu().float(), want[1])
+    for a, b in zip(got[2:], want[2:]):
+        assert torch.equal(a.cpu(), b), (gdt, edt)
+    e2 = et.clone()
+    tp.ef_topk_fused(gt, e2, float(GAMMA), mask, k, block_size, value_dtype,
+                     out=tuple(torch.empty_like(x) for x in got[:3]) + (e2,),
+                     k_send=k_send)
+    torch.cuda.synchronize()
+    assert torch.equal(e2.cpu(), want[4])
+
+
+@pytest.mark.parametrize("group_size", sp.SUPPORTED_GROUP_SIZES)
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+def test_sign_pack_gamma_matches_plain(cuda, group_size, xdt):
+    n = group_size * 8 * 21
+    g, _ = ef_inputs(n, group_size, seed=3)
+    xt = _stored(g, xdt, cuda)
+    gamma = torch.tensor(float(GAMMA), device=cuda)
+    got = sp.sign_pack(xt, group_size, gamma=gamma)
+    torch.cuda.synchronize()
+    want = ref.sign_pack_ref(xt.cpu(), group_size, float(GAMMA))
+    for a, b in zip(got, want):
+        assert torch.equal(a.cpu(), b)
+
+
+@pytest.mark.parametrize("block_size", tp.SUPPORTED_BLOCK_SIZES)
+@pytest.mark.parametrize("xdt", ["float32", "bfloat16"])
+@pytest.mark.parametrize("k,k_send", [(8, None), (8, 3)])
+def test_topk_pack_gamma_matches_plain(cuda, block_size, xdt, k, k_send):
+    n = block_size * 8 * 13
+    g, _ = topk_inputs(n, block_size, k, seed=5)
+    xt = _stored(g, xdt, cuda)
+    got = tp.topk_pack(xt, k, block_size, "bfloat16", k_send=k_send,
+                       gamma=torch.tensor(float(GAMMA), device=cuda))
+    torch.cuda.synchronize()
+    want = ref.topk_pack_ref(xt.cpu(), k, block_size, k_send, float(GAMMA))
+    assert torch.equal(got[0].cpu().to(torch.int64), want[0].to(torch.int64))
+    assert torch.equal(got[1].cpu(), want[1].to(torch.bfloat16))
+    assert torch.equal(got[2].cpu(), want[2])
+
+
+def test_dtype_wrappers_raise_without_an_instance(cuda):
+    h = torch.zeros(32 * 8, dtype=torch.float16, device=cuda)
+    f = torch.zeros(32 * 8, device=cuda)
+    with pytest.raises(TypeError):
+        sp.ef_sign_fused(h, f, 1.0, 1.0, 32)
+    with pytest.raises(TypeError):
+        tp.ef_topk_fused(f, h, 1.0, 1.0, 4, 64)
+    with pytest.raises(TypeError):
+        sp.sign_pack(h, 32)
+    with pytest.raises(TypeError):             # e' in e's dtype
+        sp.ef_sign_fused(f, f.bfloat16(), 1.0, 1.0, 32,
+                         out=(torch.empty(8, dtype=torch.uint32,
+                                          device=cuda),
+                              torch.empty(8, device=cuda), f.clone()))
+
+
+@pytest.mark.parametrize("compressor,mode,k_budgets", [
+    ("sign", "cocoef", None), ("block_topk", "cocoef", (8, 8, 4, 2)),
+    ("sign", "coco", None), ("block_topk", "coco", None),
+    ("identity", "cocoef", None), ("topk", "cocoef", None),
+    ("sign", "dense", None)])
+@pytest.mark.parametrize("param_dtype,ef_dtype", DTYPE_PAIRS)
+def test_bf16_train_step_cuda_matches_cpu(cuda, compressor, mode, k_budgets,
+                                          param_dtype, ef_dtype):
+    from repro_torch.launch.device_parity import step_parity
+    step_parity("cuda", compressor=compressor, mode=mode,
+                k_budgets=k_budgets, param_dtype=param_dtype,
+                ef_dtype=ef_dtype)
