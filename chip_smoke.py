@@ -251,6 +251,32 @@ Phases (any failure exits non-zero and prints no result line):
                 and request 0 again bit for bit, its decode floor bf16
                 theta read once.  The kernel table gets a row for each
                 instance, its launches counted on these paths
+ 14. examples   after the dtypes phase, before phase 11: the paper's Task
+                B (`data.tasks.classification_task`, the small CNN) in
+                one trial of fig7's protocol (N = M = 100, d 2, iid p
+                0.6): COCO-EF with GroupedSign at gamma 3e-3 and Unbiased
+                with StochasticSign at 1e-3, EXAMPLE_T steps each through
+                the reference loop, F and the test accuracy printed at
+                steps 0, 100, 200 and the last, seconds a step; the first
+                EXAMPLE_CHECK steps' F within EXAMPLE_RTOL of the CPU's,
+                the gradients at theta0 within it of the CPU's and the
+                same bits with TF32 switched on globally.  JAX's
+                quickstart (`launch.quickstart.main`, 301 steps of both
+                runs): F(theta) equal at every printed step to the CPU's
+                run, made in a child process while Task B runs.
+                `nn.layers.prefill_kv` and `mla_prefill` card against CPU
+                at smoke widths.  JAX's elastic_restart example
+                (`launch.elastic_restart.run`) at full width, olmoe-1b-7b
+                at ELASTIC_LAYERS of 16 layers: ELASTIC_STEPS sign steps
+                (g 32) on 4 coding ranks, a checkpoint under the temp dir,
+                ELASTIC_STEPS on 2 ranks; exact launch counts, phase 1's
+                surviving e rows hashed equal to the restored ones and
+                the rescaled rows equal to those, seconds a step, save
+                and restore seconds, the file's bytes and the peak
+                printed; then ef_sign_fused at its n and
+                sign_decode_reduce at N = 4 and N = 2 held against their
+                plain versions and timed ("elastic_wire" in the kernel
+                table)
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -373,6 +399,16 @@ DTYPE_STEPS, DTYPE_SHORT_STEPS = 5, 2
 OLMOE_BF16_LAYERS = 10
 OLMOE_BF16_STEPS = 3
 BF16 = {"param_dtype": "bfloat16", "ef_dtype": "bfloat16"}
+# the examples phase: Task B's trial (fig7's T), its steps held against
+# the CPU and their relative tolerance; the elastic restart's olmoe-1b-7b
+# depth (the driver's crash-and-resume depth: about 1.05e9 parameters,
+# about 30 GB of f32 state on 4 ranks and a 21 GB checkpoint) and steps a
+# phase
+EXAMPLE_T = 300
+EXAMPLE_CHECK = 10
+EXAMPLE_RTOL = 1e-5
+ELASTIC_LAYERS = 2
+ELASTIC_STEPS = 3
 # flash_attention's sweep beyond hd 16/64/288 x groups 1/2/4: the served
 # archs' head widths (hd 128: phi3, nemotron, qwen, llava, olmoe; 80:
 # zamba2's shared block; 64: musicgen) and group ratios (6: nemotron, 7:
@@ -609,17 +645,18 @@ def ef_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP) -> dict:
             "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
 
-def decode_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP
-                    ) -> dict:
+def decode_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP,
+                    senders: int = N_CODE) -> dict:
     """sign_decode_reduce at the slice's n and group G over the (N, n/32)
-    and (N, n/G) payload buffers of the train step: held against the plain
-    version chunk by chunk (exact), then timed."""
-    words = torch.randint(0, 2 ** 32, (N_CODE, n // 32), device=dev,
+    and (N, n/G) payload buffers of the train step (N = senders, rank 1 a
+    straggler): held against the plain version chunk by chunk (exact),
+    then timed."""
+    words = torch.randint(0, 2 ** 32, (senders, n // 32), device=dev,
                           generator=gen, dtype=torch.int64).to(torch.uint32)
-    scales = torch.rand((N_CODE, n // G), device=dev, generator=gen)
+    scales = torch.rand((senders, n // G), device=dev, generator=gen)
     scales[0, :4] = 0.0
-    scales[2, -4:] = 0.0
-    mask = torch.tensor([1.0, 0.0, 1.0, 1.0], device=dev)
+    scales[min(2, senders - 1), -4:] = 0.0
+    mask = torch.tensor([1.0, 0.0, 1.0, 1.0][:senders], device=dev)
     out = torch.empty(n, device=dev)
     sp.sign_decode_reduce(words, scales, mask, G, out=out)
     torch.cuda.synchronize()
@@ -643,8 +680,8 @@ def decode_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP
                 words[:, i // 32:(i + CHUNK) // 32],
                 scales[:, i // G:(i + CHUNK) // G], mask, G)
     plain_ms = cuda_ms(plain, 2)
-    moved = N_CODE * (n / 8 + 4 * n / G) + 4 * N_CODE + 4 * n
-    b, by = bound(moved, 3 * N_CODE * n)
+    moved = senders * (n / 8 + 4 * n / G) + 4 * senders + 4 * n
+    b, by = bound(moved, 3 * senders * n)
     return {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
@@ -1565,7 +1602,7 @@ SIGN_PATHS = ("sign", "sign b2 pipelined", "sign b2 serial",
               "driver resume restored", "driver prefetch 2 layers",
               "driver sync 2 layers", "driver all flags",
               "driver metrics off", "driver olmoe", "driver deepseek",
-              "zamba2 sign")
+              "zamba2 sign", "elastic restart")
 
 
 def setup_paths(wire: str, rounds: int) -> tuple:
@@ -3038,6 +3075,268 @@ def check_bf16_init(torch, model, seed: int) -> list:
     return checked
 
 
+def task_b_trial(torch, dev) -> dict:
+    """Phase 14's Task B: one trial of fig7's protocol (N = M = 100, d 2,
+    iid p 0.6, masks from key 1000, StochasticSign's from key 2000) on the
+    card: COCO-EF with GroupedSign at gamma 3e-3 and Unbiased with
+    StochasticSign at 1e-3, EXAMPLE_T steps each.  The gradients at
+    theta0 must keep their bits with TF32 switched on globally and lie
+    within EXAMPLE_RTOL of the CPU's largest magnitude; F(theta) after
+    each of the first EXAMPLE_CHECK steps within EXAMPLE_RTOL of the
+    CPU's run of the same steps.  Prints F and the test accuracy at steps
+    0, 100, 200 and the last, and the seconds a step."""
+    from repro_torch.core import coding, compression as C, \
+        error_feedback as EF, prng
+    from repro_torch.data import tasks
+    N = M = 100
+    W = coding.encode_weights(coding.random_allocation(0, N, M, 2), 0.6)
+    gf, lf, th0, ex = tasks.classification_task(0, device=dev)
+    cgf, clf, cth0, _ = tasks.classification_task(0, device="cpu")
+    g = gf(th0)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    torch.backends.cudnn.allow_tf32 = True
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        g_tf32 = gf(th0)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    if not same(g, g_tf32):
+        fail("Task B: the gradients changed with TF32 on globally")
+    gc_ = cgf(cth0)
+    gap = float((g.cpu() - gc_).abs().max() / gc_.abs().max())
+    if gap > EXAMPLE_RTOL:
+        fail(f"Task B: the card's gradients {gap} of the largest magnitude "
+             f"from the CPU's")
+    out = {"grad_rel_gap": gap, "tf32_on_same_bits": True}
+    for method, comp, gamma in (("cocoef", C.GroupedSign(), 3e-3),
+                                ("unbiased", C.StochasticSign(), 1e-3)):
+        step = getattr(EF, f"{method}_step")
+        st, cst = EF.EFState.init(th0, N), EF.EFState.init(cth0, N)
+        rec, gaps, secs = {}, [], []
+        for t in range(EXAMPLE_T):
+            mask = coding.straggler_mask(prng.PRNGKey(1000), t, N, 0.6)
+            kk = (prng.fold_in(prng.PRNGKey(2000), t) if comp.unbiased
+                  else None)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            st = step(st, gf, W, mask, gamma, comp, step=t, key=kk)
+            torch.cuda.synchronize()
+            secs.append(time.perf_counter() - t0)
+            if t < EXAMPLE_CHECK:
+                cst = step(cst, cgf, W, mask, gamma, comp, step=t, key=kk)
+                a, b = lf(st.theta), clf(cst.theta)
+                gaps.append(abs(a - b) / abs(b))
+            if t in (0, 100, 200, EXAMPLE_T - 1):
+                loss = lf(st.theta)
+                test_loss, acc = ex["test_metrics"](st.theta)
+                if not math.isfinite(loss):
+                    fail(f"Task B {method} step {t}: F = {loss}")
+                rec[t] = {"F": loss, "test_loss": test_loss,
+                          "test_acc": acc}
+                print(f"examples: Task B {method} step {t}: F(theta) = "
+                      f"{loss:.4f}, test loss {test_loss:.4f}, test "
+                      f"accuracy {acc:.4f}", flush=True)
+        if max(gaps) > EXAMPLE_RTOL:
+            fail(f"Task B {method}: F over the first {EXAMPLE_CHECK} steps "
+                 f"{max(gaps)} from the CPU's (relative)")
+        out[method] = {"gamma": gamma, "record": rec,
+                       "s_per_step": sum(secs) / len(secs),
+                       "s_per_step_min_max": [min(secs), max(secs)],
+                       "cpu_rel_gap": max(gaps)}
+    return out
+
+
+# the CPU's quickstart run, in a child process beside the card's work: it
+# prints JAX's lines, then its (step, F) pairs as the last line
+QUICKSTART_CPU = (
+    "import json, sys; sys.path.insert(0, sys.argv[1]); import torch; "
+    "torch.set_num_threads(4); "
+    "from repro_torch.launch import quickstart; "
+    "print(json.dumps(quickstart.main('cpu')))")
+
+
+def quickstart_check(torch, cpu_run) -> dict:
+    """Phase 14's quickstart: `launch.quickstart.main` on the card, all
+    301 steps, against cpu_run, the child process running it on the CPU:
+    F(theta) at every printed step equal."""
+    from repro_torch.launch import quickstart
+    t0 = time.perf_counter()
+    card = quickstart.main("cuda")
+    secs = {"cuda": time.perf_counter() - t0}
+    out, _ = cpu_run.communicate(timeout=300)
+    secs["cpu (child, waited)"] = time.perf_counter() - t0
+    if cpu_run.returncode != 0:
+        fail(f"quickstart on the CPU exited {cpu_run.returncode}")
+    cpu = json.loads(out.strip().splitlines()[-1])
+    card = {k: [list(x) for x in v] for k, v in card.items()}
+    if card != cpu:
+        fail(f"quickstart: the card's F(theta) {card} differ from the "
+             f"CPU's {cpu}")
+    return {"s": secs, "F": card, "card == cpu": True}
+
+
+def prefill_check(torch, dev) -> dict:
+    """Phase 14's cache builders: `nn.layers.prefill_kv` (gemma2-2b's and
+    qwen1.5-110b's smoke widths, the latter with qkv bias) and
+    `mla_prefill` (deepseek-v2-lite-16b's) on the card against the CPU,
+    f32 compute, prompts of 5, 8 and 13 tokens into 8 slots, bf16 and f32
+    caches: pos equal, bf16 values within one bf16 ulp, f32 within
+    EXAMPLE_RTOL of the largest magnitude."""
+    import numpy as np
+    from repro_torch.configs import REGISTRY
+    from repro_torch.nn import layers as L
+    rng = np.random.default_rng(0)
+    worst = {}
+    for arch in ("gemma2-2b", "qwen1.5-110b", "deepseek-v2-lite-16b"):
+        cfg = REGISTRY[arch].smoke.scaled(dtype="float32")
+        d, H, Hkv, hd = (cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                         cfg.head_dim)
+        if cfg.family == "deepseek":
+            shapes = {"w_dkv": (d, cfg.kv_lora_rank + cfg.qk_rope_dim),
+                      "kv_norm": (cfg.kv_lora_rank,)}
+            fn = L.mla_prefill
+        else:
+            shapes = {"wq": (d, H, hd), "wk": (d, Hkv, hd),
+                      "wv": (d, Hkv, hd)}
+            if cfg.qkv_bias:
+                shapes.update(bq=(H, hd), bk=(Hkv, hd), bv=(Hkv, hd))
+            fn = L.prefill_kv
+        p = {k: torch.from_numpy((rng.standard_normal(v) * d ** -0.5)
+                                 .astype(np.float32))
+             for k, v in shapes.items()}
+        pd = {k: v.to(dev) for k, v in p.items()}
+        gap = 0.0
+        for S in (5, 8, 13):
+            x = torch.from_numpy(rng.standard_normal((2, S, d)).astype(
+                np.float32))
+            for cache in (torch.bfloat16, torch.float32):
+                want = fn(p, x, cfg, 8, cache)
+                got = fn(pd, x.to(dev), cfg, 8, cache)
+                if not torch.equal(got["pos"].cpu(), want["pos"]):
+                    fail(f"{fn.__name__} ({arch}, S {S}): pos differs")
+                for k in want:
+                    if k == "pos":
+                        continue
+                    a, b = got[k].cpu().float(), want[k].float()
+                    if cache == torch.bfloat16:
+                        big = torch.maximum(a.abs(), b.abs())
+                        ulp = torch.exp2(torch.floor(torch.log2(torch.where(
+                            big > 0, big, 1.0))) - 7)
+                        if not bool(((a - b).abs() <= ulp).all()):
+                            fail(f"{fn.__name__} ({arch}, S {S}): {k} more "
+                                 f"than one bf16 ulp from the CPU's")
+                    else:
+                        r = float((a - b).abs().max() / b.abs().max())
+                        gap = max(gap, r)
+                        if r > EXAMPLE_RTOL:
+                            fail(f"{fn.__name__} ({arch}, S {S}): {k} {r} "
+                                 f"of the largest magnitude from the CPU's")
+        worst[arch] = gap
+    return {"f32_rel_gap": worst}
+
+
+def elastic_check(torch, ref, sp, gen, dev, launches) -> tuple:
+    """Phase 14's elastic restart (`launch.elastic_restart.run`) at full
+    width and ELASTIC_LAYERS of olmoe-1b-7b's 16 layers: ELASTIC_STEPS
+    steps on 4 coding ranks, the checkpoint (raw, under the temp dir,
+    removed after), ELASTIC_STEPS on 2.  The launch counts are reset just
+    before and read just after: 4 ef_sign_fused a phase-1 step, 2 a
+    phase-2 step, one sign_decode_reduce a step (each step's stage-2
+    spans say which); phase 1's e rows of ranks 0 and 1 hash equal to the
+    restored rows, each rescaled row equals its restored row cut to the
+    new flat size, the rest is zero; every loss finite.  Then
+    ef_sign_fused at phase 1's n (g 32) and sign_decode_reduce at N = 4
+    and N = 2, held against their plain versions and timed.  Returns
+    (the path's launch counts, the held kernels)."""
+    from repro_torch.launch import elastic_restart as er
+    S = ELASTIC_STEPS
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    for k in launches:
+        launches[k] = 0
+    res = er.run(smoke=False, layers=ELASTIC_LAYERS, steps_1=S, steps_2=S,
+                 device="cuda", digest=lambda rows: bits_hash(torch, rows))
+    torch.cuda.synchronize()
+    got = {k: v for k, v in launches.items() if v}
+    want = {"ef_sign_fused": 4 * S + 2 * S, "sign_decode_reduce": 2 * S}
+    if got != want:
+        fail(f"elastic restart: launch counts {got}, want {want}")
+    peak = torch.cuda.max_memory_allocated()
+    info = res["resume"]
+    p1, p2 = res["phase1"], res["phase2"]
+    for phase, spans in ((p1, 5), (p2, 3)):
+        for r in phase["steps"]:
+            if len(r["kernel_spans_ms"]) != spans:
+                fail(f"elastic restart step {r['step']}: "
+                     f"{len(r['kernel_spans_ms'])} stage-2 spans, want "
+                     f"{spans}")
+            if not math.isfinite(r["loss"]):
+                fail(f"elastic restart step {r['step']}: loss {r['loss']}")
+    if res["e_digest"][0] != res["e_digest"][1]:
+        fail("elastic restart: the restored e rows of ranks 0 and 1 differ "
+             "from phase 1's")
+    if not (info["e_rows_equal"] and info["e_tail_zero"]):
+        fail("elastic restart: the rescaled e is not the restored rows cut "
+             "to the new flat size and zeros")
+    if not all_finite(torch, [res["setup"].model.theta] + list(res["e"])):
+        fail("elastic restart: non-finite theta or e after phase 2")
+    out = {"layers": f"{ELASTIC_LAYERS} of 16",
+           "params": res["setup"].model.layout.total,
+           "flat_pad": [p1["flat_pad"], p2["flat_pad"]],
+           "init_s": p1["init_s"], "launches": got, "peak_bytes": peak,
+           "ckpt_bytes": res["ckpt"]["bytes"],
+           "save_s": res["ckpt"]["save_s"],
+           "restore_s": info["restore_s"], "rescale_s": info["rescale_s"],
+           "rates_after_resize": res["rates"].tolist(),
+           "e_rows_hash_equal": True, "device": smi_line()}
+    for name, phase in (("phase1", p1), ("phase2", p2)):
+        out[name] = {k: [r[k] for r in phase["steps"]] for k in (
+            "step", "loss", "step_s", "kernel_spans_ms", "mask", "epoch")}
+    print(f"examples (elastic restart): {json.dumps(out)}", flush=True)
+    n1, n2 = p1["flat_pad"], p2["flat_pad"]
+    del res, info, p1, p2
+    settle(torch, "the elastic restart")
+    held = {"ef_sign_fused": {"n": n1, "group": 32,
+                              "launches": got["ef_sign_fused"],
+                              **ef_at_slice(torch, ref, sp, gen, dev, n1,
+                                            32)}}
+    settle(torch, "ef_sign_fused at the elastic restart's n")
+    for N, n in ((4, n1), (2, n2)):      # one a step of its phase
+        held[f"sign_decode_reduce N={N}"] = {
+            "n": n, "group": 32, "senders": N, "launches": S,
+            **decode_at_slice(torch, ref, sp, gen, dev, n, 32, senders=N)}
+        settle(torch, f"sign_decode_reduce at the elastic restart's N={N}")
+    print(f"kernels vs plain and times on the elastic restart's wire: "
+          f"{json.dumps(held)}", flush=True)
+    return {"elastic restart": got}, held
+
+
+def examples_phase(torch, ref, sp, gen, dev, launches) -> tuple:
+    """Phase 14 (module docstring); returns (launch counts by path, the
+    elastic restart's held kernels)."""
+    cpu_run = subprocess.Popen([sys.executable, "-c", QUICKSTART_CPU,
+                                str(SRC)], stdout=subprocess.PIPE, text=True)
+    try:
+        t0 = time.perf_counter()
+        trial = task_b_trial(torch, dev)
+        print(f"examples (Task B, {time.perf_counter() - t0:.1f} s): "
+              f"{json.dumps(trial)}", flush=True)
+        settle(torch, "Task B's trial")
+        quick = quickstart_check(torch, cpu_run)
+    finally:
+        if cpu_run.poll() is None:
+            cpu_run.kill()
+            cpu_run.wait()
+    print(f"examples (quickstart): {json.dumps(quick)}", flush=True)
+    print(f"examples (prefill_kv, mla_prefill): "
+          f"{json.dumps(prefill_check(torch, dev))}", flush=True)
+    if settle(torch, "quickstart and the cache builders") > 1 << 30:
+        fail("over 1 GiB still allocated before the elastic restart")
+    return elastic_check(torch, ref, sp, gen, dev, launches)
+
+
 def all_finite(torch, rows) -> bool:
     """Every entry finite, checked CHUNK at a time: torch.isfinite makes
     an f32 |x| and two bool tensors of the input's length, 16 GB for a
@@ -3259,6 +3558,10 @@ def main() -> None:
     counts.update(dtypes_phase(torch, spec, shape, n, dev, launches))
     THETA0_HOST.clear()           # host memory for phi3's theta0
     if settle(torch, "the dtypes phase") > 1 << 30:
+        fail("over 1 GiB still allocated before the examples phase")
+    ex_counts, ela = examples_phase(torch, ref, sp, gen, dev, launches)
+    counts.update(ex_counts)
+    if settle(torch, "the examples phase") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
     counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
                                                         launches)}
@@ -3312,6 +3615,11 @@ def main() -> None:
                                 for p in driver_paths[name]),
                 **drv[name]}}}
         errs = [drv.get(name, r)]
+        for key, x in ela.items():   # the elastic restart's instances
+            if key.split(" ")[0] == name:
+                errs.append(x)
+                r = {**r, "more": {**r.get("more", {}), "elastic_wire" + (
+                    "" if key == name else f" {key.split(' ')[1]}"): x}}
         if name == "flash_attention":            # the serve cells' layers
             for key, x in cell_flash.items():
                 errs.append(x)

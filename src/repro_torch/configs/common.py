@@ -24,6 +24,14 @@ PREFILL_32K = ShapeCfg("prefill", 32768, 32)
 DECODE_32K = ShapeCfg("decode", 32768, 128)
 LONG_500K = ShapeCfg("decode", 524288, 1)
 
+# the LM shape set every arch is listed against (`all_cells`)
+STANDARD_SHAPES = {
+    "train_4k": TRAIN_4K,
+    "prefill_32k": PREFILL_32K,
+    "decode_32k": DECODE_32K,
+    "long_500k": LONG_500K,
+}
+
 
 @dataclasses.dataclass(frozen=True)
 class CodingPlan:

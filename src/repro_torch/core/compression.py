@@ -9,6 +9,10 @@ a wire of `core.collectives` into the compressor its receivers decode.
 Every compressor is a frozen dataclass with
   apply(x, key=None) -> C(x)   same shape and dtype as x, plain PyTorch on
                                x's device (either device, the same bits)
+  apply_rows(x, keys=None)     (N, D) -> row i is apply(x[i], keys[i]), the
+                               reference loop's ranks (GroupedSign and
+                               StochasticSign in one batched pass of the
+                               same bits, the rest row by row)
   wire_bits(n)                 bits on the wire for an n-element input
   delta(n)                     the contraction constant of Assumption 5
                                (biased compressors only)
@@ -18,7 +22,9 @@ from them.  Where JAX's result depends on XLA's order the port states its
 own:
   - GroupedSign's group mean |x| is summed in the kernels' order
     (`kernels.ref.group_abs_mean`) where the group is a multiple of 32, so
-    it equals SignWire's roundtrip bit for bit; otherwise torch's mean.
+    it equals SignWire's roundtrip bit for bit; otherwise in a fixed
+    binary tree (`kernels.ref.tree_sum`) and divided by g elementwise, so
+    the CPU and the card agree.
     XLA's order cannot be reproduced (ROADMAP C3).
   - TopK keeps `lax.top_k`'s set: magnitude descending, the first
     occurrence winning ties (a stable sort, ROADMAP C1).
@@ -57,6 +63,12 @@ class Compressor:
               ) -> torch.Tensor:
         raise NotImplementedError
 
+    def apply_rows(self, x: torch.Tensor, keys: Optional[np.ndarray] = None
+                   ) -> torch.Tensor:
+        return torch.stack([self.apply(x[i], None if keys is None
+                                       else keys[i])
+                            for i in range(x.shape[0])])
+
     def wire_bits(self, n: int) -> int:
         raise NotImplementedError
 
@@ -93,13 +105,20 @@ class GroupedSign(Compressor):
         return g
 
     def apply(self, x, key=None):
-        flat = x.reshape(-1)
-        g = self._groups(flat.shape[0])
-        grouped = flat.reshape(-1, g)
+        return self.apply_rows(x.reshape(1, -1)).reshape(x.shape)
+
+    def apply_rows(self, x, keys=None):
+        # each group's scale depends on its own entries only, so the rows
+        # go through at once
+        g = self._groups(x.shape[1])
+        grouped = x.reshape(-1, g)
         if g % 32 == 0:
             scale = ref.group_abs_mean(grouped.reshape(-1), g)[:, None]
         else:
-            scale = grouped.abs().mean(-1, keepdim=True)
+            s = ref.tree_sum(grouped.abs())[:, None]
+            scale = s / torch.full_like(s, g)   # IEEE division on the
+            # card too: CUDA divides by a host scalar as a reciprocal
+            # multiply
         return (_strict_sign(grouped) * scale).reshape(x.shape).to(x.dtype)
 
     def wire_bits(self, n):
@@ -174,14 +193,21 @@ class StochasticSign(Compressor):
     def apply(self, x, key=None):
         if key is None:
             raise ValueError("StochasticSign requires a PRNG key")
-        flat = x.reshape(-1).to(torch.float32)
-        g = flat.shape[0] if self.group_size <= 0 else self.group_size
-        grouped = flat.reshape(-1, g)
+        return self.apply_rows(x.reshape(1, -1), np.asarray(key)[None]
+                               ).reshape(x.shape)
+
+    def apply_rows(self, x, keys=None):
+        if keys is None:
+            raise ValueError("StochasticSign requires a PRNG key")
+        rows = x.to(torch.float32)
+        g = rows.shape[1] if self.group_size <= 0 else self.group_size
+        grouped = rows.reshape(rows.shape[0], -1, g)
         mx = grouped.abs().amax(-1, keepdim=True)
         m = torch.where(mx == 0, 1.0, mx)
         p_up = 0.5 * (1.0 + grouped / m)
-        u = torch.from_numpy(prng.uniform(key, tuple(grouped.shape))
-                             ).to(x.device)
+        # row i's uniforms are jax.random.uniform(keys[i], (D/g, g))'s
+        u = torch.from_numpy(prng.uniform_rows(keys, rows.shape[1]).reshape(
+            grouped.shape)).to(x.device)
         out = torch.where(u < p_up, m, -m)
         out = torch.where(mx == 0, 0.0, out)
         return out.reshape(x.shape).to(x.dtype)

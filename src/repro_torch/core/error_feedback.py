@@ -96,13 +96,6 @@ def _per_device_keys(key: Optional[np.ndarray], step: int, n: int):
     return prng.split(prng.fold_in(key, step), n)
 
 
-def _compress_rows(compressor: Compressor, x: torch.Tensor, keys
-                   ) -> torch.Tensor:
-    return torch.stack([compressor.apply(x[i], None if keys is None
-                                         else keys[i])
-                        for i in range(x.shape[0])])
-
-
 def _keep(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     """(N, 1, ...) bool of the participating ranks."""
     m = mask.to(like.device).reshape((-1,) + (1,) * (like.ndim - 1))
@@ -116,8 +109,8 @@ def cocoef_step(state: EFState, grad_fn: GradFn, W, mask: torch.Tensor,
     straggler indicators I_i^t; gamma a float or a scalar tensor."""
     g = _coded_gradients(grad_fn, state.theta, W)
     acc = mul_add(gamma, g, state.e)                      # eq. (4) argument
-    c = _compress_rows(compressor, acc,
-                       _per_device_keys(key, step, g.shape[0]))
+    c = compressor.apply_rows(
+        acc, _per_device_keys(key, step, g.shape[0]))
     ghat = _masked_sum(mask, c)                           # eq. (9)
     theta = state.theta - ghat                            # eq. (10)
     e = torch.where(_keep(mask, acc), acc - c, state.e)   # eq. (7) / frozen
@@ -130,8 +123,8 @@ def coco_step(state: EFState, grad_fn: GradFn, W, mask: torch.Tensor,
     """COCO: Algorithm 1 without error feedback (e stays as it is)."""
     g = _coded_gradients(grad_fn, state.theta, W)
     acc = as_f32(gamma, g) * g
-    c = _compress_rows(compressor, acc,
-                       _per_device_keys(key, step, g.shape[0]))
+    c = compressor.apply_rows(
+        acc, _per_device_keys(key, step, g.shape[0]))
     return EFState(theta=state.theta - _masked_sum(mask, c), e=state.e)
 
 
@@ -141,8 +134,8 @@ def unbiased_step(state: EFState, grad_fn: GradFn, W, mask: torch.Tensor,
     """Unbiased baseline [32]: ranks send Q(g_i) with an unbiased Q; the
     server steps theta <- theta - gamma * sum_i I_i Q(g_i)."""
     g = _coded_gradients(grad_fn, state.theta, W)
-    q = _compress_rows(compressor, g,
-                       _per_device_keys(key, step, g.shape[0]))
+    q = compressor.apply_rows(
+        g, _per_device_keys(key, step, g.shape[0]))
     return EFState(theta=state.theta
                    - as_f32(gamma, g) * _masked_sum(mask, q), e=state.e)
 
@@ -156,8 +149,8 @@ def unbiased_diff_step(state: DiffState, grad_fn: GradFn, W,
     the server steps with ghat = H + sum_live q_i and sets
     H <- H + alpha * sum_live q_i (= sum_i h_i)."""
     g = _coded_gradients(grad_fn, state.theta, W)
-    q = _compress_rows(compressor, g - state.h,
-                       _per_device_keys(key, step, g.shape[0]))
+    q = compressor.apply_rows(
+        g - state.h, _per_device_keys(key, step, g.shape[0]))
     a = as_f32(alpha, g)
     q_sum = _masked_sum(mask, q)
     theta = state.theta - as_f32(gamma, g) * (state.H + q_sum)

@@ -114,6 +114,20 @@ def group_abs_mean(x: torch.Tensor, group_size: int) -> torch.Tensor:
     return p[:, 0] / group_size
 
 
+def tree_sum(x: torch.Tensor) -> torch.Tensor:
+    """Sum over the last dim in a fixed binary tree of rounded adds (zero
+    padded to a power of two, then halved until one is left), in x's
+    dtype: the same bits on the CPU and on the card, where torch's own
+    reductions order their adds by device and shape."""
+    width = 1 << max(0, (x.shape[-1] - 1).bit_length())
+    if width != x.shape[-1]:
+        x = torch.nn.functional.pad(x, (0, width - x.shape[-1]))
+    while x.shape[-1] > 1:
+        h = x.shape[-1] // 2
+        x = x[..., :h] + x[..., h:]
+    return x[..., 0]
+
+
 def sign_pack_ref(x: torch.Tensor, group_size: int, gamma=None
                   ) -> Tuple[torch.Tensor, torch.Tensor]:
     """x: (n,) f32 or bf16 -> (words (n/32,) u32, scales (n/g,) f32 =

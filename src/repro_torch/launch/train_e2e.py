@@ -274,6 +274,14 @@ def _train_run(args, spec: ArchSpec, trace_path) -> TrainRun:
                     metrics=args.metrics, **wire_kw)
 
 
+def elastic_tick(setup, estimator: RateEstimator, mask: torch.Tensor):
+    """One tick of the elastic coding plane after a step: fold the mask
+    the step used into the estimator, then `elastic_coding_state` on its
+    rates.  Returns (the CodingState of the next step, the replan info)."""
+    estimator.update(mask.cpu().numpy())
+    return elastic_coding_state(setup, estimator.rates)
+
+
 def run(args, spec: Optional[ArchSpec] = None,
         shape: Optional[ShapeCfg] = None, smoke: bool = True) -> dict:
     """Train from the latest checkpoint in args.ckpt_dir (or from scratch)
@@ -394,10 +402,8 @@ def run(args, spec: Optional[ArchSpec] = None,
                 logger.log_step(t, tel, loss=loss, spans=span_s)
                 masks.append(tel["participation"])
             if args.elastic:
-                # feed the plane with the mask the step just used
                 t0 = time.perf_counter()
-                estimator.update(m["mask"].cpu().numpy())
-                state, info = elastic_coding_state(setup, estimator.rates)
+                state, info = elastic_tick(setup, estimator, m["mask"])
                 rec_t["replan"] = info
                 rec_t["plane_s"] = time.perf_counter() - t0
                 if logger is not None:

@@ -184,6 +184,31 @@ def attn_decode(p, x, cfg: ModelConfig, cache, pos: int, window: int = 0
     return torch.einsum("bshk,hkd->bsd", out, p["wo"].to(ct))
 
 
+def prefill_kv(p, x, cfg: ModelConfig, cache_len: int,
+               dtype: torch.dtype = torch.bfloat16):
+    """A ring cache built from a whole prompt x (B, S, d) (JAX
+    `prefill_kv`; no entry point of either package calls it): k and v of
+    positions sel = the trailing cache_len when S >= cache_len, else
+    arange(cache_len) % S, ordered by ring slot sel % cache_len (a stable
+    sort), in `dtype`; pos holds sel in that order for the first
+    min(S, cache_len) slots and -BIG_WINDOW after.  For S < cache_len this
+    is JAX's layout too: slot j holds the position the sort puts there,
+    which repeats positions (0, 0, ..., 1, 1, ...), not slot j = position
+    j."""
+    S = x.shape[1]
+    _, k, v = _qkv(p, x, cfg, torch.arange(S, device=x.device)[None])
+    if S >= cache_len:
+        sel = torch.arange(S - cache_len, S, device=x.device)
+    else:
+        sel = torch.arange(cache_len, device=x.device) % max(S, 1)
+    sel = sel[torch.argsort(sel % cache_len, stable=True)]
+    pos = torch.where(torch.arange(cache_len, device=x.device)
+                      < min(S, cache_len), sel, -BIG_WINDOW)
+    return {"k": k.transpose(1, 2)[:, :, sel].to(dtype),
+            "v": v.transpose(1, 2)[:, :, sel].to(dtype),
+            "pos": pos.to(torch.int32)}
+
+
 def mla_latent(p, x, cfg: ModelConfig, positions) -> torch.Tensor:
     """MLA's compressed latent [c_kv ; k_rope] (B, S, r + qk_rope) (JAX
     `_mla_latent`): x @ w_dkv, c_kv RMS-normed in f32 by kv_norm, k_rope
@@ -258,6 +283,23 @@ def mla_decode(p, x, cfg: ModelConfig, cache, pos: int) -> torch.Tensor:
     cpos[slot] = pos
     keep = ((cpos <= pos) & (cpos > pos - BIG_WINDOW))[None, None]  # (1,1,T)
     return mla_attend(p, x, lat.to(x.dtype), cfg, at, keep)
+
+
+def mla_prefill(p, x, cfg: ModelConfig, cache_len: int,
+                dtype: torch.dtype = torch.bfloat16):
+    """A latent ring built from a whole prompt x (B, S, d) (JAX
+    `mla_prefill`; called by no entry point): the latents of the last
+    take = min(S, cache_len) positions in slots 0..take-1 (in `dtype`,
+    zeros after), pos = slot + S - take there and -BIG_WINDOW after."""
+    B, S, _ = x.shape
+    lat = mla_latent(p, x, cfg, torch.arange(S, device=x.device)[None])
+    take = min(S, cache_len)
+    out = torch.zeros((B, cache_len, lat.shape[-1]), dtype=dtype,
+                      device=x.device)
+    out[:, :take] = lat[:, S - take:].to(dtype)
+    slots = torch.arange(cache_len, device=x.device)
+    pos = torch.where(slots < take, slots + (S - take), -BIG_WINDOW)
+    return {"lat": out, "pos": pos.to(torch.int32)}
 
 
 def apply_mlp(p, x, cfg: ModelConfig) -> torch.Tensor:

@@ -872,3 +872,72 @@ def test_bf16_train_step_cuda_matches_cpu(cuda, compressor, mode, k_budgets,
     step_parity("cuda", compressor=compressor, mode=mode,
                 k_budgets=k_budgets, param_dtype=param_dtype,
                 ef_dtype=ef_dtype)
+
+
+# ---- Task B, the quickstart and the elastic restart ------------------------
+
+def test_task_b_grads_card_match_cpu_with_tf32_on(cuda):
+    """Task B's per-subset gradients on the card with TF32 switched on
+    globally: the same bits as with it off (`tasks.ieee_f32`), and within
+    1e-5 of the CPU's largest magnitude (cuDNN and oneDNN sum the
+    convolutions in other orders, as XLA:CPU against oneDNN does in
+    tests/test_torch_tasks.py)."""
+    from repro_torch.data import tasks
+    gf, _, th0, _ = tasks.classification_task(0, device=cuda)
+    cgf, _, cth0, _ = tasks.classification_task(0, device="cpu")
+    off = gf(th0)
+    flags = (torch.backends.cudnn.allow_tf32,
+             torch.backends.cuda.matmul.allow_tf32)
+    try:
+        torch.backends.cudnn.allow_tf32 = True
+        torch.backends.cuda.matmul.allow_tf32 = True
+        on = gf(th0)
+    finally:
+        (torch.backends.cudnn.allow_tf32,
+         torch.backends.cuda.matmul.allow_tf32) = flags
+    assert torch.equal(on.view(torch.int32), off.view(torch.int32))
+    want = cgf(cth0)
+    assert float((on.cpu() - want).abs().max()) <= \
+        1e-5 * float(want.abs().max())
+
+
+def test_quickstart_card_equals_cpu(cuda):
+    from repro_torch.launch import quickstart
+    assert quickstart.main("cuda", 31, every=10) == \
+        quickstart.main("cpu", 31, every=10)
+
+
+def test_elastic_restart_resume_card_equals_cpu(cuda, tmp_path):
+    """The CPU's phase-1 checkpoint (smoke size) restored into a 2-rank
+    setup on the card and on the CPU: theta and the rescaled e bit-equal;
+    then stage 2 (`coded_update`) fed the same seeded gradients: theta, e
+    and ghat bit-equal, as `device_parity` holds stage 2.  And the whole
+    smoke run on the card: the CPU's masks, rates and replan epochs."""
+    from repro_torch.launch import elastic_restart as er
+    cpu_run = er.run(device="cpu", steps_1=2, steps_2=2,
+                     ckpt=str(tmp_path), keep_ckpt=True)
+    card_run = er.run(device="cuda", steps_1=2, steps_2=2)
+    for key in ("mask", "rates", "epoch", "reallocated"):
+        assert [r[key] for p in ("phase1", "phase2")
+                for r in cpu_run[p]["steps"]] == \
+            [r[key] for p in ("phase1", "phase2")
+             for r in card_run[p]["steps"]]
+    assert all(np.isfinite(r["loss"]) for r in card_run["phase2"]["steps"])
+    flat_1 = cpu_run["phase1"]["flat_pad"]
+    done = {}
+    for dev in ("cpu", "cuda"):
+        setup = er.build(2, device=dev)
+        _, e, info = er.resume(setup, tmp_path, 2, flat_1)
+        assert info["e_rows_equal"] and info["e_tail_zero"]
+        g = torch.from_numpy(np.random.default_rng(0).standard_normal(
+            (2, setup.flat_pad)).astype(np.float32) * 1e-2).to(dev)
+
+        def grad_of(i, setup=setup, g=g):
+            setup.model.grad.copy_(g[i])
+            return setup.model.grad
+        before = (setup.model.theta.cpu().clone(), e.cpu().clone())
+        mask = torch.tensor([1.0, 0.0], device=dev)
+        ghat = setup.coded_update(setup.model, grad_of, e, mask, 2)
+        done[dev] = before + (setup.model.theta.cpu(), e.cpu(), ghat.cpu())
+    for a, b in zip(done["cpu"], done["cuda"]):
+        assert torch.equal(a.view(torch.int32), b.view(torch.int32))
