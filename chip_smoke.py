@@ -95,11 +95,11 @@ Phases (any failure exits non-zero and prints no result line):
                 {1, 2} x {serial, pipelined}, with exactly the step's
                 kernel launches
   6. train      the slice: gemma2-2b at full width, N = 4 coding ranks on
-                the card, d = 2.  Sign wire g = 512: 5 COCO-EF steps, then
-                5 COCO steps (mode "coco", no error feedback) on the same
+                the card, d = 2.  Sign wire g = 512: 3 COCO-EF steps, then
+                3 COCO steps (mode "coco", no error feedback) on the same
                 setup; then, with that setup freed, the block top-K wire
-                (k = 8, B = 256, f32 values): 5 COCO-EF steps, 2 with the
-                per-rank budgets k = (8, 8, 4, 2), 5 COCO steps and 2 COCO
+                (k = 8, B = 256, f32 values): 3 COCO-EF steps, 2 with the
+                per-rank budgets k = (8, 8, 4, 2), 3 COCO steps and 2 COCO
                 steps with the budgets, on the same buffers.  Then, each
                 setup freed before the next, 3 steps of each path of: the
                 dense wire (compressor "identity": f32, bf16, and coco),
@@ -135,7 +135,7 @@ Phases (any failure exits non-zero and prints no result line):
   9. driver     the training driver (`python -m repro_torch.launch
                 .train_e2e`'s `run`, its coding overrides: group 32, block
                 64, k 8) on gemma2-2b at full width, N = 4 on the card, one
-                run at a time: 6 steps at full depth with markov stragglers
+                run at a time: 4 steps at full depth with markov stragglers
                 (p 0.25) and the elastic coding plane (masks, replans, step
                 seconds, stage-2 kernel ms and the peak printed; the same
                 flags on the CPU give the same masks, allocations and batch
@@ -147,7 +147,7 @@ Phases (any failure exits non-zero and prints no result line):
                 theta and e hashed equal (the file's bytes and the seconds
                 to save and restore printed); between those, the driver's
                 last three flags at full depth: `--plan auto --metrics
-                --prefetch 2`, markov p 0.25, 6 steps (the card's plan
+                --prefetch 2`, markov p 0.25, 4 steps (the card's plan
                 must be the CPU planner's pick; the JSONL and the Chrome
                 trace pass the port's validators; batch wait, spans, the
                 StepTimer's prediction and the peak printed), then the same
@@ -277,6 +277,23 @@ Phases (any failure exits non-zero and prints no result line):
                 sign_decode_reduce at N = 4 and N = 2 held against their
                 plain versions and timed ("elastic_wire" in the kernel
                 table)
+15. dryrun     the production-mesh dry run (`launch.dryrun`, host work on
+                the meta device): `run_cell` for gemma2-2b train_4k on
+                both meshes, qwen1.5-110b train_4k on the multi-pod mesh
+                (FSDP, coding over pod only) and phi3-medium-14b
+                decode_32k on the single-pod mesh, each record's line
+                printed and its status ok.  Inside phase 6, with the
+                sign setup still on the card after its paths: the card's
+                count hold, one more real sign step (gemma2-2b, full
+                width and depth, N = 4, seq 512, batch 4) under
+                `op_cost.OpCounter` on the card and the same step on a
+                meta-device setup: the same dot flops and the same kernel
+                charges (ef_sign_fused x 4, sign_decode_reduce x 1:
+                launches, bytes, operations), exactly; then stage 1 alone
+                (the four ranks' forward and backward, host clock ending
+                in a synchronise) timed twice, its dot TFLOP/s printed
+                against the peaks of its dtypes beside the card's name
+                and power limit
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -296,7 +313,7 @@ ROOT = Path(__file__).resolve().parent
 SRC = ROOT / "src"
 T0 = time.perf_counter()  # settle() prints the seconds since
 
-STEPS = 5
+STEPS = 3                 # cut from 5 for the time limit
 BUDGET_STEPS = 2
 NEW_STEPS = 3             # each path of the identity, topk and dense setups
 N_CODE = 4
@@ -332,7 +349,8 @@ PARITY_SIZES = ((1024, {}), (1 << 22, {"group_size": GROUP,
                                         "k_per_block": K,
                                         "gamma": 2e-6 * 1024 / (1 << 22)}))
 BUCKETS = 2
-DRIVER_STEPS = 6          # the driver's elastic markov run, full depth
+DRIVER_STEPS = 4          # the driver's elastic markov run, full depth
+                          # (cut from 6 for the time limit)
 DRIVER_BUDGET_STEPS = 2
 DRIVER_UPLINKS = "10,10,5,2.5"    # Gbit/s a rank: k_send = DRIVER_K_BUDGETS
 DRIVER_K_BUDGETS = (8, 8, 3, 1)
@@ -580,6 +598,14 @@ def check_decode(torch, ref, sp, gen, dev) -> dict:
     return {"max_ulp": 0, "max_abs_err": (got - want).abs().max().item()}
 
 
+def bill(kernel: str, *args, **kw) -> tuple:
+    """(bytes, operations) of one launch of `kernel`: `kernels.cost`'s
+    function of the same name, the charge its wrapper makes."""
+    from repro_torch.kernels import cost
+    c = getattr(cost, kernel)(*args, **kw)
+    return c.bytes, c.ops
+
+
 def bound(bytes_moved: float, ops: float):
     t_bytes = bytes_moved / HBM_BYTES_PER_S * 1e3
     t_ops = ops / F32_OPS_PER_S * 1e3
@@ -639,8 +665,8 @@ def ef_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP) -> dict:
             ref.ef_sign_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
                                   masks[0], G)
     plain_ms = cuda_ms(plain, 2)
-    moved = 12 * n + n / 8 + 4 * n / G
-    b, by = bound(moved, 6 * n)
+    moved, ops = bill("ef_sign_fused", n, G)
+    b, by = bound(moved, ops)
     return {**worst, "ms": ms, "plain_ms": plain_ms, "bound_ms": b,
             "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
@@ -680,8 +706,8 @@ def decode_at_slice(torch, ref, sp, gen, dev, n: int, G: int = GROUP,
                 words[:, i // 32:(i + CHUNK) // 32],
                 scales[:, i // G:(i + CHUNK) // G], mask, G)
     plain_ms = cuda_ms(plain, 2)
-    moved = senders * (n / 8 + 4 * n / G) + 4 * senders + 4 * n
-    b, by = bound(moved, 3 * senders * n)
+    moved, ops = bill("sign_decode_reduce", senders, n, G)
+    b, by = bound(moved, ops)
     return {"max_ulp": 0, "max_abs_err": 0.0, "ms": ms, "plain_ms": plain_ms,
             "bound_ms": b, "bound_by": by, "gb_per_s": moved / ms / 1e6}
 
@@ -958,9 +984,8 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
         for i in range(0, n, CHUNK):
             ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
                                   masks[0], K, BLOCK)
-    payload_b = nb * (K * (2 + 4) + 4)
-    moved = 12 * n + payload_b
-    out["ef_topk_fused"] = (ms, cuda_ms(plain_ef, 2), moved, (6 + K) * n)
+    out["ef_topk_fused"] = (ms, cuda_ms(plain_ef, 2)) + bill(
+        "ef_topk_fused", n, BLOCK, K)
 
     tp.topk_pack(g, K, BLOCK, out=row(3))
     tp.topk_pack(e[0], K, BLOCK, out=row(0))
@@ -975,7 +1000,8 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
     def plain_pack():
         for i in range(0, n, CHUNK):
             ref.topk_pack_ref(g[i:i + CHUNK], K, BLOCK)
-    out["topk_pack"] = (ms, cuda_ms(plain_pack, 2), 4 * n + payload_b, K * n)
+    out["topk_pack"] = (ms, cuda_ms(plain_pack, 2)) + bill(
+        "topk_pack", n, BLOCK, K)
     blocks = g.view(-1, BLOCK)
     yard = cuda_ms(lambda: torch.topk(blocks.abs(), K), 10)
     more["topk_pack"] = {"yardstick_torch_topk_ms": yard}
@@ -1004,9 +1030,8 @@ def topk_at_slice(torch, ref, tp, gen, dev, n: int) -> dict:
         for b0 in range(0, nb, cb):
             ref.topk_decode_reduce_ref(idx[:, b0:b0 + cb], val[:, b0:b0 + cb],
                                        sc[:, b0:b0 + cb], mask, BLOCK)
-    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
-                                 4 * n + N_CODE * payload_b + 4 * N_CODE,
-                                 3 * N_CODE * nb * K)
+    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2)) + bill(
+        "topk_decode_reduce", N_CODE, n, BLOCK, K)
     more["topk_decode_reduce"] = {"yardstick_scatter_add_ms": scatter_add_ms(
         torch, idx, val, sc, mask, BLOCK, ghat)}
     res = {}
@@ -1071,10 +1096,9 @@ def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
         for i in range(0, n, CHUNK):
             ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK], gamma_t,
                                   mask[0], k, B, k_send=ks[0])
-    payload_b = nb * (k * (2 + 4) + 4)
-    out = {"ef_topk_fused": (ms[0], cuda_ms(plain_ef, 2), 12 * n + payload_b,
-                             (6 + k) * n,
-                             {f"ms_k_send_{ks[lo]}": ms[lo]} if lo else {})}
+    out = {"ef_topk_fused": (ms[0], cuda_ms(plain_ef, 2)) + bill(
+        "ef_topk_fused", n, B, k) + (
+        {f"ms_k_send_{ks[lo]}": ms[lo]} if lo else {},)}
     del e
     ghat = torch.empty(n, device=dev)
     tp.topk_decode_reduce(idx, val, sc, mask, B, out=ghat)
@@ -1095,11 +1119,10 @@ def budgets_at_slice(torch, ref, tp, gen, dev, n: int, B: int, k: int,
         for b0 in range(0, nb, cb):
             ref.topk_decode_reduce_ref(idx[:, b0:b0 + cb], val[:, b0:b0 + cb],
                                        sc[:, b0:b0 + cb], mask, B)
-    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2),
-                                 4 * n + N_CODE * payload_b + 4 * N_CODE,
-                                 3 * N_CODE * nb * k,
-                                 {"yardstick_scatter_add_ms": scatter_add_ms(
-                                     torch, idx, val, sc, mask, B, ghat)})
+    out["topk_decode_reduce"] = (ms, cuda_ms(plain_decode, 2)) + bill(
+        "topk_decode_reduce", N_CODE, n, B, k) + (
+        {"yardstick_scatter_add_ms": scatter_add_ms(torch, idx, val, sc,
+                                                    mask, B, ghat)},)
     res = {}
     for name, (ms, plain_ms, moved, ops, more) in out.items():
         b, by = bound(moved, ops)
@@ -1314,8 +1337,8 @@ def pack_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
     def plain_sign():
         for i in range(0, n, CHUNK):
             ref.sign_pack_ref(x[i:i + CHUNK], GROUP)
-    out["sign_pack"] = (ms, cuda_ms(plain_sign, 2),
-                        4 * n + n / 8 + 4 * n / GROUP, 3 * n)
+    out["sign_pack"] = (ms, cuda_ms(plain_sign, 2)) + bill(
+        "sign_pack", n, GROUP)
     del words, scales
 
     y = torch.empty(n, device=dev)
@@ -1331,7 +1354,8 @@ def pack_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
     def plain_topk():
         for i in range(0, n, CHUNK):
             ref.block_topk_ref(x[i:i + CHUNK], K, BLOCK)
-    out["block_topk"] = (ms, cuda_ms(plain_topk, 2), 8 * n, K * n)
+    out["block_topk"] = (ms, cuda_ms(plain_topk, 2)) + bill(
+        "block_topk", n, K)
     res = {}
     for name, (ms, plain_ms, moved, ops) in out.items():
         b, by = bound(moved, ops)
@@ -1451,13 +1475,6 @@ def library_attention(torch, q, k, v, softcap: float, window: int,
                       kernel_options=kernel_options)
 
 
-def attention_pairs(S: int, window: int) -> int:
-    """Unmasked (query, key) pairs of one head: sum over i of
-    min(i + 1, window)."""
-    w = min(window, S) if window > 0 else S
-    return w * (w + 1) // 2 + (S - w) * w
-
-
 def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
     """B8 at the serve slice's two layer shapes (gemma2-2b: B 32, H 8,
     Hkv 4, S 8192, hd 288, bf16, softcap 50): a global layer (window 0) and
@@ -1493,8 +1510,7 @@ def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
             fail(f"the library attention (window {window}) is off the "
                  f"plain version by {lib_err:.3e}")
         del want
-        flops = 4 * hd * B * H * attention_pairs(S, window)
-        moved = 2 * (2 * q.numel() + 2 * k.numel())
+        moved, flops = bill("flash_attention", B, H, Hkv, S, hd, window, 2)
         t_ops = flops / BF16_OPS_PER_S * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         ms = cuda_ms(kernel, 5)
@@ -1643,7 +1659,7 @@ def setup_paths(wire: str, rounds: int) -> tuple:
 
 def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
                smoke: bool = False, rounds: int = 0, knobs=None,
-               paths=None) -> dict:
+               paths=None, after=None) -> dict:
     """Every path of one setup in turn on the same model, error and
     payload buffers (`setup_paths`; the block top-K payload is shaped by
     max k = K either way, the dense wire's is the ghat accumulator).  A
@@ -1651,7 +1667,9 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
     bits alone; the dense setup allocates none.  Returns the launch counts
     of each path by label; prints each path's peak memory.  `knobs`:
     more TrainRun fields (the dtypes phase's param_dtype and ef_dtype);
-    `paths`: (compressor and mode, paths) in place of `setup_paths`'."""
+    `paths`: (compressor and mode, paths) in place of `setup_paths`';
+    `after(setup, e, step)`, when given, runs after the last path on the
+    same setup (the dryrun phase's count hold)."""
     from repro_torch.launch.train import TrainRun, build_train_setup
     torch.cuda.reset_peak_memory_stats()
     (compressor, mode), paths = paths or setup_paths(wire, rounds)
@@ -1690,6 +1708,8 @@ def train_wire(torch, spec, shape, wire: str, n: int, dev, launches,
               flush=True)
         torch.cuda.reset_peak_memory_stats()
         first += steps
+    if after is not None:
+        after(setup, e, first)
     return counts
 
 
@@ -2751,8 +2771,7 @@ def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
             fail(f"the library attention at the {key} cell is off the "
                  f"plain version by {lib_err:.3e}")
         del want
-        flops = 4 * hd * B * H * attention_pairs(S, 0)
-        moved = 2 * (2 * q.numel() + 2 * k.numel())
+        moved, flops = bill("flash_attention", B, H, Hkv, S, hd, 0, 2)
         t_ops = flops / BF16_OPS_PER_S * 1e3
         t_bytes = moved / HBM_BYTES_PER_S * 1e3
         ms = cuda_ms(kernel, 5)
@@ -2762,7 +2781,7 @@ def flash_at_cells(torch, ref, fa, gen, dev) -> dict:
                     "library_max_abs_err": lib_err,
                     "bound_ms": max(t_ops, t_bytes),
                     "bound_by": "operations" if t_ops >= t_bytes
-                    else "bytes", "pairs": B * H * attention_pairs(S, 0),
+                    else "bytes", "pairs": B * H * S * (S + 1) // 2,
                     "tflop_per_s": flops / ms / 1e9,
                     "bound_share": max(t_ops, t_bytes) / ms})
         # 1 checked + 1 warm-up + 5 timed launches
@@ -2833,7 +2852,6 @@ def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
     g, e = bf16_inputs(torch, gen, dev, n, G, topk=False)
     words = torch.zeros((N_CODE, n // 32), dtype=torch.uint32, device=dev)
     scales = torch.zeros((N_CODE, n // G), device=dev)
-    payload = n / 8 + 4 * n / G
     for label, gg, gb in (("ef_sign_fused@bf16 g/e", g, 2),
                           ("ef_sign_fused@bf16 e", None, 4)):
         if gg is None:
@@ -2863,7 +2881,7 @@ def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
                 ref.ef_sign_fused_ref(gg[i:i + CHUNK], e[0, i:i + CHUNK],
                                       gamma_t, masks[0], G)
         out[label] = dtype_row(ms, cuda_ms(plain, 2),
-                               (gb + 2 + 2) * n + payload, 6 * n,
+                               *bill("ef_sign_fused", n, G, gb, 2),
                                {"g": str(gg.dtype), "e": str(e.dtype)})
         del gg
     # B5 with gamma on bf16 g
@@ -2881,7 +2899,7 @@ def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
         for i in range(0, n, CHUNK):
             ref.sign_pack_ref(g[i:i + CHUNK], G, gamma_t)
     out["sign_pack@gamma"] = dtype_row(ms, cuda_ms(plain_pack, 2),
-                                       2 * n + payload, 3 * n,
+                                       *bill("sign_pack", n, G, 2),
                                        {"g": "torch.bfloat16"})
     del g, e, words, scales
 
@@ -2920,9 +2938,8 @@ def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
         for i in range(0, n, CHUNK):
             ref.ef_topk_fused_ref(g[i:i + CHUNK], e[0, i:i + CHUNK],
                                   gamma_t, masks[0], K, B)
-    payload_b = nb * (K * (2 + 4) + 4)
     out["ef_topk_fused@bf16 g/e"] = dtype_row(
-        ms8, cuda_ms(plain_ef, 2), 6 * n + payload_b, (6 + K) * n,
+        ms8, cuda_ms(plain_ef, 2), *bill("ef_topk_fused", n, B, K, 2, 2),
         {"g": "torch.bfloat16", "e": "torch.bfloat16",
          "ms_k_send_1": ms1, "k_send_checked": list(ks)})
     # B6 with gamma on bf16 g
@@ -2944,7 +2961,8 @@ def dtypes_at_slice(torch, ref, sp, tp, gen, dev, n: int) -> dict:
         for i in range(0, n, CHUNK):
             ref.topk_pack_ref(g[i:i + CHUNK], K, B, None, gamma_t)
     out["topk_pack@gamma"] = dtype_row(ms, cuda_ms(plain_topk, 2),
-                                       2 * n + payload_b, (2 + K) * n,
+                                       *bill("topk_pack", n, B, K, 2,
+                                             gamma=True),
                                        {"g": "torch.bfloat16"})
     del g, e, idx, val, sc
     return out
@@ -3356,6 +3374,120 @@ def settle(torch, after: str) -> int:
     return left
 
 
+DRYRUN_CELLS = (("gemma2-2b", "train_4k", False),
+                ("gemma2-2b", "train_4k", True),
+                ("qwen1.5-110b", "train_4k", True),
+                ("phi3-medium-14b", "decode_32k", False))
+STAGE1_REPS = 2
+
+
+def stage1_seconds(torch, setup, batch) -> float:
+    """Host seconds of stage 1 alone: the N ranks' loss and backward into
+    the flat gradient, as `train_step`'s grad_of runs them, from a
+    synchronise to a synchronise."""
+    m = setup.model
+    inputs, weights = batch[:setup.n_inputs], setup.batch_weights(batch)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for i in range(setup.n_code):
+        m.grad.zero_()
+        xs = [x[i] for x in inputs]
+        loss, _ = m.loss(xs[0], weights[i], *xs[1:])
+        loss.backward()
+    torch.cuda.synchronize()
+    return time.perf_counter() - t0
+
+
+def count_hold(torch, spec, shape, setup, e, step: int) -> dict:
+    """The dryrun phase's count hold on the sign setup of phase 6: one
+    real step under `OpCounter` on the card, the same step (the same
+    host batch, mask and step) on a meta-device setup, then stage 1 alone
+    timed.  Fails unless the dot flops and every kernel charge are equal
+    and the card made exactly the launches it charged."""
+    from repro_torch.kernels.common import launches
+    from repro_torch.launch import roofline
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.train import build_train_setup
+    host = setup.host_batch(step)
+    counts, made = {}, {}
+    t0 = time.perf_counter()
+    for dev in ("cuda", "meta"):
+        s = setup if dev == "cuda" else build_train_setup(
+            spec, shape, setup.run, n_code=N_CODE, device="meta")
+        ev = e if dev == "cuda" else torch.zeros(
+            (s.n_code, s.flat_pad), device="meta")
+        batch = s.batch_to_device(host)
+        before = dict(launches)
+        with OpCounter() as c:
+            m = s.train_step(s.model, ev, batch, step)
+        if dev == "cuda":
+            loss = m["loss"].item()
+            if not math.isfinite(loss):
+                fail(f"dryrun: the counted step's loss is {loss}")
+        made[dev] = {k: v - before[k] for k, v in launches.items()
+                     if v != before[k]}
+        counts[dev] = c.record()
+    hold_s = time.perf_counter() - t0
+    card, meta = counts["cuda"], counts["meta"]
+    want = {"ef_sign_fused": N_CODE, "sign_decode_reduce": 1}
+    charged = {k: v["launches"] for k, v in card["kernels"].items()}
+    if card["dot_flops_by_dtype"] != meta["dot_flops_by_dtype"] or \
+            card["kernels"] != meta["kernels"] or charged != want or \
+            made["cuda"] != want or made["meta"]:
+        fail(f"dryrun: the card's counts differ from the meta device's: "
+             f"dot flops {card['dot_flops_by_dtype']} / "
+             f"{meta['dot_flops_by_dtype']}, kernels {card['kernels']} / "
+             f"{meta['kernels']}, launches made {made}")
+    batch = setup.make_batch(step)
+    secs = [stage1_seconds(torch, setup, batch) for _ in range(STAGE1_REPS)]
+    flops = card["dot_flops_by_dtype"]
+    bound_s = sum(f / roofline.PEAK_FLOPS[dt] for dt, f in flops.items())
+    out = {"cell": f"gemma2-2b train seq {SEQ_LEN} batch {GLOBAL_BATCH}, "
+                   f"N {N_CODE}, full width and depth, sign g {GROUP}",
+           "dot_flops_card": card["dot_flops"],
+           "dot_flops_meta": meta["dot_flops"],
+           "dot_flops_by_dtype": flops, "kernels_card": card["kernels"],
+           "bytes_eager_card": card["bytes_eager"],
+           "bytes_eager_meta": meta["bytes_eager"],
+           "dispatches_card": card["dispatches"],
+           "dispatches_meta": meta["dispatches"], "hold_s": hold_s,
+           "stage1_s": secs,
+           "stage1_tflop_per_s": [card["dot_flops"] / t / 1e12
+                                  for t in secs],
+           "stage1_bound_s": bound_s,
+           "stage1_bound_share": [bound_s / t for t in secs],
+           "peaks": roofline.PEAK_FLOPS,
+           "tf32": torch.backends.cuda.matmul.allow_tf32}
+    print(f"dryrun: count hold card == meta, {json.dumps(out)}; "
+          f"{smi_line()}", flush=True)
+    return out
+
+
+def dryrun_phase() -> dict:
+    """`launch.dryrun.run_cell` of DRYRUN_CELLS (host work on the meta
+    device), each record's line printed; fails unless each is ok."""
+    from repro_torch.launch import dryrun
+    res = {}
+    for arch, shape, multi in DRYRUN_CELLS:
+        rec = dryrun.run_cell(arch, shape, multi)
+        print(f"dryrun: {dryrun.summary(rec)}", flush=True)
+        if rec["status"] != "ok":
+            fail(f"dryrun: {arch} {shape} "
+                 f"{'multi' if multi else 'single'}: {rec.get('error')}")
+        res[f"{arch} {shape} {rec['mesh']}"] = {
+            k: rec.get(k) for k in ("n_code", "b_loc", "flat_pad",
+                                    "effective_mode", "cache_len",
+                                    "total_s")}
+        res[f"{arch} {shape} {rec['mesh']}"].update(
+            argument_bytes=rec["memory"]["argument_bytes"],
+            flops_ideal_per_device=rec["cost"]["flops_ideal_per_device"],
+            wire_bytes_per_device=rec["collectives"][
+                "wire_bytes_per_device"],
+            kernels=rec["kernels"], roofline=rec["roofline"])
+    print(f"dryrun: cells {json.dumps(res)}", flush=True)
+    return res
+
+
 def main() -> None:
     # the driver's all-flags run peaks at 81.5 GB of the card's 85.0e9 B;
     # after the earlier phases fixed allocator segments left 3.6 GiB
@@ -3532,13 +3664,25 @@ def main() -> None:
 
     shape = ShapeCfg("train", SEQ_LEN, GLOBAL_BATCH)
     counts = {}
+    t_dry = time.perf_counter()
+    dryrun_phase()
+    t_dry = time.perf_counter() - t_dry
+
+    def hold(setup, e, step):
+        nonlocal t_dry
+        t = time.perf_counter()
+        count_hold(torch, spec, shape, setup, e, step)
+        t_dry += time.perf_counter() - t
+
     for wire in ("sign", "block_topk", "identity", "topk", "dense"):
         if settle(torch, f"the phases before the {wire} paths") > 1 << 30:
             fail("over 1 GiB still allocated before a train path: two "
                  "setups must not share the card")
         counts.update(train_wire(torch, spec, shape, wire, n, dev,
                                  launches, rounds=route[
-                                     "b6_launches_per_call"]))
+                                     "b6_launches_per_call"],
+                                 after=hold if wire == "sign" else None))
+    print(f"dryrun: phase {t_dry:.1f} s", flush=True)
     counts.update(buckets_phase(torch, spec, shape, dev, launches))
     if settle(torch, "the buckets phase") > 1 << 30:
         fail("over 1 GiB still allocated before the nccl phase")
@@ -3682,6 +3826,8 @@ def main() -> None:
                 "bound_by", "gb_per_s")}})
         if not kernels[-1]["launches"]:
             fail(f"{label}: no launch on the dtypes phase's paths")
+    print(f"chip_smoke: {time.perf_counter() - T0:.1f} s in all",
+          flush=True)
     print(json.dumps({"kernels": kernels}))
     print(smi)
     print(json.dumps({"ok": True, "device": {

@@ -53,6 +53,12 @@ dense wire goes one step further on one device: the ranks run one after
 another, so each rank's m_i * C(acc_i) is added into one f32 accumulator
 as soon as it is made (`DenseWire.fold_`), which is the sender-order sum
 bit for bit without an (N, n) payload.
+
+A `DryGroup` in place of a process group (`launch.mesh.dry_grid`, the dry
+run's) sends nothing: each all_to_all and all_gather the group form would
+issue is recorded in `DryGroup.calls` (the op, its result bytes and the
+group's size), so one device's stage 2 runs on meta tensors and shows
+the traffic it would put on the wire.
 """
 from __future__ import annotations
 
@@ -71,7 +77,7 @@ __all__ = ["SignWire", "SparseWire", "DenseWire", "WIRES", "build_wire",
            "wire_for_compressor", "wire_bytes_sign", "coded_aggregate",
            "CodingCollectiveConfig", "InFlightAggregate",
            "coded_allreduce_start", "two_phase_coded_allreduce",
-           "dense_allreduce", "phase2_local_"]
+           "dense_allreduce", "phase2_local_", "DryGroup"]
 
 CHUNK = 1 << 28      # the dense wire's plain passes bound their temporaries
 #                      to this many elements
@@ -512,6 +518,35 @@ def phase2_local_(ghat: torch.Tensor, cfg: CodingCollectiveConfig,
     return ghat
 
 
+class _Done:
+    def wait(self) -> None:
+        pass
+
+
+@dataclasses.dataclass
+class DryGroup:
+    """A process group of `size` ranks that records its collectives in
+    `calls` ({"op", "result_bytes", "group", "phase"}) and moves nothing.
+    Several DryGroups of one grid may share one `calls` list."""
+
+    size: int
+    phase: str
+    calls: List = dataclasses.field(default_factory=list)
+
+    def record(self, op: str, result: torch.Tensor) -> _Done:
+        self.calls.append({"op": op, "phase": self.phase,
+                           "result_bytes": result.numel()
+                           * result.element_size(), "group": self.size})
+        return _Done()
+
+
+def _all_to_all(dst: torch.Tensor, src: torch.Tensor, group):
+    """Async all_to_all of byte rows (a DryGroup records it)."""
+    if isinstance(group, DryGroup):
+        return group.record("all-to-all", dst)
+    return dist.all_to_all_single(dst, src, group=group, async_op=True)
+
+
 def _u8(t: torch.Tensor) -> torch.Tensor:
     """A contiguous tensor's bytes, (rows, bytes per row)."""
     return t.reshape(t.shape[0], -1).view(torch.uint8)
@@ -519,7 +554,10 @@ def _u8(t: torch.Tensor) -> torch.Tensor:
 
 def _gather(dst: torch.Tensor, src: torch.Tensor, group) -> None:
     """dst (k, *src.shape) <- every group member's src, in group order, as
-    bytes."""
+    bytes (a DryGroup records it)."""
+    if isinstance(group, DryGroup):
+        group.record("all-gather", dst)
+        return
     dist.all_gather([r.view(torch.uint8) for r in _u8(dst)],
                     src.reshape(-1).view(torch.uint8), group=group)
 
@@ -611,9 +649,8 @@ def coded_allreduce_start(wire: Wire, cfg: CodingCollectiveConfig, grid,
         if not (p.is_contiguous() and r.is_contiguous()):
             raise ValueError("payload and receive buffers must be "
                              "contiguous")
-        works.append(dist.all_to_all_single(
-            _u8(r.reshape(nd, -1)), _u8(p.reshape(nd, -1)),
-            group=grid.chunk_group, async_op=True))
+        works.append(_all_to_all(_u8(r.reshape(nd, -1)),
+                                 _u8(p.reshape(nd, -1)), grid.chunk_group))
         typed.append(r.reshape((nd, p.shape[0] // nd) + tuple(p.shape[1:])))
     base = grid.outer_index * nd
     return InFlightAggregate(tuple(typed), works, mask[base:base + nd],

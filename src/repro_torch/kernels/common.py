@@ -5,11 +5,20 @@ Each kernel launch adds one to `launches[<name>]`, and nothing else does,
 so a run can show that its main path went through the kernels.
 `flash_routes` splits the flash_attention launches by the kernel that ran:
 "tensor_core" (bf16, `csrc/flash_attention_sm90.cu`) or "cuda_core" (f32,
-`csrc/flash_attention.cu`)."""
+`csrc/flash_attention.cu`).
+
+`charge(name, bill, *args)` hands one launch's bytes and operations
+(`bill(*args)`, a `cost` function's `Charge`) to every active op counter
+(`launch.op_cost.OpCounter`, which a dispatch mode cannot show a ctypes
+launch): a wrapper charges where it launches its kernel, and on the meta
+device, where it launches nothing, in the launch's place.  With no
+counter active it returns at once.  `trips` is the loop over a repeated
+body that such a counter may count once (the recurrent layers' loops on
+the meta device), `stack_trips` stacks its per-trip outputs."""
 from __future__ import annotations
 
 import ctypes
-from typing import Dict
+from typing import Dict, Iterator, List
 
 import torch
 
@@ -18,6 +27,7 @@ launches: Dict[str, int] = {
     "ef_topk_fused": 0, "topk_pack": 0, "topk_decode_reduce": 0,
     "block_topk": 0, "flash_attention": 0}
 flash_routes: Dict[str, int] = {"tensor_core": 0, "cuda_core": 0}
+counters: List = []       # the active op counters, innermost last
 
 VP, I, LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 
@@ -29,6 +39,45 @@ def reset_launches() -> None:
     for counts in (launches, flash_routes):
         for k in counts:
             counts[k] = 0
+
+
+def charge(name: str, bill, *args) -> None:
+    """One launch of kernel `name`, costing `bill(*args)`, to the active
+    counters; nothing is reckoned when none is active."""
+    if counters:
+        cost = bill(*args)
+        for c in counters:
+            c.charge_kernel(name, cost)
+
+
+def trips(n: int, device, reverse: bool = False) -> Iterator[int]:
+    """range(n) (reversed with reverse=True), or, on the meta device with
+    autograd off, under op counters that all take the loop shortcut, the
+    first trip alone with every charge made in it multiplied by n (the
+    counters' `scale`).  Autograd must be off: the backward of a body
+    recorded once would run once, unscaled."""
+    ctrs = list(counters)
+    if not (n > 1 and torch.device(device).type == "meta" and ctrs
+            and all(c.loop_shortcut for c in ctrs)
+            and not torch.is_grad_enabled()):
+        yield from (reversed(range(n)) if reverse else range(n))
+        return
+    for c in ctrs:
+        c.scale *= n
+    try:
+        yield n - 1 if reverse else 0
+    finally:
+        for c in ctrs:
+            c.scale //= n
+
+
+def stack_trips(parts: List[torch.Tensor], n: int, dim: int
+                ) -> torch.Tensor:
+    """The outputs of an n-trip `trips` loop, one a trip, stacked along
+    `dim`: torch.stack(parts, dim), or, where the shortcut ran one trip,
+    that trip's output standing for all n (the same shape, and the same
+    charge as n outputs)."""
+    return torch.stack(parts * (n // len(parts)), dim=dim)
 
 
 def check(t: torch.Tensor, name: str, dtype, shape, device) -> None:

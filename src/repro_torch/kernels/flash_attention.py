@@ -18,7 +18,11 @@ of an S that is not a multiple of min(256, S), this function follows
 JAX's `ref.flash_attention_ref` (ROADMAP C9).  Forward only, as JAX's
 kernel is: it raises when autograd would need its gradient.  Each kernel
 launch adds one to `launches["flash_attention"]` and to
-`flash_routes[<route>]` (`common.py`).
+`flash_routes[<route>]` and charges its bytes and operations (`cost.py`)
+to the active op counters (`common.py`).  On the meta device (the dry
+run's) it checks its arguments as for the card, returns an output of q's
+shape and dtype and charges the counters in place of the launch, which it
+does not make.
 """
 from __future__ import annotations
 
@@ -27,9 +31,9 @@ import functools
 
 import torch
 
-from . import build, ref
-from .common import VP, I, check, flash_routes, launches, raise_if, \
-    stream
+from . import build, cost, ref
+from .common import VP, I, charge, check, flash_routes, launches, \
+    raise_if, stream
 
 MAX_HEAD_DIM = 288        # gemma2's head_dim; the kernels' register tiles
 TMA_ALIGN = 16            # bytes: the bf16 kernel's row strides and bases
@@ -92,14 +96,17 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
 
     if dev.type == "cpu":
         return ref.flash_attention_ref(q, k, v, softcap, window, groups)
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"flash_attention: unsupported device {dev}")
+    bill = (cost.flash_attention, B, H, H // groups, S, hd, window,
+            q.element_size())
     if q.dtype == torch.bfloat16:
         if hd % 8:
             raise ValueError(f"bf16 flash_attention on the card needs hd a "
                              f"multiple of 8 (TMA rows of 16 bytes), got "
                              f"{hd}")
-        if any(t.data_ptr() % TMA_ALIGN for t in (q, k, v)):
+        if dev.type == "cuda" and any(t.data_ptr() % TMA_ALIGN
+                                      for t in (q, k, v)):
             raise ValueError("bf16 flash_attention on the card needs q, k "
                              "and v aligned to 16 bytes")
         name, route = "flash_attention_sm90", "tensor_core"
@@ -107,10 +114,14 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
         name, route = "flash_attention", "cuda_core"
     w = min(window, NO_WINDOW) if window > 0 else NO_WINDOW
     out = torch.empty_like(q)
+    if dev.type == "meta":
+        charge("flash_attention", *bill)
+        return out
     err = getattr(_lib(name), f"{name}_launch")(
         q.data_ptr(), k.data_ptr(), v.data_ptr(), out.data_ptr(), B, H, S,
         hd, groups, float(softcap), w, stream(dev))
     raise_if(err, name)
     launches["flash_attention"] += 1
     flash_routes[route] += 1
+    charge("flash_attention", *bill)
     return out

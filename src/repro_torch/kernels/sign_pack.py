@@ -3,7 +3,11 @@
 For a CUDA tensor a wrapper launches its hand-written Hopper kernel on the
 current stream, or raises: there is no fallback.  Only for CPU tensors does
 it run the plain version in `ref.py`.  Each kernel launch adds one to
-`launches[<name>]` (`common.py`).
+`launches[<name>]` and charges its bytes and operations (`cost.py`) to the
+active op counters (`common.charge`).  On the meta device (the dry run's)
+a wrapper checks its arguments as for the card, returns outputs of the
+kernel's shapes and dtypes, and charges the counters in place of the
+launch, which it does not make.
 
 `ef_sign_fused` has an instance for each (g dtype, e dtype) in DTYPES^2
 (bf16 g: the gradient of bf16 parameters; bf16 e: TrainRun.ef_dtype) and
@@ -18,10 +22,10 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, ref
-from .common import (DTYPES, LL, VP, I, check, check_dtype,  # noqa: F401
-                     dtype_code, launches, raise_if, reset_launches, scalar,
-                     stream)
+from . import build, cost, ref
+from .common import (DTYPES, LL, VP, I, charge, check,  # noqa: F401
+                     check_dtype, dtype_code, launches, raise_if,
+                     reset_launches, scalar, stream)
 
 SUPPORTED_GROUP_SIZES = (32, 64, 128, 256, 512, 1024)   # see SIGN_DISPATCH
 
@@ -42,7 +46,8 @@ def _check_group(n: int, group_size: int, device: torch.device) -> None:
     if group_size % 32 or n % group_size or n <= 0:
         raise ValueError(f"need group_size % 32 == 0 and n a positive "
                          f"multiple of group_size (n={n}, g={group_size})")
-    if device.type == "cuda" and group_size not in SUPPORTED_GROUP_SIZES:
+    if device.type in ("cuda", "meta") and \
+            group_size not in SUPPORTED_GROUP_SIZES:
         raise ValueError(f"no CUDA kernel for group_size={group_size}; "
                          f"have {SUPPORTED_GROUP_SIZES}")
 
@@ -88,10 +93,14 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         scales.copy_(s)
         e_new.copy_(en)
         return words, scales, (c if want_c else None), e_new
-    if dev.type != "cuda":
+    if dev.type not in ("cuda", "meta"):
         raise ValueError(f"ef_sign_fused: unsupported device {dev}")
-
     c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
+    bill = (cost.ef_sign_fused, n, group_size, g.element_size(),
+            e.element_size())
+    if dev.type == "meta":
+        charge("ef_sign_fused", *bill)
+        return words, scales, c, e_new
     err = _lib().ef_sign_fused_launch(
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         words.data_ptr(), scales.data_ptr(),
@@ -99,6 +108,7 @@ def ef_sign_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         n, group_size, dtype_code(g, e), stream(dev))
     raise_if(err, "ef_sign_fused")
     launches["ef_sign_fused"] += 1
+    charge("ef_sign_fused", *bill)
     return words, scales, c, e_new
 
 
@@ -128,6 +138,10 @@ def sign_pack(x: torch.Tensor, group_size: int,
         words.copy_(w)
         scales.copy_(s)
         return words, scales
+    bill = (cost.sign_pack, n, group_size, x.element_size())
+    if dev.type == "meta":
+        charge("sign_pack", *bill)
+        return words, scales
     if dev.type != "cuda":
         raise ValueError(f"sign_pack: unsupported device {dev}")
     err = _lib().sign_pack_launch(
@@ -136,6 +150,7 @@ def sign_pack(x: torch.Tensor, group_size: int,
         int(x.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "sign_pack")
     launches["sign_pack"] += 1
+    charge("sign_pack", *bill)
     return words, scales
 
 
@@ -161,6 +176,10 @@ def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,
     if dev.type == "cpu":
         return out.copy_(ref.sign_decode_reduce_ref(words, scales, mask,
                                                     group_size))
+    bill = (cost.sign_decode_reduce, N, n, group_size)
+    if dev.type == "meta":
+        charge("sign_decode_reduce", *bill)
+        return out
     if dev.type != "cuda":
         raise ValueError(f"sign_decode_reduce: unsupported device {dev}")
     if out.data_ptr() % 16:
@@ -171,4 +190,5 @@ def sign_decode_reduce(words: torch.Tensor, scales: torch.Tensor,
         out.data_ptr(), N, n, group_size, stream(dev))
     raise_if(err, "sign_decode_reduce")
     launches["sign_decode_reduce"] += 1
+    charge("sign_decode_reduce", *bill)
     return out

@@ -12,7 +12,12 @@ dtype in DTYPES (f32, bf16); a CUDA tensor of another dtype raises
 TypeError.  Payloads are in the wire's
 dtypes: in-block indices u16 (u32 when B > 65536), values in the value
 dtype, scales f32.  Each kernel launch adds
-one to `launches[<name>]` (`common.py`).
+one to `launches[<name>]` and charges its bytes and operations
+(`cost.py`) to the active op counters (`common.charge`).  On the meta
+device (the dry run's) a wrapper checks its arguments as for the card,
+returns outputs of the kernel's shapes and dtypes and charges the
+counters in place of the launch, which it does not make; the global
+route runs there as on the card, its B6 launches charged the same way.
 
 The global route
 ----------------
@@ -58,9 +63,9 @@ from typing import Optional, Tuple
 
 import torch
 
-from . import build, ref
-from .common import (LL, VP, I, check, check_dtype, dtype_code, launches,
-                     raise_if, scalar, stream)
+from . import build, cost, ref
+from .common import (LL, VP, I, charge, check, check_dtype, dtype_code,
+                     launches, raise_if, scalar, stream)
 
 SUPPORTED_BLOCK_SIZES = (64, 128, 256, 512)   # see TOPK_DISPATCH
 BLOCK_TOPK_SIZES = (128, 256, 512)     # see block_topk_launch
@@ -104,7 +109,7 @@ def _check_shape(n: int, k: int, block_size: int, vdt: torch.dtype,
                          f"B={block_size})")
     if not 0 < k <= block_size:
         raise ValueError(f"need 0 < k <= block_size, got {k} / {block_size}")
-    if device.type == "cuda":
+    if device.type in ("cuda", "meta"):
         if block_size not in sizes and not (global_route and
                                             is_global(block_size)):
             raise ValueError(f"no CUDA kernel for block_size={block_size}; "
@@ -205,6 +210,11 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
                               acc=acc)
 
     c = torch.empty(n, dtype=torch.float32, device=dev) if want_c else None
+    bill = (cost.ef_topk_fused, n, block_size, k, g.element_size(),
+            e.element_size(), idx.element_size(), val.element_size())
+    if dev.type == "meta":
+        charge("ef_topk_fused", *bill)
+        return idx, val, scales, c, e_new
     err = _lib().ef_topk_fused_launch(
         g.data_ptr(), e.data_ptr(), gamma_t.data_ptr(), mask_t.data_ptr(),
         idx.data_ptr(), val.data_ptr(), scales.data_ptr(),
@@ -213,6 +223,7 @@ def ef_topk_fused(g: torch.Tensor, e: torch.Tensor, gamma, mask_self,
         dtype_code(g, e), stream(dev))
     raise_if(err, "ef_topk_fused")
     launches["ef_topk_fused"] += 1
+    charge("ef_topk_fused", *bill)
     return idx, val, scales, c, e_new
 
 
@@ -235,7 +246,7 @@ def topk_pack(x: torch.Tensor, k: int, block_size: int,
     idx, val, scales = _payload_out(out, n // block_size, k, block_size,
                                     vdt, dev)
     gamma_t = None if gamma is None else scalar(gamma, dev)
-    if dev.type == "cuda" and is_global(block_size):
+    if dev.type in ("cuda", "meta") and is_global(block_size):
         if k_send != k:
             raise ValueError("the global route takes no per-rank budget")
         if gamma is not None or x.dtype != torch.float32:
@@ -248,6 +259,11 @@ def topk_pack(x: torch.Tensor, k: int, block_size: int,
         val.copy_(v)
         scales.copy_(s)
         return idx, val, scales
+    bill = (cost.topk_pack, n, block_size, k, x.element_size(),
+            idx.element_size(), val.element_size(), gamma is not None)
+    if dev.type == "meta":
+        charge("topk_pack", *bill)
+        return idx, val, scales
     err = _lib().topk_pack_launch(
         x.data_ptr(), None if gamma_t is None else gamma_t.data_ptr(),
         idx.data_ptr(), val.data_ptr(), scales.data_ptr(), n, block_size,
@@ -255,6 +271,7 @@ def topk_pack(x: torch.Tensor, k: int, block_size: int,
         int(x.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "topk_pack")
     launches["topk_pack"] += 1
+    charge("topk_pack", *bill)
     return idx, val, scales
 
 
@@ -293,6 +310,11 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
                                                     block_size))
     if is_global(block_size):
         return topk_decode_global(idx, val, scales, mask, block_size, out)
+    bill = (cost.topk_decode_reduce, N, n, block_size, k,
+            idx.element_size(), val.element_size())
+    if dev.type == "meta":
+        charge("topk_decode_reduce", *bill)
+        return out
     if out.data_ptr() % 16:
         raise ValueError("out: the kernel bulk-stores tiles, need 16-byte "
                          "alignment")
@@ -302,6 +324,7 @@ def topk_decode_reduce(idx: torch.Tensor, val: torch.Tensor,
         int(val.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "topk_decode_reduce")
     launches["topk_decode_reduce"] += 1
+    charge("topk_decode_reduce", *bill)
     return out
 
 
@@ -319,11 +342,16 @@ def block_topk(x: torch.Tensor, k: int, block_size: int,
     check(out, "out", x.dtype, (n,), dev)
     if dev.type == "cpu":
         return out.copy_(ref.block_topk_ref(x, k, block_size))
+    bill = (cost.block_topk, n, k, x.element_size())
+    if dev.type == "meta":
+        charge("block_topk", *bill)
+        return out
     err = _lib().block_topk_launch(
         x.data_ptr(), out.data_ptr(), n, block_size, k,
         int(x.dtype == torch.bfloat16), stream(dev))
     raise_if(err, "block_topk")
     launches["block_topk"] += 1
+    charge("block_topk", *bill)
     return out
 
 

@@ -27,9 +27,20 @@ import torch
 from repro_torch.configs.common import ArchSpec, ShapeCfg
 from repro_torch.nn.models import Model
 
-__all__ = ["LONG_SEQ", "ServeSetup", "build_serve_setup", "instrument_steps"]
+__all__ = ["LONG_SEQ", "ServeSetup", "build_serve_setup", "cache_len_of",
+           "instrument_steps"]
 
 LONG_SEQ = 1 << 19
+
+
+def cache_len_of(cfg, seq: int) -> int:
+    """The serve caches' length: the prompt's, or the sliding window for
+    a windowed dense or MoE arch at LONG_SEQ and beyond (gemma2's
+    long_500k: every layer's ring capped at the window)."""
+    if cfg.family in ("dense", "moe") and cfg.sliding_window and \
+            seq >= LONG_SEQ:
+        return cfg.sliding_window
+    return seq
 
 
 @dataclasses.dataclass
@@ -47,11 +58,7 @@ def build_serve_setup(spec: ArchSpec, shape: ShapeCfg, smoke: bool = False,
     cfg = spec.smoke if smoke else spec.config
     model = Model(cfg, device=device, with_grad=False)
     B, S = shape.global_batch, shape.seq_len
-
-    cache_len = S
-    if cfg.family in ("dense", "moe") and cfg.sliding_window \
-            and S >= LONG_SEQ:
-        cache_len = cfg.sliding_window      # window-capped rings (gemma2)
+    cache_len = cache_len_of(cfg, S)
 
     def prefill_step(inputs: torch.Tensor):
         with torch.inference_mode():

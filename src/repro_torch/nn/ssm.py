@@ -26,6 +26,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.common import stack_trips, trips
 from .config import ModelConfig
 
 __all__ = ["leaf_shapes", "causal_conv", "ssd_chunked", "apply_mamba2",
@@ -107,15 +108,17 @@ def ssd_chunked(x, dt, A, B, C, chunk: int):
     xw = xc * (wdecay * dtc)[..., None]
     states = torch.einsum("bnjk,bnjhd->bnhkd", Bc, xw)    # (b,nc,H,N,hd)
 
-    # carry_n = exp(total_n) carry_{n-1} + states_n, folded in order
+    # carry_n = exp(total_n) carry_{n-1} + states_n from carry_{-1} = 0,
+    # folded in order (over `common.trips`); chunk n reads carry_{n-1}
     decay = torch.exp(total)                          # (b,nc,H)
-    carry = [torch.zeros_like(states[:, 0]), states[:, 0]]
-    for n in range(1, nc):
-        carry.append(states[:, n] + decay[:, n, :, None, None] * carry[-1])
-    carry_in = torch.stack(carry[:-1], dim=1)         # (b,nc,H,N,hd)
+    carry, carry_in = torch.zeros_like(states[:, 0]), []
+    for n in trips(nc, x.device):
+        carry_in.append(carry)
+        carry = states[:, n] + decay[:, n, :, None, None] * carry
+    carry_in = stack_trips(carry_in, nc, dim=1)       # (b,nc,H,N,hd)
     y_carry = torch.einsum("bnik,bnhkd->bnihd", Cc, carry_in) \
         * torch.exp(seg)[..., None]
-    return (y_local + y_carry).reshape(b, S, H, hd), carry[-1]
+    return (y_local + y_carry).reshape(b, S, H, hd), carry
 
 
 def apply_mamba2(p, x: torch.Tensor, cfg: ModelConfig, chunk: int = 64

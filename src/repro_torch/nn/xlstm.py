@@ -30,6 +30,7 @@ from typing import Dict, Tuple
 import torch
 import torch.nn.functional as F
 
+from ..kernels.common import stack_trips, trips
 from .config import ModelConfig
 from .ssm import softplus
 
@@ -92,7 +93,8 @@ def mlstm_chunk_scan(q, k, v, ig, log_f, state, chunk: int):
 
     JAX's three-operand einsums are written pairwise, each intermediate of
     at most four axes: num = (s_qk * W) (b,i,j,h) over j against v;
-    C_new's update = (k * wj) (b,j,h,d) over j against v."""
+    C_new's update = (k * wj) (b,j,h,d) over j against v.  The chunks run
+    over `common.trips`."""
     B, S, H, hd = q.shape
     nc = max(1, S // chunk)
     c = S // nc
@@ -107,7 +109,7 @@ def mlstm_chunk_scan(q, k, v, ig, log_f, state, chunk: int):
     causal = causal[None, :, :, None]
     C, n, m = state
     ys = []
-    for i in range(nc):
+    for i in trips(nc, q.device):
         qn, kn, vn = qc[:, i], kc[:, i], vc[:, i]     # (B,c,H,hd)
         bn, gn, tot = b_cum[:, i], g[:, i], total[:, i]
         bg = bn[:, :, None, :] + gn[:, None, :, :]    # (B,i,j,H)
@@ -133,7 +135,7 @@ def mlstm_chunk_scan(q, k, v, ig, log_f, state, chunk: int):
             "bjhd,bjhv->bhdv", kn * wj[..., None], vn)
         n = decay[..., None] * n + torch.einsum("bjh,bjhd->bhd", wj, kn)
         m = m_next
-    y = torch.stack(ys, dim=1).reshape(B, S, H, hd)
+    y = stack_trips(ys, nc, dim=1).reshape(B, S, H, hd)
     return y, (C, n, m)
 
 
@@ -264,11 +266,13 @@ def slstm_loop(px, wh, b, state, saved=None):
     """The sLSTM forward over time: px (S, B, 4d) f32, state (c, n, h, m)
     -> (hs (S, B, d), c, n, h, m of the last step), each step pre_t = px_t
     + h_{t-1} @ wh + b through `slstm_cell`; `saved` (4, S, B, d), when
-    given, receives each step's pre-state."""
+    given, receives each step's pre-state.  The steps run over
+    `common.trips` (on the meta device an op counter may count one step
+    S times)."""
     S, B, d4 = px.shape
     c, n, h, m = state
     hs = px.new_empty((S, B, d4 // 4))
-    for t in range(S):
+    for t in trips(S, px.device):
         if saved is not None:
             saved[0, t], saved[1, t], saved[2, t], saved[3, t] = c, n, h, m
         pre = px[t] + h @ wh + b
@@ -306,7 +310,7 @@ class SLSTMScan(torch.autograd.Function):
         px, wh, b, saved = ctx.saved_tensors
         S = px.shape[0]
         dpre = torch.empty_like(px)
-        for t in reversed(range(S)):
+        for t in trips(S, px.device, reverse=True):
             c_p, n_p, h_p, m_p = (saved[j, t] for j in range(4))
             pre = px[t] + h_p @ wh + b
             dpre[t], dc, dn, dm = slstm_cell_vjp(pre, c_p, n_p, m_p, dc, dn,

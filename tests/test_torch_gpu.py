@@ -941,3 +941,37 @@ def test_elastic_restart_resume_card_equals_cpu(cuda, tmp_path):
         done[dev] = before + (setup.model.theta.cpu(), e.cpu(), ghat.cpu())
     for a, b in zip(done["cpu"], done["cuda"]):
         assert torch.equal(a.view(torch.int32), b.view(torch.int32))
+
+
+@pytest.mark.parametrize("compressor", ["sign", "block_topk"])
+def test_counter_card_equals_meta(cuda, compressor):
+    """One smoke gemma2-2b train step (N = 4) under `op_cost.OpCounter` on
+    the card and the same step on the meta device: the same dot flops
+    and the same kernel charges (B1 x 4 and B2 on the sign wire, B3 x 4
+    and B4 on block top-K), the card's launches counted as made."""
+    from repro_torch.configs import REGISTRY, ShapeCfg
+    from repro_torch.kernels.common import launches
+    from repro_torch.launch.op_cost import OpCounter
+    from repro_torch.launch.train import TrainRun, build_train_setup
+    counts = {}
+    for dev in ("cuda", "meta"):
+        setup = build_train_setup(REGISTRY["gemma2-2b"],
+                                  ShapeCfg("train", 32, 8),
+                                  TrainRun(compressor=compressor),
+                                  smoke=True, device=dev)
+        e = torch.zeros((setup.n_code, setup.flat_pad), device=dev)
+        batch = setup.batch_to_device(setup.host_batch(0))
+        before = dict(launches)
+        with OpCounter() as c:
+            setup.train_step(setup.model, e, batch, 0)
+        made = {k: v - before[k] for k, v in launches.items()
+                if v != before[k]}
+        counts[dev] = (c, made)
+    card, meta = counts["cuda"][0], counts["meta"][0]
+    assert card.dot_flops == meta.dot_flops and card.flops > 0
+    assert card.kernels == meta.kernels
+    assert counts["cuda"][1] == {k: v["launches"]
+                                 for k, v in card.kernels.items()}
+    assert counts["meta"][1] == {}
+    local = "ef_sign_fused" if compressor == "sign" else "ef_topk_fused"
+    assert card.kernels[local]["launches"] == 4

@@ -124,9 +124,16 @@ def test_flash_wrapper_checks():
         fa.flash_attention(q, kv, kv, groups=2, window=-1)
     with pytest.raises(ValueError):                     # device mismatch
         fa.flash_attention(q, kv.to("meta"), kv, groups=2)
-    with pytest.raises(ValueError):                     # no kernel there
-        fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
-                           groups=2)
+    # the meta device (the dry run's): checked as for the card, an output
+    # of q's shape and dtype, no launch
+    before = fa.launches["flash_attention"]
+    out = fa.flash_attention(q.to("meta"), kv.to("meta"), kv.to("meta"),
+                             groups=2)
+    assert out.is_meta and out.shape == q.shape and out.dtype == q.dtype
+    assert fa.launches["flash_attention"] == before
+    with pytest.raises(ValueError):                     # bf16 needs hd % 8
+        z = torch.zeros((1, 2, 8, 12), dtype=torch.bfloat16, device="meta")
+        fa.flash_attention(z, z, z)
     with pytest.raises(RuntimeError):                   # forward only
         fa.flash_attention(q.requires_grad_(), kv, kv, groups=2)
     with torch.no_grad():
