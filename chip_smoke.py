@@ -294,6 +294,28 @@ Phases (any failure exits non-zero and prints no result line):
                 in a synchronise) timed twice, its dot TFLOP/s printed
                 against the peaks of its dtypes beside the card's name
                 and power limit
+ 16. shard      right after phase 11, on its theta (moved to the host, no
+                new draw) and its request 0: gemma2-2b at full width and
+                depth served sharded in-process on the card
+                (`launch.mesh.local_mesh`, `build_serve_setup(...,
+                mesh=)`) on (data=1, model=4) and (data=2, model=2), one
+                mesh at a time: request 0's prompt (32 x 8192, the batch
+                over data) prefilled, then 32 decode steps fed phase 11's
+                greedy tokens, twice.  It holds (a) every device's bytes
+                (theta shard, cache blocks, int32 token blocks) equal to
+                `serve_specs`' on that mesh, exactly; (b) flash_attention
+                26 times a device, 104 a sharded prefill, all on the
+                tensor-core route, none in the decode; (d) every step's
+                logits within SHARD_TOL of phase 11's (of their largest
+                magnitude: half the one-device bf16 serve's own gap to
+                f32, `tools/shard_gap.py`) and every greedy token equal
+                to phase 11's; (e) the second run's logits and
+                caches the first's bits; the cache positions the ring JAX
+                writes.  Prints per mesh the prefill seconds, decode and
+                enqueue ms a token, the gap, the tokens equal and the
+                peak; then (c) B8 at one device's shape of each mesh (B
+                32, H 2, Hkv 1; B 16, H 4, Hkv 2; both windows) against
+                the plain version, timed beside flex_attention
 Then it prints the kernel table as one JSON line, the card's
 `nvidia-smi` name and power limit, and as the last line
 {"ok": true, "device": {...}}.  Imports nothing of JAX.
@@ -1475,15 +1497,17 @@ def library_attention(torch, q, k, v, softcap: float, window: int,
                       kernel_options=kernel_options)
 
 
-def flash_at_slice(torch, ref, fa, gen, dev, cfg) -> dict:
+def flash_at_slice(torch, ref, fa, gen, dev, cfg, B=SERVE_BATCH, H=None,
+                   Hkv=None) -> dict:
     """B8 at the serve slice's two layer shapes (gemma2-2b: B 32, H 8,
-    Hkv 4, S 8192, hd 288, bf16, softcap 50): a global layer (window 0) and
-    a local one (window 4096), each against the plain version, then timed,
-    and the library call (`library_attention`) timed on the same inputs.
+    Hkv 4, S 8192, hd 288, bf16, softcap 50; or one device's heads of the
+    shard phase: B, H, Hkv given): a global layer (window 0) and a local
+    one (window 4096), each against the plain version, then timed, and
+    the library call (`library_attention`) timed on the same inputs.
     The bound counts 4 * hd flops per unmasked (q, k) pair over the bf16
     tensor-core rate, against q, k, v and o each moved once."""
-    B, S, hd = SERVE_BATCH, SERVE_SEQ, cfg.head_dim
-    H, Hkv, cap = cfg.num_heads, cfg.num_kv_heads, cfg.attn_softcap
+    S, hd, cap = SERVE_SEQ, cfg.head_dim, cfg.attn_softcap
+    H, Hkv = H or cfg.num_heads, Hkv or cfg.num_kv_heads
     from repro_torch.kernels.common import flash_routes
     q, k, v = attention_inputs(torch, gen, dev, B, Hkv, H // Hkv, S, hd,
                                torch.bfloat16)
@@ -2519,9 +2543,10 @@ def serve_request(torch, setup, prompts, launches, n_attn: int,
     return torch.stack(toks, 1), outs, prefill_s, decode_s, enqueue_s
 
 
-def serve(torch, spec, dev, launches) -> int:
-    """The serve phase (11 in the module docstring); returns the
-    flash_attention launches of the whole phase."""
+def serve(torch, spec, dev, launches) -> tuple:
+    """The serve phase (11 in the module docstring); returns (the
+    flash_attention launches of the whole phase, theta on the host,
+    request 0's (tokens, logits) on the host) for the shard phase."""
     from repro_torch.configs import ShapeCfg
     from repro_torch.launch.serve import build_serve_setup
     torch.cuda.reset_peak_memory_stats()
@@ -2557,7 +2582,203 @@ def serve(torch, spec, dev, launches) -> int:
           f"of {SERVE_BATCH} x {SERVE_SEQ} tokens + {NEW_TOKENS} decode "
           f"steps, then request 0 again bit for bit; flash_attention "
           f"launches {total}", flush=True)
-    return total
+    return total, setup.model.theta.cpu(), tuple(t.cpu() for t in first)
+
+
+# --- the shard phase (16 in the module docstring) ---------------------------
+
+SHARD_MESHES = ((1, 4), (2, 2))
+# the logits' largest gap to the one-device serve's, over its largest
+# magnitude.  tools/shard_gap.py (gemma2-2b at full width, bf16) measured
+# it at 0.83-1.25% on the CPU (2, 4, 8 layers, S 128) and 2.08-2.29% on an
+# H100 at full depth (B 4, S 8192), where the one-device bf16 serve sits
+# SHARD_BF16_ERR off its own f32 run (26 layers; 4.95% at 8): the sharded
+# sums (f32 sums of bf16 partial products, rounded once) may move the
+# logits by at most half what bf16 itself moves them
+SHARD_BF16_ERR = 0.0716
+SHARD_TOL = SHARD_BF16_ERR / 2
+
+
+def shard_run(torch, setup, prompts, toks0, launches) -> dict:
+    """Request 0's prompt through the sharded prefill, then NEW_TOKENS
+    decode steps fed phase 11's greedy tokens (step i: toks0[:, i], the
+    token phase 11 fed it), the counts reset just before: flash_attention
+    once a layer a device in the prefill, every launch on the tensor-core
+    route, none in the decode.  Returns the whole logits of every step
+    (host), each device's caches, the seconds, and the flash_attention
+    count as read after the decode."""
+    from repro_torch.kernels.common import flash_routes
+    n = setup.model.cfg.num_layers * setup.mesh.layout.size
+    torch.cuda.synchronize()
+    for counts in (launches, flash_routes):
+        for k in counts:
+            counts[k] = 0
+    t0 = time.perf_counter()
+    logits, caches = setup.prefill_step(prompts)
+    torch.cuda.synchronize()
+    prefill_s = time.perf_counter() - t0
+    if dict(launches) != {**{k: 0 for k in launches}, "flash_attention": n}:
+        fail(f"shard prefill: launch counts {dict(launches)}, want "
+             f"flash_attention x {n}")
+    if flash_routes != {"tensor_core": n, "cuda_core": 0}:
+        fail(f"shard prefill: flash_attention routes {flash_routes}, want "
+             f"all {n} on the tensor cores")
+    steps = [logits]
+    t0 = time.perf_counter()
+    for i in range(NEW_TOKENS):
+        logits, caches = setup.decode_step(caches, toks0[:, i:i + 1],
+                                           SERVE_SEQ + i)
+        steps.append(logits)
+    enqueue_s = time.perf_counter() - t0
+    torch.cuda.synchronize()
+    decode_s = time.perf_counter() - t0
+    if launches["flash_attention"] != n or sum(launches.values()) != n:
+        fail(f"shard decode: launch counts {dict(launches)}, want none "
+             f"beyond the prefill's")
+    for c in caches:
+        want_pos = torch.arange(SERVE_SEQ, device=dev_of(c),
+                                dtype=torch.int32)
+        want_pos[:NEW_TOKENS] += SERVE_SEQ  # ring slots pos % S of the decode
+        if not bool((c["kv"]["pos"] == want_pos).all()):
+            fail("shard: cache positions are not the ring JAX writes")
+    whole = torch.stack([setup.full_logits(p) for p in steps])
+    return {"logits": whole, "caches": caches, "prefill_s": prefill_s,
+            "decode_s": decode_s, "enqueue_s": enqueue_s,
+            "launches": launches["flash_attention"]}
+
+
+def dev_of(cache) -> "torch.device":
+    return cache["kv"]["pos"].device
+
+
+def shard_bytes(torch, setup, spec, prompts, caches) -> dict:
+    """(a): what each device holds, its theta shard, its cache blocks
+    after the prefill and its int32 token blocks of the prefill and a
+    decode step, against `serve_specs` on the mesh's layout, exactly."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.launch.serve import _batch_blocks, part_bytes, \
+        serve_specs
+
+    def held(tree):
+        if isinstance(tree, dict):
+            return sum(held(v) for v in tree.values())
+        return tree.numel() * tree.element_size()
+    shape = ShapeCfg("prefill", SERVE_SEQ, SERVE_BATCH)
+    layout = setup.mesh.layout
+    d = part_bytes(serve_specs(spec, shape, layout, "decode")["parts"])
+    p = part_bytes(serve_specs(spec, shape, layout, "prefill")["parts"])
+    want = {"params": d["params"], "caches": d["caches"],
+            "prefill": p["inputs"], "decode": d["inputs"]}
+    pre = _batch_blocks(setup.mesh, setup.batch_sharding, prompts)
+    dec = _batch_blocks(setup.mesh, setup.batch_sharding, prompts[:, :1])
+    for j, (par, c, a, b) in enumerate(zip(setup.model.params(), caches,
+                                           pre, dec)):
+        got = {"params": held(par), "caches": held(c), "prefill": held(a),
+               "decode": held(b)}
+        if got != want:
+            fail(f"shard {layout.shape}: device {j} holds {got}, "
+                 f"serve_specs says {want}")
+    return want
+
+
+def shard_phase(torch, ref, fa, gen, spec, dev, launches, theta, first
+                ) -> dict:
+    """Phase 16: gemma2-2b at full width and depth sharded in-process on
+    the card, on each of SHARD_MESHES, from phase 11's theta (on the
+    host; no new draw) and request 0's tokens and logits; then B8 at
+    each mesh's per-device shape.  Returns {"counts", "flash"}."""
+    from repro_torch.configs import ShapeCfg
+    from repro_torch.core.cocoef import flat_layout
+    from repro_torch.launch.mesh import MeshLayout, local_mesh
+    from repro_torch.launch.serve import build_serve_setup
+    from repro_torch.nn.transformer import param_shapes
+    cfg = spec.config
+    toks0, logits0 = (t.to(dev) for t in first)
+    state = flat_layout(param_shapes(cfg), 1, GROUP).views(theta)
+    gen0 = torch.Generator(device=dev).manual_seed(1000)
+    prompts = torch.randint(0, cfg.vocab_size, (SERVE_BATCH, SERVE_SEQ),
+                            device=dev, generator=gen0)
+    feeds = toks0
+    top2 = logits0.float().topk(2, -1).values           # (steps, B, 2)
+    scale = logits0.float().abs().amax((1, 2))           # (steps,)
+    clear = (top2[..., 0] - top2[..., 1]) > 2 * SHARD_TOL * scale[:, None]
+    del top2
+    counts, out = {}, {}
+    for dm in SHARD_MESHES:
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        layout = MeshLayout(("data", "model"), dm)
+        setup = build_serve_setup(
+            spec, ShapeCfg("prefill", SERVE_SEQ, SERVE_BATCH), device=dev,
+            mesh=local_mesh(layout, dev))
+        setup.model.load_params(state)
+        torch.cuda.synchronize()
+        load_s = time.perf_counter() - t0
+        runs = []
+        for rep in range(2):
+            r = shard_run(torch, setup, prompts, feeds, launches)
+            if rep == 0:
+                want = shard_bytes(torch, setup, spec, prompts, r["caches"])
+            r["hash"] = [bits_hash(torch, [c["kv"][k].reshape(-1)])
+                         for c in r["caches"] for k in ("k", "v")]
+            del r["caches"]
+            runs.append(r)
+        a, b = runs
+        if not (same(a["logits"], b["logits"]) and a["hash"] == b["hash"]):
+            fail(f"shard {dm}: the prefill and decode again gave other "
+                 f"logits' or caches' bits")
+        gaps = [((g.float() - w.float()).abs().max() / w.float().abs().max()
+                 ).item() for g, w in zip(a["logits"], logits0)]
+        if not max(gaps) <= SHARD_TOL:
+            fail(f"shard {dm}: logits off the one-device serve's by "
+                 f"{max(gaps):.4e} of their largest magnitude (tolerance "
+                 f"{SHARD_TOL})")
+        picks = a["logits"].float().argmax(-1)           # (steps, B)
+        base = logits0.float().argmax(-1)
+        differ = picks != base
+        if bool(differ.any()):
+            n_clear = int((differ & clear).sum())
+            fail(f"shard {dm}: {int(differ.sum())} of {differ.numel()} "
+                 f"greedy tokens differ from phase 11's ({n_clear} where "
+                 f"its top-2 gap is clear of twice the tolerance)")
+        key = f"shard {dm[0]}x{dm[1]}"
+        counts[key] = {"flash_attention": a["launches"] + b["launches"]}
+        rec = {"path": key, "mesh": list(dm), "theta_load_s": load_s,
+               "prefill_s": a["prefill_s"],
+               "prefill_tokens_per_s": SERVE_BATCH * SERVE_SEQ /
+               a["prefill_s"],
+               "decode_ms_per_token": a["decode_s"] / NEW_TOKENS * 1e3,
+               "decode_enqueue_ms_per_token": a["enqueue_s"] / NEW_TOKENS
+               * 1e3,
+               "repeat_prefill_s": b["prefill_s"],
+               "repeat_decode_ms_per_token": b["decode_s"] / NEW_TOKENS
+               * 1e3,
+               "flash_attention_per_prefill": a["launches"],
+               "max_gap": max(gaps), "tolerance": SHARD_TOL,
+               "tokens_equal": int((~differ).sum()),
+               "tokens": differ.numel(), "tokens_clear": int(clear.sum()),
+               "device_bytes": want,
+               "peak_memory_bytes": torch.cuda.max_memory_allocated()}
+        print(json.dumps(rec), flush=True)
+        out[key] = rec
+        del setup, runs, a, b
+        settle(torch, f"the shard phase on {dm}")
+    flash = {}
+    for dm, (B, H, Hkv) in zip(SHARD_MESHES, ((SERVE_BATCH, 2, 1),
+                                             (SERVE_BATCH // 2, 4, 2))):
+        key = f"shard {dm[0]}x{dm[1]}"
+        flash[key] = {"B": B, "H": H, "Hkv": Hkv,
+                      "launches": counts[key]["flash_attention"],
+                      "launches_per_prefill": out[key][
+                          "flash_attention_per_prefill"],
+                      **flash_at_slice(torch, ref, fa, gen, dev, cfg, B, H,
+                                       Hkv)}
+        settle(torch, f"flash_attention at the shard {dm} shape")
+    print(f"shard: gemma2-2b {cfg.num_layers} layers on "
+          f"{[list(m) for m in SHARD_MESHES]} in-process, request 0 "
+          f"prefilled and decoded twice, bits equal; B8 at one device's "
+          f"shape: {json.dumps(flash)}", flush=True)
+    return {"counts": counts, "flash": flash}
 
 
 def attention_layers(cfg) -> int:
@@ -3707,8 +3928,14 @@ def main() -> None:
     counts.update(ex_counts)
     if settle(torch, "the examples phase") > 1 << 30:
         fail("over 1 GiB still allocated before the serve path")
-    counts["serve prefill"] = {"flash_attention": serve(torch, spec, dev,
-                                                        launches)}
+    n_serve, theta, first = serve(torch, spec, dev, launches)
+    counts["serve prefill"] = {"flash_attention": n_serve}
+    if settle(torch, "the serve phase") > 1 << 30:
+        fail("over 1 GiB still allocated before the shard phase")
+    shard = shard_phase(torch, ref, fa, gen, spec, dev, launches, theta,
+                        first)
+    del theta, first
+    counts.update(shard["counts"])
     cells = serve_cells_phase(torch, dev, launches)
     serve_batched_check(torch)
     for c in cells.values():
@@ -3734,9 +3961,9 @@ def main() -> None:
         "block_topk": ("topk_pack", "topk_block.py:148", "ops.block_topk"),
         # the serve paths' bf16 kernel (f32 runs flash_attention.cu)
         "flash_attention": ("flash_attention_sm90", "flash_attention.py:67",
-                            ("serve prefill",) + tuple(
-                                c["path"] for c in cells.values()
-                                if c["flash_attention_per_prefill"])),
+                            ("serve prefill",) + tuple(shard["counts"]) +
+                            tuple(c["path"] for c in cells.values()
+                                  if c["flash_attention_per_prefill"])),
     }
     driver_paths = {
         "ef_sign_fused": [p for p in SIGN_PATHS if p.startswith("driver")],
@@ -3765,6 +3992,10 @@ def main() -> None:
                 r = {**r, "more": {**r.get("more", {}), "elastic_wire" + (
                     "" if key == name else f" {key.split(' ')[1]}"): x}}
         if name == "flash_attention":            # the serve cells' layers
+            for key, x in shard["flash"].items():
+                errs.append(x)
+                r = {**r, "more": {**r.get("more", {}),
+                                   key.replace(" ", "_"): x}}
             for key, x in cell_flash.items():
                 errs.append(x)
                 r = {**r, "more": {**r.get("more", {}), f"{key}_cell": {

@@ -11,6 +11,10 @@ no fallback.
   p split into two bf16 halves for p.v).  It needs hd % 8 == 0 (TMA's
   16-byte row strides) and inputs aligned to 16 bytes.
 - f32: the CUDA-core kernel (bf16 tensor cores would round the inputs).
+The sharded serve (`nn.layers.attn_prefill_sharded`) calls it once a
+device of the mesh with that device's query heads and the KV heads they
+read, each a fresh contiguous tensor (so 16-byte aligned): one launch a
+device a layer, the kernel unchanged.
 Only for CPU tensors does it run the plain version
 `ref.flash_attention_ref`.  The kernels take any S >= 1, hd <=
 MAX_HEAD_DIM and groups >= 1; where JAX's Pallas grid drops the tail rows

@@ -69,7 +69,10 @@ from repro_torch.launch import roofline
 from repro_torch.launch.mesh import MeshLayout, dry_grid, \
     make_production_mesh
 from repro_torch.launch.op_cost import OpCounter
-from repro_torch.launch.serve import cache_len_of
+# the serve's argument specs are launch.serve's (its `input_specs`), read
+# from here too
+from repro_torch.launch.serve import (_ITEMSIZE, Arg, arg, dp_spec,  # noqa
+                                      part_bytes, serve_specs)
 from repro_torch.launch.train import TrainRun
 from repro_torch.nn import transformer as T
 from repro_torch.nn.models import Model
@@ -77,55 +80,11 @@ from repro_torch.optim.optimizers import (apply_update, init_opt_state,
                                           lr_schedule)
 from repro_torch.sharding import rules
 
-__all__ = ["Arg", "train_specs", "serve_specs", "part_bytes", "run_cell",
-           "cell_path", "main"]
+__all__ = ["Arg", "train_specs", "serve_specs", "part_bytes", "dp_spec",
+           "run_cell", "cell_path", "main"]
 
 RESULTS = Path(__file__).resolve().parents[3] / "results" / "dryrun_torch"
 META = torch.device("meta")
-_ITEMSIZE = {"float32": 4, "bfloat16": 2, "int32": 4, "uint32": 4,
-             "int64": 8}
-
-
-@dataclasses.dataclass(frozen=True)
-class Arg:
-    """One argument leaf: global shape, dtype name, spec, and the shape
-    of one device's shard."""
-
-    shape: Tuple[int, ...]
-    dtype: str
-    spec: Tuple[Any, ...]
-    shard: Tuple[int, ...]
-
-    @property
-    def bytes_per_device(self) -> int:
-        return math.prod(self.shard) * _ITEMSIZE[self.dtype]
-
-
-def _arg(shape, dtype: str, spec, mesh: MeshLayout) -> Arg:
-    shape = tuple(int(d) for d in shape)
-    return Arg(shape, dtype, tuple(spec), rules.shard_shape(shape, spec,
-                                                            mesh))
-
-
-def _leaves(tree):
-    if isinstance(tree, dict):
-        for k in sorted(tree):
-            yield from _leaves(tree[k])
-    elif isinstance(tree, (tuple, list)):
-        for t in tree:
-            yield from _leaves(t)
-    else:
-        yield tree
-
-
-def part_bytes(parts: Dict[str, Any]) -> Dict[str, int]:
-    """Per-device bytes of every argument part."""
-    return {k: sum(a.bytes_per_device for a in _leaves(v))
-            for k, v in parts.items()}
-
-
-def _dtype_name(dt: torch.dtype) -> str:
-    return str(dt).split(".")[-1]
 
 
 # --------------------------------------------------------------------------
@@ -172,82 +131,37 @@ def train_specs(spec: ArchSpec, shape: ShapeCfg, mesh: MeshLayout,
     lead = rules.entry(coding_axes)
     batch = {}
     if cfg.input_mode == "tokens":
-        batch["inputs"] = _arg((n_code, b_loc, seq + 1), "int32",
+        batch["inputs"] = arg((n_code, b_loc, seq + 1), "int32",
                                (lead, inner, None), mesh)
     else:
-        batch["inputs"] = _arg((n_code, b_loc, seq, cfg.d_model),
+        batch["inputs"] = arg((n_code, b_loc, seq, cfg.d_model),
                                "bfloat16", (lead, inner, None, None), mesh)
-        batch["targets"] = _arg((n_code, b_loc, seq), "int32",
+        batch["targets"] = arg((n_code, b_loc, seq), "int32",
                                 (lead, inner, None), mesh)
-    batch["weights"] = _arg((n_code, b_loc), "float32", (lead, inner), mesh)
+    batch["weights"] = arg((n_code, b_loc), "float32", (lead, inner), mesh)
     if run.elastic:
-        batch["subset_ids"] = _arg((n_code, b_loc), "int32", (lead, inner),
+        batch["subset_ids"] = arg((n_code, b_loc), "int32", (lead, inner),
                                    mesh)
     parts = {
-        "params": {n: _arg(s, cfg.param_dtype, pspecs[n], mesh)
+        "params": {n: arg(s, cfg.param_dtype, pspecs[n], mesh)
                    for n, s in pshapes.items()},
-        "e": _arg(state_shape, run.ef_dtype, state_spec, mesh),
-        "opt": tuple(_arg(state_shape, "float32", state_spec, mesh)
+        "e": arg(state_shape, run.ef_dtype, state_spec, mesh),
+        "opt": tuple(arg(state_shape, "float32", state_spec, mesh)
                      for _ in range(n_opt)),
         "batch": batch,
-        "step": _arg((), "int32", (), mesh),
-        "key": _arg((2,), "uint32", (), mesh),
+        "step": arg((), "int32", (), mesh),
+        "key": arg((2,), "uint32", (), mesh),
     }
     if run.elastic:
         m = max(n_code, 1)
         parts["coding_state"] = {
-            "rates_estimate": _arg((m,), "float32", (), mesh),
-            "W": _arg((m, n_code), "float32", (), mesh),
-            "epoch": _arg((), "int32", (), mesh)}
+            "rates_estimate": arg((m,), "float32", (), mesh),
+            "W": arg((m, n_code), "float32", (), mesh),
+            "epoch": arg((), "int32", (), mesh)}
     return {"cfg": cfg, "run": run, "ccfg": ccfg, "n_code": n_code,
             "coding_shape": tuple(sizes[a] for a in coding_axes),
             "data_size": sizes.get("data", 1), "b_loc": b_loc, "seq": seq,
             "flat_pad": flat_pad, "effective_mode": mode, "parts": parts}
-
-
-def dp_spec(mesh: MeshLayout, batch: int):
-    """JAX's `_dp_spec`: the largest (pod, data) suffix whose product
-    divides the batch, as a spec entry."""
-    sizes = mesh.axis_sizes
-    axes = [a for a in ("pod", "data") if a in sizes]
-    while axes and batch % math.prod(sizes[a] for a in axes):
-        axes.pop(0)
-    return rules.entry(axes)
-
-
-def serve_specs(spec: ArchSpec, shape: ShapeCfg, mesh: MeshLayout,
-                kind: str, smoke: bool = False) -> Dict[str, Any]:
-    """JAX's `ServeSetup.input_specs(kind)` on `mesh`, shapes only:
-    cache_len, the batch's dp axes (`dp_spec`) and `parts`: params, and
-    for a decode the caches (`init_caches`' tree, `rules.cache_specs`),
-    the one-token inputs and pos; for a prefill the prompt."""
-    cfg = spec.smoke if smoke else spec.config
-    B, S = shape.global_batch, shape.seq_len
-    cache_len = cache_len_of(cfg, S)
-    pshapes = T.param_shapes(cfg)
-    pspecs = rules.param_specs(pshapes, cfg, mesh, fsdp=spec.coding.fsdp)
-    bspec = dp_spec(mesh, B)
-    batch_axes = (bspec if isinstance(bspec, tuple) else
-                  ((bspec,) if bspec else ()))
-    parts = {"params": {n: _arg(s, cfg.param_dtype, pspecs[n], mesh)
-                        for n, s in pshapes.items()}}
-    tok = cfg.input_mode == "tokens"
-    if kind == "decode":
-        caches = T.init_caches(cfg, B, cache_len, torch.bfloat16, META)
-        cspecs = rules.cache_specs(caches, cfg, mesh, batch_axes, B)
-        parts["caches"] = T.tree_map(
-            lambda t, s: _arg(t.shape, _dtype_name(t.dtype), s, mesh),
-            caches, cspecs)
-        parts["inputs"] = (_arg((B, 1), "int32", (bspec, None), mesh) if tok
-                           else _arg((B, 1, cfg.d_model), "bfloat16",
-                                     (bspec, None, None), mesh))
-        parts["pos"] = _arg((), "int32", (), mesh)
-    else:
-        parts["inputs"] = (_arg((B, S), "int32", (bspec, None), mesh) if tok
-                           else _arg((B, S, cfg.d_model), "bfloat16",
-                                     (bspec, None, None), mesh))
-    return {"cfg": cfg, "cache_len": cache_len, "batch_axes": batch_axes,
-            "parts": parts}
 
 
 # --------------------------------------------------------------------------

@@ -3,7 +3,7 @@ prompts decoded into the caches token by token, then new tokens decoded
 greedily.
 
     PYTHONPATH=src python -m repro_torch.launch.serve_batched
-        [--arch phi3-medium-14b] [--device cpu] [--metrics]
+        [--arch phi3-medium-14b] [--device cpu] [--metrics] [--mesh 4,2]
 
 The run of JAX's example, with its flags and defaults plus `--device`
 (default cuda): the smoke config of `--arch` on a `build_serve_setup` of
@@ -23,6 +23,12 @@ which waits for the device at every step, and writes `serve.jsonl`
 `--metrics-dir`; the teacher-forced steps of a request are its prefill
 time, the sampled ones its decode time, as in JAX's `serve_with_metrics`.
 
+`--mesh DATA,MODEL` serves on an in-process (data, model) mesh on
+`--device` (`launch.mesh.local_mesh`; JAX's example runs on (4, 2)): the
+batch over data, θ and the KV rings over model, the greedy token read
+from the logits put together (`ServeSetup.full_logits`); the default
+1,1 is the one-device run.  The dense archs only (ROADMAP A15).
+
 The archs with an embeddings input (musicgen-large, llava-next-34b) take
 (B, 1, d) embeddings, not tokens, so this token loop raises ValueError for
 them (JAX's example fails on them too).
@@ -39,6 +45,7 @@ import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.core import prng
+from repro_torch.launch.mesh import MeshLayout, local_mesh
 from repro_torch.launch.serve import build_serve_setup, instrument_steps
 
 __all__ = ["build_parser", "run", "main"]
@@ -64,30 +71,37 @@ def build_parser() -> argparse.ArgumentParser:
                     help="where --metrics writes serve.jsonl + trace.json")
     ap.add_argument("--device", default="cuda",
                     help="cuda (default) or cpu (the plain versions)")
+    ap.add_argument("--mesh", default="1,1",
+                    help="DATA,MODEL: an in-process mesh on --device "
+                         "(1,1: one device)")
     return ap
 
 
 def _serve(decode, caches, prompts: torch.Tensor, prompt_len: int,
-           total: int):
+           total: int, full=lambda x: x):
     """JAX's loop: total - 1 decode steps from position 0, teacher-forced
-    through the prompt, then greedy.  Returns (the sampled tokens (B,
-    total - prompt_len), caches)."""
+    through the prompt, then greedy (on `full` of a step's logits: the
+    whole (B, vocab) of a sharded step).  Returns (the sampled tokens (B,
+    total - prompt_len), the sampled steps' logits, caches)."""
     tok = prompts[:, :1]
-    generated = []
+    generated, logs = [], []
     for t in range(total - 1):
         logits, caches = decode(caches, tok, t)
         if t < prompt_len - 1:
             tok = prompts[:, t + 1:t + 2]          # teacher-forced prompt
         else:
+            logits = full(logits)
             tok = logits.argmax(-1)[:, None]
             generated.append(tok)
-    return torch.cat(generated, 1), caches
+            logs.append(logits)
+    return torch.cat(generated, 1), torch.stack(logs), caches
 
 
 def run(args, spec=None) -> dict:
     """The example's run (`spec`: another ArchSpec in place of --arch's,
     e.g. its smoke config in f32); returns {"tokens": (batch, new_tokens)
-    int32 numpy} and under --metrics also the summary and the paths
+    int32 numpy, "logits": the sampled steps' (new_tokens, batch, vocab)
+    f32 numpy} and under --metrics also the summary and the paths
     written."""
     spec = spec or REGISTRY[args.arch]
     cfg = spec.smoke
@@ -96,22 +110,36 @@ def run(args, spec=None) -> dict:
                          f"tokens: this example's token loop cannot serve "
                          f"it (serve it through launch.serve's steps)")
     total = args.prompt_len + args.new_tokens
-    setup = build_serve_setup(spec, ShapeCfg("decode", total, args.batch),
-                              smoke=True, device=args.device)
-    model = setup.model
-    model.init_(0)
+    shape = ShapeCfg("decode", total, args.batch)
+    dm = tuple(int(x) for x in args.mesh.split(","))
+    mesh = None if dm == (1, 1) else local_mesh(
+        MeshLayout(("data", "model"), dm), args.device)
+    setup = build_serve_setup(spec, shape, smoke=True, device=args.device,
+                              mesh=mesh)
+    if mesh is None:
+        setup.model.init_(0)
+        dev = setup.model.theta.device
+    else:                       # θ0 drawn whole, then cut into the shards
+        one = build_serve_setup(spec, shape, smoke=True, device=args.device)
+        one.model.init_(0)
+        setup.model.load_params(one.model.params())
+        del one
+        dev = mesh.device
+        print(f"mesh (data={dm[0]}, model={dm[1]}) in-process on {dev}")
     prompts = torch.from_numpy(prng.randint(
         prng.PRNGKey(0), (args.batch, total), 0, cfg.vocab_size)).to(
-            model.theta.device, torch.long)
+            dev, torch.long)
     if args.metrics:
         return serve_with_metrics(args, setup, prompts, total)
-    gen, _ = _serve(setup.decode_step, model.init_caches(args.batch, total),
-                    prompts, args.prompt_len, total)
+    gen, logs, _ = _serve(setup.decode_step,
+                          setup.model.init_caches(args.batch, total),
+                          prompts, args.prompt_len, total,
+                          setup.full_logits)
     gen = gen.cpu().numpy().astype(np.int32)
     print(f"arch={args.arch} batch={args.batch} "
           f"prompt={args.prompt_len} generated={gen.shape[1]} tokens")
     print("sampled token ids:\n", gen)
-    return {"tokens": gen}
+    return {"tokens": gen, "logits": logs.float().cpu().numpy()}
 
 
 def serve_with_metrics(args, setup, prompts: torch.Tensor, total: int
@@ -131,8 +159,10 @@ def serve_with_metrics(args, setup, prompts: torch.Tensor, total: int
         start = rec.now()
         with rec.span("serve/request", tid="requests", request_id=rid):
             n_dec = len(tel.decode_token_s)
-            gen, _ = _serve(decode, model.init_caches(args.batch, total),
-                            prompts, args.prompt_len, total)
+            gen, _, _ = _serve(decode,
+                               model.init_caches(args.batch, total),
+                               prompts, args.prompt_len, total,
+                               setup.full_logits)
         # the teacher-forced prompt pass is this request's "prefill",
         # the sampled steps its decode
         pref = sum(tel.decode_token_s[n_dec:n_dec + args.prompt_len - 1])

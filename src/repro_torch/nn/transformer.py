@@ -17,6 +17,12 @@ leaf per block — a view of block (g, i) of the stacked tensor — whose
 `.grad` is the matching view of one flat gradient buffer, so the backward
 pass accumulates straight into the flat gradient with no concatenation
 and no full-size per-layer temporaries.
+
+The sharded serve (`sharded_prefill`, `sharded_decode_step`) runs the
+dense family over the mesh that `sharding.ctx.active_mesh()` returns: a
+`Transformer` a device holds that device's shard of θ (`specs`), and the
+layers' sharded forms (`nn.layers`) loop over the devices the process
+holds.  The other families raise NotImplementedError there (ROADMAP A15).
 """
 from __future__ import annotations
 
@@ -31,6 +37,7 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch import resolve_device
 from repro_torch.core import prng
+from repro_torch.sharding import ctx
 from . import layers as L
 from . import moe as MOE
 from . import ssm as SSM
@@ -134,6 +141,17 @@ def check_family(cfg: ModelConfig) -> None:
     if cfg.family not in FAMILIES or (cfg.mla and cfg.family != "deepseek"):
         raise NotImplementedError(f"the port has the {FAMILIES} families, "
                                   f"not {cfg.family!r}")
+
+
+def check_sharded(cfg: ModelConfig) -> None:
+    """The sharded serve has the dense family (GQA attention and an MLP);
+    the MoE (expert-parallel `w_*_e`), MLA, hybrid and xLSTM families on a
+    mesh are ROADMAP A15."""
+    check_family(cfg)
+    if cfg.family != "dense":
+        raise NotImplementedError(
+            f"the sharded serve has the dense family; {cfg.name} "
+            f"({cfg.family}) on a mesh is ROADMAP A15")
 
 
 def param_shapes(cfg: ModelConfig) -> Dict[str, Tuple[int, ...]]:
@@ -363,13 +381,16 @@ class Transformer(nn.Module):
     views are attached); `stacked` maps every leaf name to its view of
     theta in the JAX shape.  `layers[l]` holds layer l's block leaves and
     `top` the embedding's and the final norm's, each an nn.Parameter
-    whose .grad is the matching view of grad."""
+    whose .grad is the matching view of grad.  A device's shard (`specs`:
+    name -> spec on a mesh, `layout` then of the shard shapes) serves
+    through `sharded_prefill` and `sharded_decode_step` only."""
 
     def __init__(self, cfg: ModelConfig, layout, theta: torch.Tensor,
-                 grad: Optional[torch.Tensor]):
+                 grad: Optional[torch.Tensor], specs=None):
         super().__init__()
         check_family(cfg)
         self.cfg = cfg
+        self.specs = specs
         self.layout = layout
         self.theta, self.grad = theta, grad
         self.stacked = layout.views(theta)
@@ -689,6 +710,102 @@ class Transformer(nn.Module):
                 tree_map(torch.Tensor.copy_, st, new)
                 x = x + h
         return self._logits(x), caches
+
+
+def _leaf_specs(specs: Dict[str, tuple]) -> Tuple[Dict, Dict]:
+    """(a block's leaf specs nested as its params (the stack dim dropped),
+    the embedding's leaf specs) of a dense stack's `specs`."""
+    blk = {n[len("blocks/"):]: s[1:] for n, s in specs.items()
+           if n.startswith("blocks/")}
+    emb = {n[len("embed/"):]: s for n, s in specs.items()
+           if n.startswith("embed/")}
+    return _nest(blk), emb
+
+
+def _mesh():
+    mesh = ctx.active_mesh()
+    if mesh is None:
+        raise RuntimeError("the sharded serve runs under "
+                           "sharding.ctx.use_mesh(mesh)")
+    return mesh
+
+
+def _sharded_block(mesh, nets, l: int, xs, bs, attn):
+    """Block l of every device's stack: norm1, attention (`attn(ps, hs)`
+    -> the outputs a device), the residual, norm2, the sharded MLP, the
+    residual; each add made once a distinct pair of tensors
+    (`layers.each_distinct`)."""
+    cfg = nets[0].cfg
+    ps = [n._blocks[l] for n in nets]
+    hs = [L.apply_norm(p["norm1"], x, cfg) for p, x in zip(ps, xs)]
+    xs = L.each_distinct(torch.add, xs, attn([p["attn"] for p in ps], hs))
+    hs = [L.apply_norm(p["norm2"], x, cfg) for p, x in zip(ps, xs)]
+    return L.each_distinct(torch.add, xs, L.apply_mlp_sharded(
+        mesh, [p["mlp"] for p in ps], bs["mlp"], hs, cfg))
+
+
+def _sharded_logits(mesh, nets, xs, emb):
+    cfg = nets[0].cfg
+    last = [L.apply_norm(n.final_p, x[:, -1:], cfg) for n, x in zip(nets,
+                                                                    xs)]
+    return [t[:, -1] for t in L.logits_sharded(
+        mesh, [n.embed_p for n in nets], emb, last, cfg)]
+
+
+@torch.no_grad()
+def sharded_prefill(nets, inputs, cache_dtype=torch.bfloat16):
+    """The dense `prefill` over the active mesh: `nets` a `Transformer`
+    shard a local device (mesh.indices order), `inputs` each device's
+    batch block (B_loc, S) tokens or (B_loc, S, d) embeddings.  Returns
+    (each device's logits block (B_loc, vocab / model where it divides),
+    each device's caches {"kv": {"k", "v": (L, B_loc, KV heads, S,
+    head_dim) of `layers.kv_block_dims`, "pos": (L, S)}})."""
+    mesh = _mesh()
+    cfg = nets[0].cfg
+    check_sharded(cfg)
+    bs, emb = _leaf_specs(nets[0].specs)
+    xs = L.embed_sharded(mesh, [n.embed_p for n in nets], emb, inputs, cfg)
+    Lyr, S = cfg.num_layers, inputs[0].shape[1]
+    hk, width = L.kv_block_dims(cfg, mesh)
+    caches = []
+    for x in xs:
+        shape = (Lyr, x.shape[0], hk, S, width)
+        caches.append({"kv": {
+            "k": torch.empty(shape, dtype=cache_dtype, device=x.device),
+            "v": torch.empty(shape, dtype=cache_dtype, device=x.device),
+            "pos": torch.arange(S, dtype=torch.int32,
+                                device=x.device).repeat(Lyr, 1)}})
+    for l in range(Lyr):
+        def attn(ps, hs, l=l):
+            ys, kvs = L.attn_prefill_sharded(mesh, ps, bs["attn"], hs, cfg,
+                                             window=nets[0].windows[l])
+            for c, (k, v) in zip(caches, kvs):
+                c["kv"]["k"][l].copy_(k)
+                c["kv"]["v"][l].copy_(v)
+            return ys
+        xs = _sharded_block(mesh, nets, l, xs, bs, attn)
+    return _sharded_logits(mesh, nets, xs, emb), caches
+
+
+@torch.no_grad()
+def sharded_decode_step(nets, caches, inputs, pos: int):
+    """The dense `decode_step` over the active mesh: each device's caches
+    (`sharded_prefill`'s tree) updated in place at slot pos % T, inputs
+    each device's (B_loc, 1) tokens or (B_loc, 1, d) embeddings.  Returns
+    (each device's logits block, caches)."""
+    mesh = _mesh()
+    cfg = nets[0].cfg
+    check_sharded(cfg)
+    bs, emb = _leaf_specs(nets[0].specs)
+    xs = L.embed_sharded(mesh, [n.embed_p for n in nets], emb, inputs, cfg)
+    for l in range(cfg.num_layers):
+        def attn(ps, hs, l=l):
+            return L.attn_decode_sharded(
+                mesh, ps, bs["attn"], hs, cfg,
+                [_at(c["kv"], l) for c in caches], pos,
+                window=nets[0].windows[l])
+        xs = _sharded_block(mesh, nets, l, xs, bs, attn)
+    return _sharded_logits(mesh, nets, xs, emb), caches
 
 
 def _stacked(states: list, lead: Tuple[int, ...]):

@@ -14,6 +14,14 @@ Every spec is checked against the mesh: an axis that does not divide its
 dim is dropped and, where another replicated dim divides by it, placed
 there instead (`_check_divisible`).  The meshes are `launch.mesh.
 MeshLayout`s: only the axis names and sizes are read.
+
+The sharded serve reads a device's block of a leaf with `shard_of` and
+puts blocks back together with `unshard`; `dp_spec` is the serve batch's
+data-parallel axes (JAX's `_dp_spec`); `serve_cache_specs` is the port's
+own layout of the KV rings (ROADMAP C17: the KV heads over the model axis
+where they and head_dim divide it, else JAX's `cache_specs`, head_dim over
+model; the batch over the dp axes on its own dim), whose per-device bytes
+are JAX's either way.
 """
 from __future__ import annotations
 
@@ -22,8 +30,10 @@ from typing import Any, Dict, List, Sequence, Tuple
 
 from repro_torch.nn.config import ModelConfig
 
-__all__ = ["param_specs", "grads_specs", "cache_specs", "shard_shape",
-           "local_flat_size", "entry"]
+__all__ = ["param_specs", "param_shardings", "grads_specs", "cache_specs",
+           "serve_cache_specs", "ring_spec", "kv_heads_split", "dp_spec",
+           "batch_axes", "device_coords", "shard_shape", "shard_of",
+           "unshard", "local_flat_size", "entry"]
 
 M = "model"
 D = "data"
@@ -159,6 +169,15 @@ def param_specs(shapes: Dict[str, Tuple[int, ...]], cfg: ModelConfig,
             for name, shape in shapes.items()}
 
 
+def param_shardings(shapes: Dict[str, Tuple[int, ...]], cfg: ModelConfig,
+                    mesh, fsdp: bool = False
+                    ) -> Dict[str, Tuple[Spec, Tuple[int, ...]]]:
+    """name -> (spec, one device's shard shape) of every parameter leaf
+    (JAX's `NamedSharding`s, as what they say of one device)."""
+    return {name: (s, shard_shape(shapes[name], s, mesh))
+            for name, s in param_specs(shapes, cfg, mesh, fsdp).items()}
+
+
 def grads_specs(shapes: Dict[str, Tuple[int, ...]], cfg: ModelConfig,
                 mesh, coding_axes: Sequence[str], fsdp: bool = False
                 ) -> Dict[str, Spec]:
@@ -204,6 +223,131 @@ def cache_specs(caches, cfg: ModelConfig, mesh, batch_axes: Sequence[str],
         return tuple(spec)
 
     return _map(rule, caches)
+
+
+def dp_spec(mesh, batch: int):
+    """JAX's `_dp_spec`: the largest (pod, data) suffix whose product
+    divides the batch, as a spec entry (None: the batch is whole)."""
+    sizes = mesh.axis_sizes
+    axes = [a for a in ("pod", "data") if a in sizes]
+    while axes and batch % math.prod(sizes[a] for a in axes):
+        axes.pop(0)
+    return entry(axes)
+
+
+def batch_axes(mesh, batch: int) -> Tuple[str, ...]:
+    """The axes of `dp_spec(mesh, batch)` as a tuple."""
+    b = dp_spec(mesh, batch)
+    return b if isinstance(b, tuple) else ((b,) if b else ())
+
+
+def kv_heads_split(cfg: ModelConfig, mesh) -> bool:
+    """Whether the sharded serve splits the KV heads over the model axis
+    (C17): the query and KV heads and head_dim all divide it, so each
+    device attends with its own heads and its ring holds JAX's bytes."""
+    m = mesh.axis_sizes.get(M, 1)
+    return not (cfg.num_heads % m or cfg.num_kv_heads % m or
+                cfg.head_dim % m)
+
+
+def serve_cache_specs(caches, cfg: ModelConfig, mesh,
+                      batch_axes: Sequence[str], global_batch: int):
+    """The port's layout of the dense family's serve caches (C17), a tree
+    of `caches`' nesting: k and v (L, B, Hkv, T, hd) with the batch over
+    `batch_axes` on B and, on a model axis above 1, the KV heads over it
+    where `kv_heads_split`, else head_dim where it divides (JAX's
+    `cache_specs`, which puts the batch on the first dim of the global
+    batch's size: L where L == B); pos replicated.  A device's bytes equal
+    JAX's layout's in every case.  Only the leaves' ranks are read, so
+    `caches` may hold global or per-device shapes."""
+    sizes = mesh.axis_sizes
+    b_axes = tuple(a for a in batch_axes if a in mesh.axis_names)
+    nb = math.prod(sizes[a] for a in b_axes) if b_axes else 1
+    b = entry(b_axes) if nb > 1 and global_batch % nb == 0 else None
+    ring = ring_spec(cfg, mesh, b)
+
+    def rule(path, leaf):
+        if path and path[-1] == "pos":
+            return (None,) * len(leaf.shape)
+        return ring
+
+    return _map(rule, caches)
+
+
+def ring_spec(cfg: ModelConfig, mesh, batch=None) -> Spec:
+    """The spec of a k or v ring (L, B, Hkv, T, hd) in the port's layout
+    (C17), the batch dim laid out by `batch`: on a model axis above 1
+    the KV heads over it where `kv_heads_split`, else head_dim where it
+    divides."""
+    m = mesh.axis_sizes.get(M, 1)
+    heads = m > 1 and kv_heads_split(cfg, mesh)
+    hd = M if m > 1 and not heads and cfg.head_dim % m == 0 else None
+    return (None, batch, M if heads else None, None, hd)
+
+
+def device_coords(mesh, index: int) -> Dict[str, int]:
+    """The axis coordinates of device `index` (row-major over the axes,
+    as JAX's mesh devices array)."""
+    coords, rest = {}, index
+    for name, n in reversed(list(zip(mesh.axis_names, mesh.shape))):
+        coords[name] = rest % n
+        rest //= n
+    return coords
+
+
+def _blocks(shape: Sequence[int], spec: Spec, mesh, index: int):
+    """(start, length) along each dim of device `index`'s block."""
+    sizes = mesh.axis_sizes
+    coords = device_coords(mesh, index)
+    spec = tuple(spec) + (None,) * (len(shape) - len(spec))
+    out = []
+    for dim, e in zip(shape, spec):
+        if e is None:
+            out.append((0, dim))
+            continue
+        pos = 0
+        for a in _axes(e):             # row-major over the entry's axes
+            pos = pos * sizes[a] + coords[a]
+        n = dim // math.prod(sizes[a] for a in _axes(e))
+        out.append((pos * n, n))
+    return out
+
+
+def shard_of(t, spec: Spec, mesh, index: int):
+    """Device `index`'s block of the full tensor `t` laid out by `spec`
+    (a view: `Tensor.narrow` along each sharded dim; JAX's
+    `NamedSharding` places block p of a dim over axes (a, b) at a's
+    coordinate * |b| + b's)."""
+    shard_shape(t.shape, spec, mesh)            # raises where it does not
+    for d, (start, n) in enumerate(_blocks(t.shape, spec, mesh, index)):
+        if n != t.shape[d]:
+            t = t.narrow(d, start, n)
+    return t
+
+
+def unshard(parts: Sequence[Any], spec: Spec, mesh):
+    """The full tensor from every device's block (`parts`, mesh.size of
+    them in device order; a replicated block is read from the first
+    device that holds it): the inverse of `shard_of`."""
+    if len(parts) != mesh.size:
+        raise ValueError(f"{len(parts)} parts for a mesh of {mesh.size}")
+    first = parts[0]
+    spec = tuple(spec) + (None,) * (first.dim() - len(spec))
+    full_shape = [n * (1 if e is None else
+                       math.prod(mesh.axis_sizes[a] for a in _axes(e)))
+                  for n, e in zip(first.shape, spec)]
+    out = first.new_empty(full_shape)
+    seen = set()
+    for i, p in enumerate(parts):
+        blocks = tuple(_blocks(full_shape, spec, mesh, i))
+        if blocks in seen:
+            continue
+        seen.add(blocks)
+        view = out
+        for d, (start, n) in enumerate(blocks):
+            view = view.narrow(d, start, n)
+        view.copy_(p)
+    return out
 
 
 def shard_shape(shape: Sequence[int], spec: Spec, mesh) -> Tuple[int, ...]:

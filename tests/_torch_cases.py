@@ -11,6 +11,7 @@ import textwrap
 from pathlib import Path
 
 import numpy as np
+import pytest
 import torch
 
 from repro_torch.configs import REGISTRY, ShapeCfg
@@ -29,6 +30,14 @@ def one_thread():
         yield
     finally:
         torch.set_num_threads(threads)
+
+
+@pytest.fixture(autouse=True, scope="module")
+def one_thread_module():
+    """`one_thread` around a whole test module: import it there (pytest
+    finds an autouse fixture among a module's names)."""
+    with one_thread():
+        yield
 
 
 def ef_inputs(n: int, group_size: int, seed: int, denormals: bool = True):
@@ -503,3 +512,90 @@ def dtype_case(name: str):
         return torch.from_numpy(x).to(getattr(torch, dt)).float().numpy()
     return (axes, {**kw, "ef_dtype": edt}, stored(g, gdt), stored(e, edt),
             gdt, edt)
+
+
+# --- the sharded serve (tests/test_torch_shard_serve.py, the gloo job) -----
+
+SHARD_ARCHS = ("gemma2-2b", "phi3-medium-14b", "musicgen-large")
+SHARD_MESHES = ((2, 2), (1, 4))
+SHARD_CASES = [(a, m) for a in SHARD_ARCHS for m in SHARD_MESHES]
+SHARD_B, SHARD_S, SHARD_STEPS = 8, 16, 3
+
+
+def shard_params(arch: str) -> dict:
+    """Seeded f32 parameters of `arch`'s smoke config, name -> numpy, at
+    JAX's init scales: normal / sqrt(fan_in) (`dense_init`'s in-axis
+    size: d for wq, wk, wv and proj, H * hd for wo, the rows of the MLP
+    and head matrices), the token table normal, the norms' scales
+    1 + normal / 10 and the biases normal / 10."""
+    from repro_torch.nn.transformer import param_shapes
+    rng = np.random.default_rng(7)
+    out = {}
+    for name, shape in sorted(param_shapes(REGISTRY[arch].smoke).items()):
+        x = rng.standard_normal(shape).astype(np.float32)
+        leaf = name.rsplit("/", 1)[-1]
+        if leaf == "scale":
+            x = 1 + x / 10
+        elif leaf in ("bq", "bk", "bv", "bias"):
+            x = x / 10
+        elif leaf in ("wq", "wk", "wv"):
+            x = x / np.float32(np.sqrt(shape[-3]))
+        elif leaf == "wo":
+            x = x / np.float32(np.sqrt(shape[-3] * shape[-2]))
+        elif leaf != "tok":
+            x = x / np.float32(np.sqrt(shape[-2]))
+        out[name] = x.astype(np.float32)
+    return out
+
+
+def shard_inputs(arch: str):
+    """(prompt (B, S), SHARD_STEPS decode feeds (B, 1)): int32 tokens, or
+    f32 embeddings of scale 0.02 that each side rounds to bf16."""
+    cfg = REGISTRY[arch].smoke
+    rng = np.random.default_rng(8)
+
+    def draw(n):
+        if cfg.input_mode == "tokens":
+            return rng.integers(0, cfg.vocab_size, (SHARD_B, n)
+                                ).astype(np.int32)
+        return (rng.standard_normal((SHARD_B, n, cfg.d_model)) * 0.02
+                ).astype(np.float32)
+    return draw(SHARD_S), [draw(1) for _ in range(SHARD_STEPS)]
+
+
+def _torch_input(a: np.ndarray) -> torch.Tensor:
+    t = torch.from_numpy(a)
+    return t.to(torch.bfloat16) if t.is_floating_point() else t
+
+
+def _host_copy(tree):
+    """A copy on the CPU of every tensor of a (nested) list or dict."""
+    if isinstance(tree, dict):
+        return {k: _host_copy(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_host_copy(v) for v in tree)
+    return tree.to("cpu", copy=True)
+
+
+def run_sharded(arch: str, mesh=None, device="cpu") -> dict:
+    """The port's serve of `arch`'s smoke config from `shard_params`:
+    the prefill of `shard_inputs`' prompt, then its SHARD_STEPS decode
+    steps at positions S, S + 1, ... on `mesh` (a `DeviceMesh`; None: one
+    device).  Returns {"logits": the prefill's and each step's, "caches":
+    the prefill's and the last step's}, on a mesh as lists of the local
+    devices' blocks, on the CPU."""
+    from repro_torch.launch.serve import build_serve_setup
+    setup = build_serve_setup(REGISTRY[arch],
+                              ShapeCfg("prefill", SHARD_S, SHARD_B),
+                              smoke=True, device=device, mesh=mesh)
+    setup.model.load_params({k: torch.from_numpy(v)
+                             for k, v in shard_params(arch).items()})
+    prompt, feeds = shard_inputs(arch)
+    logits, caches = setup.prefill_step(_torch_input(prompt).to(device))
+    out = {"logits": [_host_copy(logits)], "caches": [_host_copy(caches)]}
+    for t, feed in enumerate(feeds):
+        logits, caches = setup.decode_step(
+            caches, _torch_input(feed).to(device), SHARD_S + t)
+        out["logits"].append(_host_copy(logits))
+    out["caches"].append(_host_copy(caches))
+    return out

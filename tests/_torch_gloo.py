@@ -12,6 +12,11 @@ writing what it computed to `rank<r>.pt` for the tests to compare.
            `_torch_cases.dtype_case_names()` (g and e stored in bf16), and
            3 steps of the train job with TrainRun(param_dtype="bfloat16",
            ef_dtype="bfloat16") on the sign and block top-K wires.
+  serve    the sharded serve on the process mesh (`launch.mesh.
+           process_mesh`, one device a process) of every (arch, mesh) of
+           `_torch_cases.SHARD_CASES`: `_torch_cases.run_sharded`'s
+           prefill and decode steps, each device's logits and cache
+           blocks.
 
 Every process runs on one thread (stage 1 on the CPU depends on the
 thread count; the one-device runs the tests compare with do the same).
@@ -125,6 +130,17 @@ def _dtypes(rank, out):
         out[f"{comp}/e"] = e.clone()
 
 
+def _serve(rank, out):
+    from repro_torch.launch.mesh import MeshLayout, process_mesh
+    from _torch_cases import SHARD_CASES as CASES, run_sharded
+    meshes = {}
+    for arch, shape in CASES:
+        if shape not in meshes:       # new_group is collective: one order
+            meshes[shape] = process_mesh(MeshLayout(("data", "model"),
+                                                    shape))
+        out[f"{arch}/{shape}"] = run_sharded(arch, meshes[shape])
+
+
 def _worker(rank, job, outdir, init):
     torch.set_num_threads(1)
     sys.path.insert(0, str(HERE))
@@ -132,24 +148,34 @@ def _worker(rank, job, outdir, init):
                             rank=rank, world_size=WORLD)
     out = {}
     try:
-        {"parity": _parity, "train": _train,
-         "dtypes": _dtypes}[job](rank, out)
+        {"parity": _parity, "train": _train, "dtypes": _dtypes,
+         "serve": _serve}[job](rank, out)
         dist.barrier()
     finally:
         dist.destroy_process_group()
     torch.save(out, os.path.join(outdir, f"rank{rank}.pt"))
 
 
-def run_gloo(job: str, outdir: Path, timeout: int = 240):
-    """Start the 4 processes of `job` once; returns each rank's dict."""
+def start_gloo(job: str, outdir: Path) -> subprocess.Popen:
+    """Start the 4 processes of `job`; `collect` waits for them."""
     env = dict(os.environ)
     env["PYTHONPATH"] = SRC + os.pathsep + env.get("PYTHONPATH", "")
-    r = subprocess.run([sys.executable, __file__, job, str(outdir)],
-                       env=env, capture_output=True, text=True,
-                       timeout=timeout)
-    assert r.returncode == 0, r.stderr[-3000:]
+    return subprocess.Popen([sys.executable, __file__, job, str(outdir)],
+                            env=env, stdout=subprocess.DEVNULL,
+                            stderr=subprocess.PIPE, text=True)
+
+
+def collect(proc: subprocess.Popen, outdir: Path, timeout: int = 240):
+    """Each rank's dict of a `start_gloo` run."""
+    _, err = proc.communicate(timeout=timeout)
+    assert proc.returncode == 0, err[-3000:]
     return [torch.load(outdir / f"rank{i}.pt", weights_only=False)
             for i in range(WORLD)]
+
+
+def run_gloo(job: str, outdir: Path, timeout: int = 240):
+    """Start the 4 processes of `job` once; returns each rank's dict."""
+    return collect(start_gloo(job, outdir), outdir, timeout)
 
 
 if __name__ == "__main__":

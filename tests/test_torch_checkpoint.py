@@ -24,6 +24,7 @@ import pytest
 import torch
 
 from _torch_cases import SRC, _state_dict
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from repro.checkpoint import checkpoint as jck
 from repro.configs import REGISTRY as JREG
 from repro.nn import Model as JModel

@@ -39,6 +39,7 @@ import torch
 from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
                           _port_setup, _state_dict, ef_inputs, topk_rows,
                           ulp_diff)
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from repro.core.collectives import SparseWire as JaxSparseWire
 from repro.kernels import ref as jref, sign_pack as jsp, topk_block as jtb
 from repro_torch.core.cocoef import CocoEFConfig, cocoef_update

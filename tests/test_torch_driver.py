@@ -37,6 +37,7 @@ import torch
 
 from _torch_cases import (G, LR, N, SRC, _port_setup, _state_dict,
                           one_thread)
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from repro_torch.configs import REGISTRY, ShapeCfg
 from repro_torch.core.plan import PlanSpec
 from repro_torch.launch import train_e2e

@@ -29,6 +29,7 @@ import pytest
 import torch
 
 from _torch_cases import G, LR, N, SRC, _port_setup
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from repro_torch.kernels import sign_pack as sp, topk_pack as tp
 
 RUNS = {

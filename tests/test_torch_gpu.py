@@ -975,3 +975,36 @@ def test_counter_card_equals_meta(cuda, compressor):
     assert counts["meta"][1] == {}
     local = "ef_sign_fused" if compressor == "sign" else "ef_topk_fused"
     assert card.kernels[local]["launches"] == 4
+
+
+def test_sharded_serve_on_the_card_matches_the_cpu(cuda):
+    """gemma2-2b's smoke serve on an in-process (data=1, model=4) mesh on
+    the card against the same mesh on the CPU (`_torch_cases.
+    run_sharded`: prefill and 3 decode steps from one set of seeded
+    parameters): one flash_attention launch a layer a device, all on the
+    tensor cores, and every device's logits and cache blocks within the
+    bf16 tolerance of the serve tests (2**-6 of the largest magnitude),
+    the positions exact, the greedy tokens equal."""
+    from _torch_cases import run_sharded
+    from repro_torch.configs import REGISTRY
+    from repro_torch.launch.mesh import MeshLayout, local_mesh
+    layout = MeshLayout(("data", "model"), (1, 4))
+    cpu = run_sharded("gemma2-2b", local_mesh(layout, "cpu"))
+    before = dict(flash_routes)
+    card = run_sharded("gemma2-2b", local_mesh(layout, cuda), device=cuda)
+    n = REGISTRY["gemma2-2b"].smoke.num_layers * layout.size
+    assert flash_routes["tensor_core"] - before["tensor_core"] == n
+    assert flash_routes["cuda_core"] == before["cuda_core"]
+
+    def gap(a, b):
+        a, b = a.float(), b.float()
+        return ((a - b).abs().max() / b.abs().max()).item()
+    for steps_c, steps_g in zip(cpu["logits"], card["logits"]):
+        for c, g in zip(steps_c, steps_g):
+            assert gap(g, c) <= 2.0 ** -6
+            assert torch.equal(g.float().argmax(-1), c.float().argmax(-1))
+    for trees_c, trees_g in zip(cpu["caches"], card["caches"]):
+        for c, g in zip(trees_c, trees_g):
+            for leaf in ("k", "v"):
+                assert gap(g["kv"][leaf], c["kv"][leaf]) <= 2.0 ** -6
+            assert torch.equal(g["kv"]["pos"], c["kv"]["pos"])

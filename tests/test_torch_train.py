@@ -29,6 +29,7 @@ import torch
 
 from _torch_cases import (G, LR, N, STEPS, _jax_run, _normal_blocks,
                           _port_setup, _state_dict, jax_batch)
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from _torch_gloo import TRAIN_STEPS, run_gloo, train_spec
 from repro.core import coding as jcoding
 from repro.core.collectives import SparseWire as JaxSparseWire

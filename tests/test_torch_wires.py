@@ -40,6 +40,7 @@ import pytest
 import torch
 
 from _torch_cases import LR, N, STEPS
+from _torch_cases import one_thread_module  # noqa: F401 (autouse)
 from _torch_wire_cases import (RUNS, _bits, _equal, _t, dump,
                                end_to_end_matches_jax, setup_matches_jax,
                                stage2_with_jax_gradients,
